@@ -1,0 +1,94 @@
+"""Kernel build: compiles ``csrc/<name>.cu`` with nvcc for Hopper
+(``sm_90a``) into a shared library with a plain C interface and loads it
+with ctypes. The build runs at first use into ``visionworkbench_torch/_build``
+(listed in ``.gitignore``), named by a hash of the source and the flags, so
+an edited source is rebuilt. A missing nvcc or a failed build raises; there
+is no fallback.
+
+``build()`` starts one nvcc per source, all together, and waits for all.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("sweep", "speckle")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.access(os.path.join(cand, "bin", "nvcc"), os.X_OK):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("visionworkbench_torch: nvcc not found (set "
+                           "CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Build the named kernels that are not built yet, one nvcc each, all
+    started together. Returns ``{name: library path}``; raises on failure.
+    Each build's compiler messages (``-Xptxas=-v``: registers, shared
+    memory, spills) are kept beside the library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in out.items() if not p.exists()}
+    if not todo:
+        return out
+    nvcc = _nvcc()
+    procs = {}
+    for n, p in todo.items():
+        tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        todo[n].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, todo[n])
+    if failed:
+        raise RuntimeError("visionworkbench_torch: kernel build failed: "
+                           + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        _loaded[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"visionworkbench_torch: {what} launch failed "
+                           f"with cudaError_t {err}")

@@ -1,0 +1,148 @@
+"""Disparity-map utilities on the correlator's path (port of
+``visionworkbench_tpu/stereo/disparity.py``; ref
+``src/vw/Stereo/DisparityMap.h`` and the L-R check of
+``src/vw/Stereo/Correlate.cc:1441-1502``).
+
+The speckle filter runs on integer disparities through the packed code
+plane and ``ops/speckle.py``, which launches the CUDA stencil for tensors on
+the card (any frame shape) and runs its plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from visionworkbench_torch.core.exceptions import ArgumentErr
+from visionworkbench_torch.math.bbox import BBox2i
+from visionworkbench_torch.ops.speckle import speckle_keep_mask
+from visionworkbench_torch.stereo.correlation import DisparityMap
+
+
+def _pixel_grid(h: int, w: int, device):
+    ys = torch.arange(h, dtype=torch.int32, device=device)[:, None]
+    xs = torch.arange(w, dtype=torch.int32, device=device)[None, :]
+    return ys, xs
+
+
+def disparity_mask(dm: DisparityMap, left_mask, right_mask,
+                   disparity_bounds: Optional[BBox2i] = None) -> DisparityMap:
+    """Invalidate disparities whose left pixel is masked or whose right-image
+    target pixel is masked or out of bounds (ref ``disparity_mask``,
+    DisparityMap.h:248). ``disparity_bounds`` is accepted for the JAX
+    signature; the port always reads the right mask with one gather."""
+    h, w = dm.valid.shape
+    rh, rw = right_mask.shape
+    ys, xs = _pixel_grid(h, w, dm.valid.device)
+    tx = xs + dm.disparity[..., 0].to(torch.int32)
+    ty = ys + dm.disparity[..., 1].to(torch.int32)
+    in_bounds = (tx >= 0) & (tx < rw) & (ty >= 0) & (ty < rh)
+    right_ok = right_mask[ty.clamp(0, rh - 1).long(), tx.clamp(0, rw - 1).long()]
+    valid = dm.valid & left_mask & right_ok & in_bounds
+    return DisparityMap(torch.where(valid[..., None], dm.disparity,
+                                    torch.zeros_like(dm.disparity)), valid)
+
+
+def _pack_code(disp, valid):
+    """(dx, dy, valid) -> one int32 code plane: dx field << 14, dy low 14
+    bits (both offset by 8192), invalid or out-of-band (|d| >= 8191) pixels
+    code 0, whose dx-field difference vs any in-band value exceeds any
+    threshold <= 26 — so they can never falsely agree."""
+    dxi = torch.round(disp[..., 0]).to(torch.int32)
+    dyi = torch.round(disp[..., 1]).to(torch.int32)
+    in_band = valid & (dxi.abs() < 8191) & (dyi.abs() < 8191)
+    code = ((dxi + 8192) << 14) | (dyi + 8192)
+    return torch.where(in_band, code, torch.zeros_like(code))
+
+
+def _min_match(total: int, rejection_threshold: float) -> int:
+    """Smallest integer m with float32(m)/float32(total) >= rej — the exact
+    integer form of the float-path keep test."""
+    rej = np.float32(rejection_threshold)
+    for m in range(total + 1):
+        if np.float32(m) / np.float32(total) >= rej:
+            return m
+    return total + 1
+
+
+def _rm_outliers_int(disp, valid, half_h: int, half_v: int,
+                     pixel_threshold: float, rejection_threshold: float):
+    """Integer-disparity speckle filter (bit-identical to the JAX package's
+    ``_rm_outliers_int`` on integer-valued disparities with |d| < 8191):
+    the window count runs in ``ops.speckle.speckle_keep_mask``."""
+    t = int(np.floor(pixel_threshold))
+    total = (2 * half_v + 1) * (2 * half_h + 1)
+    keep = speckle_keep_mask(_pack_code(disp, valid), half_h, half_v, t,
+                             _min_match(total, rejection_threshold)) != 0
+    new_valid = valid & keep
+    return (torch.where(new_valid[..., None], disp, torch.zeros_like(disp)),
+            new_valid)
+
+
+def rm_outliers_using_thresh(dm: DisparityMap, half_h_kernel: int,
+                             half_v_kernel: int, pixel_threshold: float,
+                             rejection_threshold: float,
+                             integer_disparities: bool = False) -> DisparityMap:
+    """Neighborhood-agreement speckle filter (ref ``rm_outliers_using_thresh``,
+    DisparityMap.h:405-433): a valid pixel survives iff the fraction of window
+    neighbors that are valid and within ``pixel_threshold`` in both disparity
+    channels is at least ``rejection_threshold``. The port has the
+    integer-disparity form only (every pre-subpixel pyramid level), so
+    ``integer_disparities`` must be True."""
+    if not integer_disparities:
+        raise ArgumentErr("rm_outliers_using_thresh: only integer disparities "
+                          "are ported (pass integer_disparities=True); the "
+                          "float form comes with a later slice")
+    disp, valid = _rm_outliers_int(dm.disparity, dm.valid, int(half_h_kernel),
+                                   int(half_v_kernel), float(pixel_threshold),
+                                   float(rejection_threshold))
+    return DisparityMap(disp, valid)
+
+
+def disparity_cleanup_using_thresh(dm: DisparityMap, half_h_kernel: int,
+                                   half_v_kernel: int, pixel_threshold: float,
+                                   rejection_threshold: float,
+                                   integer_disparities: bool = False) -> DisparityMap:
+    """Two-pass cleanup; second pass hard-coded to (1, 1, 3.0, 0.20)
+    (ref ``disparity_cleanup_using_thresh``, DisparityMap.h:426-447)."""
+    out = rm_outliers_using_thresh(dm, half_h_kernel, half_v_kernel,
+                                   pixel_threshold, rejection_threshold,
+                                   integer_disparities)
+    return rm_outliers_using_thresh(out, 1, 1, 3.0, 0.20, integer_disparities)
+
+
+def cross_corr_consistency_check(l2r: DisparityMap, r2l: DisparityMap,
+                                 cross_corr_threshold: float = 2.0,
+                                 return_diff: bool = False):
+    """L-to-R vs R-to-L agreement test (ref ``cross_corr_consistency_check``,
+    Correlate.cc:1441-1502): pixel survives iff the R-L disparity at its match
+    target negates its own disparity to within the threshold."""
+    h, w = l2r.valid.shape
+    rh, rw = r2l.valid.shape
+    ys, xs = _pixel_grid(h, w, l2r.valid.device)
+    tx = xs + l2r.disparity[..., 0].to(torch.int32)
+    ty = ys + l2r.disparity[..., 1].to(torch.int32)
+    in_bounds = (tx >= 0) & (tx < rw) & (ty >= 0) & (ty < rh)
+    tyc, txc = ty.clamp(0, rh - 1).long(), tx.clamp(0, rw - 1).long()
+    rvalid = r2l.valid[tyc, txc]
+    rd = r2l.disparity[tyc, txc].to(torch.float32)
+    ld = l2r.disparity.to(torch.float32)
+    diff = torch.maximum((ld[..., 0] + rd[..., 0]).abs(),
+                         (ld[..., 1] + rd[..., 1]).abs())
+    valid = (l2r.valid & in_bounds & rvalid
+             & (diff <= np.float32(cross_corr_threshold)))
+    out = DisparityMap(torch.where(valid[..., None], l2r.disparity,
+                                   torch.zeros_like(l2r.disparity)), valid)
+    if return_diff:
+        return out, diff
+    return out
+
+
+def disparity_upsample(dm: DisparityMap) -> DisparityMap:
+    """2x nearest upsample with disparities doubled
+    (ref ``DisparityUpsampleView``, DisparityMap.h:1326-1360)."""
+    disp = (dm.disparity * 2).repeat_interleave(2, 0).repeat_interleave(2, 1)
+    valid = dm.valid.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    return DisparityMap(disp, valid)

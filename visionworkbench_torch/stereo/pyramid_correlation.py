@@ -1,0 +1,416 @@
+"""Hierarchical (pyramid) block-matching correlator — port of the BM branch
+of ``visionworkbench_tpu/stereo/pyramid_correlation.py`` (ref
+``src/vw/Stereo/CorrelationView.cc:66-886``).
+
+Flow, as in the JAX package: pad the left region by ``half_kernel * 2^L``;
+crop the right image at ``search_region.min`` so in-pyramid disparities are
+>= 0; mean-fill masked pixels; build 5-tap [1,4,6,4,1]/16 blur + subsample
+pyramids with 2-of-4 mask downsampling; then correlate coarse-to-fine on a
+fixed tile grid with per-tile search offsets taken from the upsampled
+previous level, speckle-filter every level, and at level 0 optionally run
+the L<->R consistency check and the parabola fit on the sweep's 3x3 cost
+patches.
+
+On the card every level's sweep runs the CUDA kernel of ``ops/sweep.py``
+and every speckle pass the CUDA kernel of ``ops/speckle.py``; the rest is
+plain tensor work. With ``device="cpu"`` the same code runs the kernels'
+plain versions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from visionworkbench_torch.core.device import resolve_device
+from visionworkbench_torch.core.exceptions import ArgumentErr
+from visionworkbench_torch.image.edge import crop_extended
+from visionworkbench_torch.image.filters import generate_pyramid_smoothing_kernel
+from visionworkbench_torch.math.bbox import BBox2i
+from visionworkbench_torch.ops.sweep import sweep
+from visionworkbench_torch.stereo.correlation import (
+    ABSOLUTE_DIFFERENCE, DisparityMap, check_cost_type,
+)
+from visionworkbench_torch.stereo.disparity import (
+    cross_corr_consistency_check, disparity_cleanup_using_thresh,
+    disparity_mask, disparity_upsample, rm_outliers_using_thresh,
+)
+from visionworkbench_torch.stereo.prefilter import (
+    PREFILTER_NONE, check_prefilter_mode, prefilter_image,
+)
+from visionworkbench_torch.stereo.subpixel import _fit_parabola
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def max_pyramid_levels_for(width: int, height: int, kernel_size,
+                           search_region: BBox2i, requested: int) -> int:
+    """Level-count heuristic (ref ``CorrelationView.cc:300-308`` and the
+    search-based cap ``CorrelationView.h:99-105``)."""
+    smallest_bbox = min(width, height)
+    largest_kernel = max(int(kernel_size[0]), int(kernel_size[1]))
+    by_size = int(math.floor(math.log2(max(smallest_bbox, 1)) -
+                             math.log2(max(largest_kernel, 1))))
+    largest_search = max(search_region.width, search_region.height, 1)
+    by_search = int(math.floor(math.log2(largest_search))) - 1
+    levels = min(by_size, max(by_search, 0), int(requested))
+    return max(levels, 0)
+
+
+def _blur_downsample(img: torch.Tensor) -> torch.Tensor:
+    """5-tap pyramid smooth + subsample by 2 (ref ``CorrelationView.cc:210-216``),
+    as explicit separable arithmetic: rows first, then columns, each output
+    summing its five taps in order over the replicate-extended image (output
+    o reads padded samples 2o .. 2o+4). The taps are binary fractions, so
+    this agrees with the JAX package's banded matmuls up to fp32 summation
+    order."""
+    k = [float(v) for v in generate_pyramid_smoothing_kernel()]
+    h, w = img.shape
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+    p = crop_extended(img, -2, -2, w + 4, h + 4, mode="constant")
+    rows = k[0] * p[0:2 * h2 - 1:2]
+    for t in range(1, 5):
+        rows = rows + k[t] * p[t:t + 2 * h2 - 1:2]
+    out = k[0] * rows[:, 0:2 * w2 - 1:2]
+    for t in range(1, 5):
+        out = out + k[t] * rows[:, t:t + 2 * w2 - 1:2]
+    return out
+
+
+def _mask_downsample(mask: torch.Tensor) -> torch.Tensor:
+    """2-of-4 2x2 mask reduction (ref ``SubsampleMaskByTwoFunc``,
+    CorrelationView.cc:36-63) on bool (H, W); output ceil sizes, odd edges
+    padded with False."""
+    h, w = mask.shape
+    m = mask.new_zeros((h + h % 2, w + w % 2))
+    m[:h, :w] = mask
+    cnt = m.to(torch.int32).reshape(m.shape[0] // 2, 2, m.shape[1] // 2, 2).sum((1, 3))
+    return cnt >= 2
+
+
+def _tile_offsets(prior_disp, prior_valid, tile: int, expand: int,
+                  max_off_x: int, max_off_y: int) -> torch.Tensor:
+    """Per-tile search offsets from the previous level's disparity: tile-min
+    over valid pixels, minus ``expand``, clamped to [0, max_off]; tiles with
+    no valid pixel take the global valid minimum (0 if none)."""
+    h, w = prior_valid.shape
+    nty, ntx = h // tile, w // tile
+    big = 1e30
+    disp = prior_disp.to(torch.float32)
+    masked = torch.where(prior_valid[..., None], disp,
+                         torch.full((), big, device=disp.device))
+    tmin = masked.reshape(nty, tile, ntx, tile, 2).amin(dim=(1, 3))
+    has_valid = prior_valid.reshape(nty, tile, ntx, tile).any(3).any(1)
+    global_min = masked.reshape(-1, 2).amin(0)
+    global_min = torch.where(global_min >= big, torch.zeros_like(global_min),
+                             global_min)
+    tmin = torch.where(has_valid[..., None], tmin, global_min[None, None, :])
+    off = torch.floor(tmin).to(torch.int32) - expand
+    return torch.stack([off[..., 0].clamp(0, max_off_x),
+                        off[..., 1].clamp(0, max_off_y)], -1).contiguous()
+
+
+def _pad_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Zero-pad the first two axes of ``x`` at the bottom/right to (h, w)."""
+    out = x.new_zeros((h, w) + tuple(x.shape[2:]))
+    hh, ww = min(h, x.shape[0]), min(w, x.shape[1])
+    out[:hh, :ww] = x[:hh, :ww]
+    return out
+
+
+def _as_tensor(x, dtype, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _mean_fill(img, mask, frame_h: int, frame_w: int):
+    """Mean-fill masked pixels (CorrelationView.cc:129-150): the fill value
+    is the mean over the EVEN-index valid pixels of the reference frame,
+    which excludes the power-of-two alignment padding."""
+    iy = torch.arange(img.shape[0], device=img.device)[:, None]
+    ix = torch.arange(img.shape[1], device=img.device)[None, :]
+    sel = (mask & (iy % 2 == 0) & (ix % 2 == 0)
+           & (iy < frame_h) & (ix < frame_w))
+    cnt = torch.clamp(sel.sum().to(torch.float32), min=1.0)
+    mean = torch.where(sel, img, torch.zeros_like(img)).sum() / cnt
+    return torch.where(mask, img, mean)
+
+
+def _check_slice_options(cost_type, prefilter_mode, stereo_algorithm,
+                         subpixel, corr_timeout, blob_filter_area,
+                         keep_levels, engine):
+    """Options of the JAX signature that this slice of the port does not
+    run raise, naming the slice that brings them."""
+    if stereo_algorithm in ("sgm", "mgm"):
+        raise ArgumentErr(f"stereo_algorithm {stereo_algorithm!r} is not "
+                          "ported yet (SGM/MGM slice)")
+    if stereo_algorithm != "bm":
+        raise ArgumentErr(f"unknown stereo_algorithm {stereo_algorithm!r}")
+    check_cost_type(cost_type)
+    check_prefilter_mode(prefilter_mode)
+    if subpixel in ("affine", "em"):
+        raise ArgumentErr(f"subpixel {subpixel!r} is not ported yet "
+                          "(quality-subpixel slice)")
+    if subpixel not in ("none", "parabola"):
+        raise ArgumentErr(f"unknown subpixel mode {subpixel!r}")
+    if corr_timeout > 0:
+        raise ArgumentErr("corr_timeout is not ported yet (it needs "
+                          "stereo/cost_model.py, quality-subpixel slice)")
+    if blob_filter_area > 0:
+        raise ArgumentErr("blob_filter_area is not ported yet (it needs "
+                          "image/morphology.remove_small_blobs, image-"
+                          "substrate slice)")
+    if keep_levels:
+        raise ArgumentErr("keep_levels is not ported yet (a later slice)")
+    if engine != "auto":
+        raise ArgumentErr(f"engine {engine!r}: the port has one engine (the "
+                          "CUDA kernels on the card, their plain versions "
+                          "on the CPU); pass engine='auto'")
+
+
+def pyramid_correlate(left, right, search_region: BBox2i,
+                      kernel_size: Tuple[int, int] = (21, 21),
+                      left_mask=None, right_mask=None,
+                      cost_type: str = ABSOLUTE_DIFFERENCE,
+                      prefilter_mode: str = PREFILTER_NONE,
+                      prefilter_width: float = 1.4,
+                      consistency_threshold: float = -1.0,
+                      max_pyramid_levels: int = 5,
+                      filter_half_kernel: int = 5,
+                      tile_size: int = 64,
+                      refine_window: int = 11,
+                      census_window: int = 5,
+                      subpixel: str = "none",
+                      blob_filter_area: int = 0,
+                      engine: str = "auto",
+                      stereo_algorithm: str = "bm",
+                      sgm_search_buffer: int = 2,
+                      corr_timeout: float = 0.0,
+                      seconds_per_op: Optional[float] = None,
+                      keep_levels: bool = False,
+                      device=None) -> DisparityMap:
+    """Full coarse-to-fine block-matching correlator (ref
+    ``PyramidCorrelationView``, CorrelationView.cc:273-886), with the JAX
+    package's signature plus ``device`` (``None`` = the card; raises when
+    there is none). ``left``/``right`` and the masks may be numpy arrays or
+    tensors.
+
+    Returns a :class:`DisparityMap` of torch tensors the size of ``left``,
+    whose (dx, dy) are absolute right-image offsets (``search_region.min``
+    added). ``subpixel='parabola'`` refines them with the 9-point quadratic
+    fit on the level-0 sweep's cost patches.
+
+    This slice runs ``stereo_algorithm='bm'`` with the ``abs``/``sq`` costs,
+    no prefilter and subpixel ``none``/``parabola``; the other options raise
+    :class:`ArgumentErr` naming the slice that brings them.
+    ``census_window``, ``sgm_search_buffer``, ``seconds_per_op`` and
+    ``prefilter_width`` only matter for those options.
+    """
+    _check_slice_options(cost_type, prefilter_mode, stereo_algorithm,
+                         subpixel, corr_timeout, blob_filter_area, keep_levels,
+                         engine)
+    dev = resolve_device(device)
+    left = _as_tensor(left, torch.float32, dev)
+    right = _as_tensor(right, torch.float32, dev)
+    h, w = left.shape
+    kw, kh = int(kernel_size[0]), int(kernel_size[1])
+    if kw % 2 != 1 or kh % 2 != 1:
+        raise ArgumentErr("pyramid_correlate: kernel dimensions must be odd")
+    if search_region.width <= 0 or search_region.height <= 0:
+        raise ArgumentErr("pyramid_correlate: search region must be non-empty")
+    half_kw, half_kh = kw // 2, kh // 2
+    use_patches = subpixel == "parabola"
+
+    s_w, s_h = int(search_region.width), int(search_region.height)
+    smin_x, smin_y = int(search_region.min_x), int(search_region.min_y)
+
+    levels = max_pyramid_levels_for(w, h, (kw, kh), search_region,
+                                    max_pyramid_levels)
+    up = 1 << levels
+    off_x, off_y = half_kw * up, half_kh * up   # region_offset (CorrelationView.cc:89)
+
+    user_masks = left_mask is not None or right_mask is not None
+    left_mask = (torch.ones((h, w), dtype=torch.bool, device=dev)
+                 if left_mask is None else _as_tensor(left_mask, torch.bool, dev))
+    right_mask = (torch.ones(right.shape, dtype=torch.bool, device=dev)
+                  if right_mask is None else _as_tensor(right_mask, torch.bool, dev))
+
+    # ---- base-level regions (CorrelationView.cc:84-120) --------------------
+    # Padded so every pyramid level halves exactly; extra `up` margin keeps
+    # coarsest-level slices in bounds.
+    base_w = w + 2 * off_x
+    base_h = h + 2 * off_y
+    base_w += (-base_w) % up + up
+    base_h += (-base_h) % up + up
+    left_base = crop_extended(left, -off_x, -off_y, base_w, base_h)
+    rbase_w = base_w + s_w
+    rbase_h = base_h + s_h
+    right_base = crop_extended(right, -off_x + smin_x, -off_y + smin_y,
+                               rbase_w, rbase_h)
+    # Round the right base up to a multiple of `up` too, replicating the
+    # crop's own edge (not the image beyond it), as the JAX package does.
+    rbase_w += (-rbase_w) % up
+    rbase_h += (-rbase_h) % up
+    right_base = crop_extended(right_base, 0, 0, rbase_w, rbase_h)
+
+    if user_masks:
+        # Masks over the padded frames, replicate-extended like the
+        # reference (CorrelationView.cc:110-117), then the mean fill. The
+        # right frame is one short of rbase (max-exclusive search sizing).
+        left_base_mask = crop_extended(left_mask, -off_x, -off_y, base_w, base_h)
+        right_base_mask = crop_extended(right_mask, -off_x + smin_x,
+                                        -off_y + smin_y, rbase_w, rbase_h)
+        left_base = _mean_fill(left_base, left_base_mask,
+                               h + 2 * off_y, w + 2 * off_x)
+        right_base = _mean_fill(right_base, right_base_mask,
+                                h + 2 * off_y + s_h - 1, w + 2 * off_x + s_w - 1)
+
+    # Output-frame masks (zero-extended, unpadded; CorrelationView.cc:195-199).
+    lmask0 = left_mask
+    rmask0 = crop_extended(right_mask, smin_x, smin_y, w + s_w, h + s_h,
+                           mode="zero")
+
+    # ---- build pyramids ----------------------------------------------------
+    left_pyr, right_pyr = [left_base], [right_base]
+    lmask_pyr, rmask_pyr = [lmask0], [rmask0]
+    for _ in range(levels):
+        left_pyr.append(_blur_downsample(left_pyr[-1]))
+        right_pyr.append(_blur_downsample(right_pyr[-1]))
+        lmask_pyr.append(_mask_downsample(lmask_pyr[-1]))
+        rmask_pyr.append(_mask_downsample(rmask_pyr[-1]))
+    left_pyr = [prefilter_image(im, prefilter_mode, prefilter_width)
+                for im in left_pyr]
+    right_pyr = [prefilter_image(im, prefilter_mode, prefilter_width)
+                 for im in right_pyr]
+
+    dm: Optional[DisparityMap] = None
+    patches = None
+    t = int(tile_size)
+    for level in range(levels, -1, -1):
+        scaling = 1 << level
+        on_last = level == 0
+        # Search size at this level (CorrelationView.cc:391-395); disparities
+        # are max-exclusive: d_abs in [min, min+size).
+        s_w_l = max(s_w // scaling, 1)
+        s_h_l = max(s_h // scaling, 1)
+        out_h = -(-h // scaling)
+        out_w = -(-w // scaling)
+        region_off_x = off_x // scaling
+        region_off_y = off_y // scaling
+        nty, ntx = _cdiv(out_h, t), _cdiv(out_w, t)
+
+        if level == levels:
+            offsets = torch.zeros((nty, ntx, 2), dtype=torch.int32, device=dev)
+            s_x_eff, s_y_eff = s_w_l, s_h_l
+        else:
+            prior = disparity_upsample(dm)
+            pr_d = _pad_to(prior.disparity[:out_h, :out_w], nty * t, ntx * t)
+            pr_v = _pad_to(prior.valid[:out_h, :out_w], nty * t, ntx * t)
+            s_x_eff = min(int(refine_window), s_w_l)
+            s_y_eff = min(int(refine_window), s_h_l)
+            offsets = _tile_offsets(pr_d, pr_v, t, 2,
+                                    s_w_l - s_x_eff, s_h_l - s_y_eff)
+
+        # Base (left) frame for tile extraction, origin at the unpadded
+        # region minus half the kernel; match frame: right pyramid, same origin.
+        ly0 = region_off_y - half_kh
+        lx0 = region_off_x - half_kw
+        lbh = nty * t + kh - 1
+        lbw = ntx * t + kw - 1
+        lbase = crop_extended(left_pyr[level], lx0, ly0, lbw, lbh)
+        mh = lbh + s_h_l - 1
+        mw = lbw + s_w_l - 1
+
+        if on_last and use_patches:
+            # Match origin shifted (-1, -1), +2 per axis: every tile window
+            # also covers the ±1 disparity ring for the 3x3 patches.
+            mbase_p = crop_extended(right_pyr[level], lx0 - 1, ly0 - 1,
+                                    mw + 2, mh + 2)
+            disp, valid, patches = sweep(lbase, mbase_p, offsets, t, s_x_eff,
+                                         s_y_eff, kw, kh, cost_type,
+                                         want_patches=True)
+            patches = tuple(patches[:, :out_h, :out_w].unbind(0))
+        else:
+            mbase = crop_extended(right_pyr[level], lx0, ly0, mw, mh)
+            disp, valid, _ = sweep(lbase, mbase, offsets, t, s_x_eff, s_y_eff,
+                                   kw, kh, cost_type, want_patches=False)
+        dm = DisparityMap(disp[:out_h, :out_w], valid[:out_h, :out_w])
+
+        # L<->R consistency check at level 0 (CorrelationView.cc:653-695).
+        if on_last and consistency_threshold >= 0:
+            # RL search: base = right frame, match = left; RL offsets cover
+            # the negation of each tile's LR window.
+            rl_out_h = min(out_h + s_h, rmask_pyr[level].shape[0])
+            rl_out_w = min(out_w + s_w, rmask_pyr[level].shape[1])
+            rnty, rntx = _cdiv(rl_out_h, t), _cdiv(rl_out_w, t)
+            # Reuse LR tile offsets where available; edge tiles take 0.
+            off_rl_src = _pad_to(offsets, rnty, rntx)
+            eff = torch.tensor([s_x_eff - 1, s_y_eff - 1], dtype=torch.int32,
+                               device=dev)
+            rbh = rnty * t + kh - 1
+            rbw = rntx * t + kw - 1
+            rl_base = crop_extended(right_pyr[level], lx0, ly0, rbw, rbh)
+            # Match = left frame; a (S-1 + max_off) margin on top/left keeps
+            # every shifted offset non-negative.
+            margin_x = s_x_eff - 1 + (s_w_l - s_x_eff)
+            margin_y = s_y_eff - 1 + (s_h_l - s_y_eff)
+            lm_h = rbh + s_y_eff - 1 + margin_y
+            lm_w = rbw + s_x_eff - 1 + margin_x
+            rl_match = crop_extended(left_pyr[level], lx0 - margin_x,
+                                     ly0 - margin_y, lm_w, lm_h)
+            rl_origin = torch.tensor([margin_x, margin_y], dtype=torch.int32,
+                                     device=dev)
+            rl_offsets = (rl_origin - (off_rl_src + eff)).contiguous()
+            rl_disp, rl_valid, _ = sweep(rl_base, rl_match, rl_offsets, t,
+                                         s_x_eff, s_y_eff, kw, kh, cost_type,
+                                         want_patches=False)
+            rl_dm = DisparityMap((rl_disp - rl_origin)[:rl_out_h, :rl_out_w],
+                                 rl_valid[:rl_out_h, :rl_out_w])
+            dm = cross_corr_consistency_check(dm, rl_dm, consistency_threshold)
+
+        # Per-level speckle filtering (CorrelationView.cc:707-745), on the
+        # integer disparities of this level.
+        if filter_half_kernel > 0:
+            if not on_last:
+                dm = disparity_cleanup_using_thresh(dm, filter_half_kernel,
+                                                    filter_half_kernel, 3.0, 0.5,
+                                                    integer_disparities=True)
+            else:
+                dm = rm_outliers_using_thresh(dm, filter_half_kernel,
+                                              filter_half_kernel, 3.0, 0.5,
+                                              integer_disparities=True)
+            if on_last and not user_masks:
+                # No user masks at level 0: rmask0 is exactly the rectangle
+                # where the (smin-shifted, zero-extended) right crop covers
+                # real pixels, so the mask lookup is bounds arithmetic.
+                rh_o, rw_o = right.shape
+                ra, rb = max(0, -smin_y), min(h + s_h, rh_o - smin_y)
+                ca, cb = max(0, -smin_x), min(w + s_w, rw_o - smin_x)
+                iy = torch.arange(out_h, dtype=torch.int32, device=dev)[:, None]
+                ix = torch.arange(out_w, dtype=torch.int32, device=dev)[None, :]
+                ty = iy + dm.disparity[..., 1]
+                tx = ix + dm.disparity[..., 0]
+                ok = (ty >= ra) & (ty < rb) & (tx >= ca) & (tx < cb)
+                valid = dm.valid & ok
+                dm = DisparityMap(torch.where(valid[..., None], dm.disparity,
+                                              torch.zeros_like(dm.disparity)),
+                                  valid)
+            else:
+                dm = disparity_mask(dm, lmask_pyr[level][:out_h, :out_w],
+                                    rmask_pyr[level])
+
+    # Absolute disparities (CorrelationView.cc: final offset add).
+    smin = torch.tensor([smin_x, smin_y], dtype=dm.disparity.dtype, device=dev)
+    final = DisparityMap(torch.where(dm.valid[..., None], dm.disparity + smin,
+                                     torch.zeros_like(dm.disparity)),
+                         dm.valid)
+    if use_patches:
+        final = DisparityMap(_fit_parabola(patches, final.disparity, final.valid),
+                             final.valid)
+    return final
