@@ -7,17 +7,22 @@ Phases (each raises on a mismatch; none catches its own failure):
 1. Build the CUDA kernels from ``visionworkbench_torch/csrc/`` (one nvcc per
    source, started together) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, on inputs quantized to the 1/256 grid:
-   integer disparities, validity, cost patches and keep masks must match
-   exactly.
-3. Run the main path — ``pyramid_correlate`` at the configuration of
+   shapes the main paths give it: the sweep and speckle on inputs quantized
+   to the 1/256 grid (integer disparities, validity, cost patches and keep
+   masks exact), the three SGM/MGM scans on integer-valued inputs (exact).
+3. Run the main paths, each with the launch counts set to 0 just before it
+   and read just after: ``pyramid_correlate`` at the configuration of
    ``bench.py`` (1024^2 pair, 64x8 search, 15x15 kernel, 4 levels, tile 64,
-   parabola) — then again with the L<->R check, apply ``bench.py``'s sanity
-   check, and check the kernels' launch counts of each run.
-4. Run the whole slice at 256^2 with 2 levels on the card and on the CPU
-   (plain versions) on quantized inputs: integer disparities and validity
-   must be equal, the parabola output allclose at atol 1e-4.
-5. Time the frame and each kernel with CUDA events.
+   parabola), again with the L<->R check, then the repo's SGM configuration
+   (``tools_bench_configs.py`` config 6: 512^2 pair, 64x2 search, census
+   5x5, 4 levels, tile 64, parabola) with ``stereo_algorithm="sgm"`` and
+   ``"mgm"``; apply ``bench.py``'s sanity check to each.
+4. Run the slices small on the card and on the CPU (plain versions) on
+   quantized inputs: BM at 256^2 with 2 levels (integer disparities and
+   validity equal, the parabola output allclose at atol 1e-4), SGM and MGM
+   at 128^2 with 2 levels and subpixel none (equal).
+5. Time the frames and each kernel with CUDA events, and profile one frame
+   of each path for the device's idle share.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -43,6 +48,13 @@ KERNEL = (15, 15)
 LEVELS = 4
 TILE = 64
 
+# SGM configuration (tools_bench_configs.py:232-254, config 6): census 5x5
+# (the SGM default census window), default penalties P1 15 / P2 750.
+SGM_HW = 512
+SGM_SEARCH = (0, -1, 64, 2)
+SGM_P1, SGM_P2 = 15.0, 750.0
+SGM_BAD = 255.0 + SGM_P2
+
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM rate and fp32
 # rate outside the tensor cores. int32 ALU work is counted at the fp32 rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -55,6 +67,14 @@ SWEEP_OPS_SELECT = 2
 # Per pixel and window neighbour of the speckle stencil: two field
 # extracts, two differences, two abs, two compares, an and, an add.
 SPECKLE_OPS = 10
+# Per disparity cell, lane, step and path direction of an SGM scan: the
+# separable 3x3 grid min (4), + P1, two mins, - min_prior, + cost (5), the
+# absent-candidate compare and select (2), the min_prior reduction (1) and
+# the sum into the output (1). An MGM step evaluates two path updates
+# (2 x 10), averages them (add, multiply, floor), applies the guard (1) and
+# forces absent candidates (2).
+SCAN_OPS = 13
+MGM_OPS = 26
 
 
 def _make_pair(h, w):
@@ -156,11 +176,70 @@ def _speckle_input(case, dev, seed):
     return _pack_code(disp, valid)
 
 
+def scan_cases():
+    """The SGM/MGM scans' shapes on config 6's main path: the level-0
+    (512^2, window 5x2) x-scan (3 directions), y-scan and MGM scans, and the
+    level-4 x-scan (64^2 padded, window 4x1)."""
+    n = SGM_HW
+    return [dict(kernel="scan_bidir", name="level0_x", shape=(n, 2, 5, n), shifts=(0, 1, -1)),
+            dict(kernel="scan_bidir", name="level0_y", shape=(n, 2, 5, n), shifts=(0,)),
+            dict(kernel="scan_bidir", name="level4_x", shape=(64, 1, 4, 64), shifts=(0, 1, -1)),
+            dict(kernel="mgm_fwd", name="level0_sheared", shape=(2 * n, 4, 2, 5, n),
+                 shifts=(0, 1)),
+            dict(kernel="mgm_bidir", name="level0", shape=(n, 2, 5, n), shifts=(1, -1))]
+
+
+def _scan_inputs(case, dev, seed):
+    """Integer-valued inputs: census 5x5 costs (<= 24) with 3 % absent
+    candidates, pixel differences, guards."""
+    import torch
+    rng = np.random.default_rng(seed)
+    shape = case["shape"]
+    cost = np.floor(rng.random(shape) * 25).astype(np.float32)
+    cost[rng.random(shape) < 0.03] = SGM_BAD
+    n, nl = shape[0], shape[-1]
+    side = {"scan_bidir": (n, len(case["shifts"]), nl), "mgm_bidir": (n, nl),
+            "mgm_fwd": (n, shape[1], nl)}[case["kernel"]]
+
+    def pd():
+        return np.floor(rng.random(side) * 40).astype(np.float32)
+
+    def guard():
+        return rng.random(side) > 0.1
+
+    arrays = {"scan_bidir": (cost, pd(), pd()),
+              "mgm_bidir": (cost, pd(), pd(), guard(), guard()),
+              "mgm_fwd": (cost, pd(), guard())}[case["kernel"]]
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+def _scan_call(case, inputs, plain=False):
+    from visionworkbench_torch.ops import sgm_scan
+    fn = getattr(sgm_scan, case["kernel"] + ("_plain" if plain else ""))
+    return fn(*inputs, case["shifts"], SGM_P1, SGM_P2, SGM_BAD)
+
+
+def _scan_work(case):
+    """(bytes, operations) of one scan: each input read once, the output
+    written once; operations per cell, lane, step and path direction."""
+    shape, k = case["shape"], case["kernel"]
+    n, nl, cells = shape[0], shape[-1], shape[-3] * shape[-2]
+    if k == "scan_bidir":
+        b = len(case["shifts"])
+        return 4 * (2 * n * cells * nl + 2 * n * b * nl), SCAN_OPS * 2 * b * n * cells * nl
+    if k == "mgm_bidir":
+        return 4 * (2 * n * cells * nl + 2 * n * nl) + 2 * n * nl, MGM_OPS * 2 * n * cells * nl
+    b = shape[1]
+    return (4 * (2 * n * b * cells * nl + n * b * nl) + n * b * nl,
+            MGM_OPS * n * b * cells * nl)
+
+
 def phase_kernels(dev):
     import torch
     from visionworkbench_torch.ops import speckle, sweep
     kw, kh = KERNEL
-    err = {"sweep": 0.0, "speckle": 0.0}
+    err = {"sweep": 0.0, "speckle": 0.0, "scan_bidir": 0.0, "mgm_bidir": 0.0,
+           "mgm_fwd": 0.0}
     for i, c in enumerate(sweep_cases()):
         base, match, offs = _sweep_inputs(c, dev, 100 + i)
         args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, "abs",
@@ -189,6 +268,18 @@ def phase_kernels(dev):
               f"max_abs_err {e}")
         if e != 0.0:
             raise SystemExit(f"speckle kernel disagrees with its plain version at {c['name']}")
+    for i, c in enumerate(scan_cases()):
+        inputs = _scan_inputs(c, dev, 300 + i)
+        got = _scan_call(c, inputs)
+        ref = _scan_call(c, inputs, plain=True)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        err[c["kernel"]] = max(err[c["kernel"]], e)
+        print(f"[kernels] {c['kernel']} {c['name']} {c['shape']} shifts {c['shifts']}: "
+              f"mean {float(got.mean()):.4f}, max_abs_err {e}")
+        if e != 0.0:
+            raise SystemExit(f"{c['kernel']} kernel disagrees with its plain version "
+                             f"at {c['name']}")
     return err
 
 
@@ -202,10 +293,10 @@ def _bench_run(left, right, dev, **kw):
                              subpixel="parabola", device=dev, **kw)
 
 
-def _sanity(dm, what):
+def _sanity(dm, what, h=H, w=W):
     """bench.py:104-110, plus shape and finiteness."""
     import torch
-    if tuple(dm.disparity.shape) != (H, W, 2) or tuple(dm.valid.shape) != (H, W):
+    if tuple(dm.disparity.shape) != (h, w, 2) or tuple(dm.valid.shape) != (h, w):
         raise SystemExit(f"{what}: wrong output shape {tuple(dm.disparity.shape)}")
     if not bool(torch.isfinite(dm.disparity).all()):
         raise SystemExit(f"{what}: non-finite disparities")
@@ -218,23 +309,50 @@ def _sanity(dm, what):
         raise SystemExit(f"{what}: sanity failed (valid {vc.mean():.3f}, correct {frac:.3f})")
 
 
+def _sgm_run(left, right, dev, algo):
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    return pyramid_correlate(left, right, BBox2i(*SGM_SEARCH), kernel_size=(5, 5),
+                             max_pyramid_levels=LEVELS, tile_size=TILE,
+                             stereo_algorithm=algo, subpixel="parabola", device=dev)
+
+
+def _reset_counts():
+    from visionworkbench_torch.ops import sgm_scan, speckle, sweep
+    sweep.launches = 0
+    speckle.launches = 0
+    for k in sgm_scan.launches:
+        sgm_scan.launches[k] = 0
+
+
+def _read_counts():
+    from visionworkbench_torch.ops import sgm_scan, speckle, sweep
+    return {"sweep": sweep.launches, "speckle": speckle.launches, **sgm_scan.launches}
+
+
 def phase_main(dev):
     import torch
-    from visionworkbench_torch.ops import speckle, sweep
     left, right = _make_pair(H, W)
+    sgm_left, sgm_right = _make_pair(SGM_HW, SGM_HW)
+    none = {"sweep": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
+    runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5}, H),
+            ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
+             {"sweep": 6}, H),
+            ("sgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "sgm"),
+             {"scan_bidir": 10}, SGM_HW),
+            ("mgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "mgm"),
+             {"mgm_fwd": 5, "mgm_bidir": 10}, SGM_HW))
     counts = {}
-    for what, kw, want_sweeps in (("plain", {}, 5),
-                                  ("consistency", {"consistency_threshold": 2.0}, 6)):
-        sweep.launches = 0
-        speckle.launches = 0
-        dm = _bench_run(left, right, dev, **kw)
+    for what, run, want, hw in runs:
+        want = {**none, "speckle": 9, **want}
+        _reset_counts()
+        dm = run()
         torch.cuda.synchronize()
-        counts[what] = {"sweep": sweep.launches, "speckle": speckle.launches}
+        counts[what] = _read_counts()
         print(f"[main] {what}: launches {counts[what]}")
-        _sanity(dm, what)
-        if counts[what] != {"sweep": want_sweeps, "speckle": 9}:
-            raise SystemExit(f"{what}: expected {want_sweeps} sweep and 9 "
-                             f"speckle launches, got {counts[what]}")
+        _sanity(dm, what, hw, hw)
+        if counts[what] != want:
+            raise SystemExit(f"{what}: expected launches {want}, got {counts[what]}")
     return counts
 
 
@@ -266,6 +384,20 @@ def phase_slice_vs_cpu(dev):
         print(f"[slice] {what}: valid {vg.mean():.4f}, max |gpu - cpu| {e}")
         if not ok:
             raise SystemExit(f"slice {what}: disparities differ GPU vs CPU")
+    left, right = _make_pair(128, 128)
+    left = np.round(left * 256) / 256
+    right = np.round(right * 256) / 256
+    for algo in ("sgm", "mgm"):
+        outs = [pyramid_correlate(left, right, BBox2i(*SGM_SEARCH), max_pyramid_levels=2,
+                                  tile_size=TILE, stereo_algorithm=algo, subpixel="none",
+                                  device=d).to_numpy()
+                for d in (dev, "cpu")]
+        (dg, vg), (dc, vc) = outs
+        e = float(np.abs(dg - dc).max())
+        print(f"[slice] {algo} 128^2: valid {vg.mean():.4f}, validity differs at "
+              f"{int((vg != vc).sum())} pixels, max |gpu - cpu| {e}")
+        if not (np.array_equal(vg, vc) and np.array_equal(dg, dc)):
+            raise SystemExit(f"slice {algo}: GPU and CPU outputs differ")
 
 
 # ---- phase 5 ----------------------------------------------------------------
@@ -300,7 +432,14 @@ def phase_timings(dev):
         ms = _time_ms(lambda: _bench_run(lt, rt, dev, **kwargs), reps=10)
         frame[what] = {"ms": ms, "mps": H * W / (ms * 1e3)}
         print(f"[time] frame {what}: {ms:.4f} ms, {H * W / (ms * 1e3):.3f} Mp/s")
-    _profile_frame(lt, rt, dev, frame["plain"]["ms"])
+    _profile_frame(lambda: _bench_run(lt, rt, dev), "bm", frame["plain"]["ms"])
+    sl, sr = (torch.as_tensor(a, device=dev) for a in _make_pair(SGM_HW, SGM_HW))
+    for algo in ("sgm", "mgm"):
+        ms = _time_ms(lambda: _sgm_run(sl, sr, dev, algo), reps=10)
+        frame[algo] = {"ms": ms, "mps": SGM_HW * SGM_HW / (ms * 1e3)}
+        print(f"[time] frame {algo} (config 6, {SGM_HW}^2): {ms:.4f} ms, "
+              f"{frame[algo]['mps']:.3f} Mp/s")
+        _profile_frame(lambda: _sgm_run(sl, sr, dev, algo), algo, ms)
     rows = {}
     for i, c in enumerate(sweep_cases()):
         base, match, offs = _sweep_inputs(c, dev, 100 + i)
@@ -322,6 +461,11 @@ def phase_timings(dev):
         npx = c["h"] * c["w"]
         ops = npx * (2 * c["half"] + 1) ** 2 * SPECKLE_OPS
         rows[("speckle", c["name"])] = _row(ms, plain_ms, 8 * npx, ops)
+    for i, c in enumerate(scan_cases()):
+        inputs = _scan_inputs(c, dev, 300 + i)
+        ms = _time_ms(lambda: _scan_call(c, inputs), reps=20)
+        plain_ms = _time_ms(lambda: _scan_call(c, inputs, plain=True), reps=3, warmup=1)
+        rows[(c["kernel"], c["name"])] = _row(ms, plain_ms, *_scan_work(c))
     for (k, name), r in rows.items():
         print(f"[time] {k} {name}: {r['ms']:.4f} ms per launch, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
@@ -329,7 +473,7 @@ def phase_timings(dev):
     return frame, rows
 
 
-def _profile_frame(lt, rt, dev, frame_ms, frames=3):
+def _profile_frame(run, what, frame_ms, frames=3):
     """Device time per frame by kernel (torch.profiler, CUPTI) and the
     device's busy share of the frame time measured without the profiler."""
     import torch
@@ -337,20 +481,21 @@ def _profile_frame(lt, rt, dev, frame_ms, frames=3):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
-            _bench_run(lt, rt, dev)
+            run()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()    # device activities only
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not events:
-        print("[profile] the profiler saw no device time: busy share not measured")
+        print(f"[profile] {what}: the profiler saw no device time: busy share "
+              "not measured")
         return
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / frames
     n_kernels = sum(e.count for e in events) / frames
-    print(f"[profile] device busy {busy_ms:.4f} ms per frame of {frame_ms:.4f} ms "
-          f"(idle share {1 - busy_ms / frame_ms:.4f}), {n_kernels:.1f} kernel "
-          f"launches of {len(events)} kinds per frame")
+    print(f"[profile] {what}: device busy {busy_ms:.4f} ms per frame of "
+          f"{frame_ms:.4f} ms (idle share {1 - busy_ms / frame_ms:.4f}), "
+          f"{n_kernels:.1f} kernel launches of {len(events)} kinds per frame")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[profile] {e.self_device_time_total / 1e3 / frames:9.4f} ms/frame "
+        print(f"[profile] {what} {e.self_device_time_total / 1e3 / frames:9.4f} ms/frame "
               f"{e.count / frames:6.1f} calls/frame  {e.key[:90]}")
 
 
@@ -375,25 +520,34 @@ def main() -> int:
     counts = phase_main(dev)
     phase_slice_vs_cpu(dev)
     frame, rows = phase_timings(dev)
-    heaviest = {"sweep": "level0_patches", "speckle": "1024x1024_11x11"}
-    sources = {
-        "sweep": ("visionworkbench_torch/csrc/sweep.cu",
+    # kernel: (heaviest main-path shape, main-path run, source, TPU kernel)
+    table = {
+        "sweep": ("level0_patches", "plain", "visionworkbench_torch/csrc/sweep.cu",
                   "visionworkbench_tpu/ops/sweep.py:603"),
-        "speckle": ("visionworkbench_torch/csrc/speckle.cu",
+        "speckle": ("1024x1024_11x11", "plain", "visionworkbench_torch/csrc/speckle.cu",
                     "visionworkbench_tpu/ops/speckle.py:93"),
+        "scan_bidir": ("level0_x", "sgm", "visionworkbench_torch/csrc/sgm_scan.cu",
+                       "visionworkbench_tpu/ops/sgm_scan.py:149"),
+        "mgm_bidir": ("level0", "mgm", "visionworkbench_torch/csrc/sgm_scan.cu",
+                      "visionworkbench_tpu/ops/sgm_scan.py:222"),
+        "mgm_fwd": ("level0_sheared", "mgm", "visionworkbench_torch/csrc/sgm_scan.cu",
+                    "visionworkbench_tpu/ops/sgm_scan.py:272"),
     }
     kernels = []
-    for k in ("sweep", "speckle"):
-        r = rows[(k, heaviest[k])]
+    for k, (shape, run, source, replaces) in table.items():
+        r = rows[(k, shape)]
         kernels.append({
-            "name": k, "route": "cuda", "source": sources[k][0],
-            "replaces": sources[k][1], "launches": counts["plain"][k],
-            "max_abs_err": err[k], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": heaviest[k]})
+            "name": k, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[run][k], "max_abs_err": err[k], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "shape": shape})
     print(json.dumps({"frame_ms": frame["plain"]["ms"],
                       "frame_mps": frame["plain"]["mps"],
                       "frame_lr_ms": frame["consistency"]["ms"],
+                      "sgm_frame_ms": frame["sgm"]["ms"],
+                      "sgm_frame_mps": frame["sgm"]["mps"],
+                      "mgm_frame_ms": frame["mgm"]["ms"],
+                      "mgm_frame_mps": frame["mgm"]["mps"],
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,8 @@ Tolerances, each with its reason:
 * ``pyramid_correlate`` with ``max_pyramid_levels=0``: integer disparities
   and validity exact (plain, L<->R-checked and masked runs); the parabola
   output allclose at rtol 1e-4 / atol 2e-4 (the JAX package's own pin).
+* ``pyramid_correlate`` in SGM/MGM mode at one level: exact (integer-valued
+  census costs and aggregation).
 * multi-level ``pyramid_correlate``: >= 99.5 % equal integer disparities
   among pixels valid in both and <= 0.5 % validity mismatch — blur rounding
   at coarse levels may flip near-tied winners there.
@@ -169,7 +171,10 @@ def test_multi_level_agreement(kw):
 
 @pytest.mark.parametrize("kw", [
     dict(cost_type="census"), dict(cost_type="ncc"),
-    dict(stereo_algorithm="sgm"), dict(stereo_algorithm="mgm"),
+    # SGM/MGM run (test_sgm_mgm_small_frame_matches_jax); these options
+    # are still rejected in SGM mode
+    dict(stereo_algorithm="sgm", subpixel="affine"),
+    dict(stereo_algorithm="mgm", prefilter_mode="log"),
     dict(stereo_algorithm="xx"), dict(prefilter_mode="log"),
     dict(prefilter_mode="meansub"), dict(subpixel="affine"),
     dict(subpixel="xx"), dict(corr_timeout=1.0), dict(blob_filter_area=10),
@@ -179,6 +184,18 @@ def test_options_not_in_this_slice_raise(kw):
     left, right = _pair(64, 16, 16)
     with pytest.raises(ArgumentErr):
         tpyr.pyramid_correlate(left, right, BBox2i(0, 0, 4, 2), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("algo", ["sgm", "mgm"])
+def test_sgm_mgm_small_frame_matches_jax(algo):
+    """The SGM/MGM branch on a 64^2 frame at one level: integer disparities
+    and validity equal the JAX package's."""
+    left, right = _pair(67, 64, 64, shift=(6, 1))
+    td, tv, jd, jv = _run_both(left, right, (0, -1, 12, 3), stereo_algorithm=algo,
+                               max_pyramid_levels=0, tile_size=32)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(td, jd)
+    assert (td[tv] == [6, 1]).all(-1).mean() > 0.95
 
 
 def test_default_device_is_the_card():

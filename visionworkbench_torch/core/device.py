@@ -3,7 +3,16 @@ and no entry point moves to the CPU on its own."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def as_tensor(x, dtype, device) -> torch.Tensor:
+    """``x`` (a tensor, numpy array or array-like) as a ``dtype`` tensor on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def resolve_device(device=None) -> torch.device:

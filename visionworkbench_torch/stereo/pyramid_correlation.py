@@ -1,4 +1,4 @@
-"""Hierarchical (pyramid) block-matching correlator — port of the BM branch
+"""Hierarchical (pyramid) correlator — port of the BM and SGM/MGM branches
 of ``visionworkbench_tpu/stereo/pyramid_correlation.py`` (ref
 ``src/vw/Stereo/CorrelationView.cc:66-886``).
 
@@ -11,10 +11,17 @@ previous level, speckle-filter every level, and at level 0 optionally run
 the L<->R consistency check and the parabola fit on the sweep's 3x3 cost
 patches.
 
-On the card every level's sweep runs the CUDA kernel of ``ops/sweep.py``
-and every speckle pass the CUDA kernel of ``ops/speckle.py``; the rest is
-plain tensor work. With ``device="cpu"`` the same code runs the kernels'
-plain versions.
+With ``stereo_algorithm="sgm"``/``"mgm"`` each level runs semi-global
+matching (``stereo/sgm.py:sgm_relative_search``) over census costs of
+``census_window`` instead of the sweep: the padding follows the census
+window, tile offsets are centered on the previous level's tile medians,
+per-pixel seeds bound each pixel's search to ``seed +- sgm_search_buffer``,
+and the SGM subpixel mode is applied inside the last level.
+
+On the card every BM sweep runs the CUDA kernel of ``ops/sweep.py``, every
+SGM/MGM aggregation scan a CUDA kernel of ``ops/sgm_scan.py`` and every
+speckle pass the CUDA kernel of ``ops/speckle.py``; the rest is plain tensor
+work. With ``device="cpu"`` the same code runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -22,10 +29,9 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
-from visionworkbench_torch.core.device import resolve_device
+from visionworkbench_torch.core.device import as_tensor, resolve_device
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.edge import crop_extended
 from visionworkbench_torch.image.filters import generate_pyramid_smoothing_kernel
@@ -40,6 +46,9 @@ from visionworkbench_torch.stereo.disparity import (
 )
 from visionworkbench_torch.stereo.prefilter import (
     PREFILTER_NONE, check_prefilter_mode, prefilter_image,
+)
+from visionworkbench_torch.stereo.sgm import (
+    SUBPIXEL_MODES, _P1_TABLE, _P2_TABLE, sgm_relative_search,
 )
 from visionworkbench_torch.stereo.subpixel import _fit_parabola
 
@@ -115,18 +124,66 @@ def _tile_offsets(prior_disp, prior_valid, tile: int, expand: int,
                         off[..., 1].clamp(0, max_off_y)], -1).contiguous()
 
 
+def _hist_median(counts: torch.Tensor) -> torch.Tensor:
+    """Exact median of non-negative-int samples from per-value counts
+    (..., nvals): the mean of the two middle order statistics, like
+    ``nanmedian``. Zero-count rows give 0."""
+    n = counts.sum(-1, keepdim=True)
+    cum = counts.cumsum(-1)
+    k1 = torch.floor((n - 1) / 2)              # lower middle (0-based)
+    k2 = torch.floor(n / 2)                    # upper middle
+    nvals = counts.shape[-1]
+    vals = torch.arange(nvals, dtype=torch.float32, device=counts.device)
+    big = torch.full_like(vals, float(nvals))
+    v1 = torch.where(cum > k1, vals, big).amin(-1)
+    v2 = torch.where(cum > k2, vals, big).amin(-1)
+    return torch.where(n[..., 0] > 0, 0.5 * (v1 + v2), torch.zeros_like(v1))
+
+
+def _tile_offsets_centered(prior_disp, prior_valid, tile: int, buffer: int,
+                           max_off_x: int, max_off_y: int,
+                           value_bounds: Tuple[int, int]) -> torch.Tensor:
+    """Per-tile search offsets centered on the tile median of the previous
+    level's disparity (the stand-in for the reference SGM's per-pixel
+    ``prev_disparity +- search_buffer`` bounds, SGM.cc:405-420), minus
+    ``buffer``, clamped to [0, max_off]. Valid disparities are integers in
+    [0, n_x) x [0, n_y) (``value_bounds``), so the medians come exactly from
+    per-value counts; tiles with no valid pixel take the global median."""
+    h, w = prior_valid.shape
+    nty, ntx = h // tile, w // tile
+    has_valid = prior_valid.reshape(nty, tile, ntx, tile).any(3).any(1)
+    r = torch.round(prior_disp).to(torch.int32)
+    di = torch.stack([r[..., 0].clamp(0, value_bounds[0] - 1),
+                      r[..., 1].clamp(0, value_bounds[1] - 1)], -1)
+    t4 = (di.reshape(nty, tile, ntx, tile, 2).transpose(1, 2)
+          .reshape(nty, ntx, tile * tile, 2))
+    v4 = (prior_valid.reshape(nty, tile, ntx, tile).transpose(1, 2)
+          .reshape(nty, ntx, tile * tile).to(torch.float32))
+    meds = []
+    for c, nvals in ((0, int(value_bounds[0])), (1, int(value_bounds[1]))):
+        counts = torch.zeros((nty, ntx, nvals), dtype=torch.float32,
+                             device=prior_disp.device)
+        counts.scatter_add_(-1, t4[..., c].long(), v4)
+        med = _hist_median(counts)
+        meds.append(torch.where(has_valid, med, _hist_median(counts.sum((0, 1)))))
+    off = torch.round(torch.stack(meds, -1)).to(torch.int32) - buffer
+    return torch.stack([off[..., 0].clamp(0, max_off_x),
+                        off[..., 1].clamp(0, max_off_y)], -1).contiguous()
+
+
+def _plus_xy(t: torch.Tensor, x: int, y: int) -> torch.Tensor:
+    """``t + (x, y)`` over the last (dx, dy) axis, per channel: a small
+    tensor made from host values would be a host-to-device copy, which
+    waits for the stream to drain and stops the host from running ahead."""
+    return torch.stack([t[..., 0] + x, t[..., 1] + y], -1)
+
+
 def _pad_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Zero-pad the first two axes of ``x`` at the bottom/right to (h, w)."""
     out = x.new_zeros((h, w) + tuple(x.shape[2:]))
     hh, ww = min(h, x.shape[0]), min(w, x.shape[1])
     out[:hh, :ww] = x[:hh, :ww]
     return out
-
-
-def _as_tensor(x, dtype, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def _mean_fill(img, mask, frame_h: int, frame_w: int):
@@ -145,20 +202,23 @@ def _mean_fill(img, mask, frame_h: int, frame_w: int):
 def _check_slice_options(cost_type, prefilter_mode, stereo_algorithm,
                          subpixel, corr_timeout, blob_filter_area,
                          keep_levels, engine):
-    """Options of the JAX signature that this slice of the port does not
-    run raise, naming the slice that brings them."""
-    if stereo_algorithm in ("sgm", "mgm"):
-        raise ArgumentErr(f"stereo_algorithm {stereo_algorithm!r} is not "
-                          "ported yet (SGM/MGM slice)")
-    if stereo_algorithm != "bm":
+    """Options of the JAX signature that this port does not run yet raise,
+    naming the slice that brings them. In SGM/MGM mode the cost is census
+    (``cost_type`` only selects ternary census), so the BM cost check does
+    not apply, and every SGM subpixel mode is accepted."""
+    if stereo_algorithm not in ("bm", "sgm", "mgm"):
         raise ArgumentErr(f"unknown stereo_algorithm {stereo_algorithm!r}")
-    check_cost_type(cost_type)
+    if stereo_algorithm != "bm":
+        if subpixel not in SUBPIXEL_MODES:
+            raise ArgumentErr(f"unknown SGM subpixel mode {subpixel!r}")
+    else:
+        check_cost_type(cost_type)
+        if subpixel in ("affine", "em"):
+            raise ArgumentErr(f"subpixel {subpixel!r} is not ported yet "
+                              "(quality-subpixel slice)")
+        if subpixel not in ("none", "parabola"):
+            raise ArgumentErr(f"unknown subpixel mode {subpixel!r}")
     check_prefilter_mode(prefilter_mode)
-    if subpixel in ("affine", "em"):
-        raise ArgumentErr(f"subpixel {subpixel!r} is not ported yet "
-                          "(quality-subpixel slice)")
-    if subpixel not in ("none", "parabola"):
-        raise ArgumentErr(f"unknown subpixel mode {subpixel!r}")
     if corr_timeout > 0:
         raise ArgumentErr("corr_timeout is not ported yet (it needs "
                           "stereo/cost_model.py, quality-subpixel slice)")
@@ -195,37 +255,59 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                       seconds_per_op: Optional[float] = None,
                       keep_levels: bool = False,
                       device=None) -> DisparityMap:
-    """Full coarse-to-fine block-matching correlator (ref
-    ``PyramidCorrelationView``, CorrelationView.cc:273-886), with the JAX
-    package's signature plus ``device`` (``None`` = the card; raises when
-    there is none). ``left``/``right`` and the masks may be numpy arrays or
-    tensors.
+    """Full coarse-to-fine correlator (ref ``PyramidCorrelationView``,
+    CorrelationView.cc:273-886), with the JAX package's signature plus
+    ``device`` (``None`` = the card; raises when there is none).
+    ``left``/``right`` and the masks may be numpy arrays or tensors.
 
     Returns a :class:`DisparityMap` of torch tensors the size of ``left``,
     whose (dx, dy) are absolute right-image offsets (``search_region.min``
-    added). ``subpixel='parabola'`` refines them with the 9-point quadratic
-    fit on the level-0 sweep's cost patches.
+    added). In BM mode ``subpixel='parabola'`` refines them with the 9-point
+    quadratic fit on the level-0 sweep's cost patches.
 
-    This slice runs ``stereo_algorithm='bm'`` with the ``abs``/``sq`` costs,
-    no prefilter and subpixel ``none``/``parabola``; the other options raise
-    :class:`ArgumentErr` naming the slice that brings them.
-    ``census_window``, ``sgm_search_buffer``, ``seconds_per_op`` and
-    ``prefilter_width`` only matter for those options.
+    ``stereo_algorithm``: ``'bm'`` with the ``abs``/``sq`` costs and
+    subpixel ``none``/``parabola``, or ``'sgm'``/``'mgm'`` (ref
+    ``CorrelationAlgorithm``, CorrelationView.h:45) with census costs of
+    ``census_window`` (``cost_type='ternary_census'`` for ternary), any SGM
+    subpixel mode applied inside the last level, and
+    ``sgm_search_buffer``. Only the ``none`` prefilter is ported; the other
+    options raise :class:`ArgumentErr` naming the slice that brings them.
+    ``seconds_per_op`` and ``prefilter_width`` only matter for those.
     """
     _check_slice_options(cost_type, prefilter_mode, stereo_algorithm,
                          subpixel, corr_timeout, blob_filter_area, keep_levels,
                          engine)
     dev = resolve_device(device)
-    left = _as_tensor(left, torch.float32, dev)
-    right = _as_tensor(right, torch.float32, dev)
+    left = as_tensor(left, torch.float32, dev)
+    right = as_tensor(right, torch.float32, dev)
     h, w = left.shape
     kw, kh = int(kernel_size[0]), int(kernel_size[1])
+    sgm_mode = stereo_algorithm != "bm"
+    if sgm_mode:
+        # the census support drives the pyramid padding in SGM mode
+        kw = kh = int(census_window)
+        sgm_cost = "ternary_census" if cost_type == "ternary_census" else "census"
+        tkey = (sgm_cost, int(census_window))
+        sgm_p1 = float(_P1_TABLE.get(tkey, 3))
+        sgm_p2 = float(_P2_TABLE.get(tkey, 70))
+
+        def sgm_search(lbase_, mbase_, offsets_, sx_, sy_, last_, seeds=None,
+                       lmask_=None, ranges=(0, 0)):
+            sd, sv = (None, None) if seeds is None else seeds
+            return sgm_relative_search(
+                lbase_, mbase_, offsets_, int(tile_size), sx_, sy_,
+                int(census_window),
+                sgm_cost == "ternary_census", 2, sgm_p1, sgm_p2,
+                stereo_algorithm == "mgm", subpixel if last_ else "none",
+                seed_disp=sd, seed_valid=sv,
+                search_buffer=int(sgm_search_buffer), range_x=int(ranges[0]),
+                range_y=int(ranges[1]), lmask=lmask_)
     if kw % 2 != 1 or kh % 2 != 1:
         raise ArgumentErr("pyramid_correlate: kernel dimensions must be odd")
     if search_region.width <= 0 or search_region.height <= 0:
         raise ArgumentErr("pyramid_correlate: search region must be non-empty")
     half_kw, half_kh = kw // 2, kh // 2
-    use_patches = subpixel == "parabola"
+    use_patches = subpixel == "parabola" and not sgm_mode
 
     s_w, s_h = int(search_region.width), int(search_region.height)
     smin_x, smin_y = int(search_region.min_x), int(search_region.min_y)
@@ -237,9 +319,9 @@ def pyramid_correlate(left, right, search_region: BBox2i,
 
     user_masks = left_mask is not None or right_mask is not None
     left_mask = (torch.ones((h, w), dtype=torch.bool, device=dev)
-                 if left_mask is None else _as_tensor(left_mask, torch.bool, dev))
+                 if left_mask is None else as_tensor(left_mask, torch.bool, dev))
     right_mask = (torch.ones(right.shape, dtype=torch.bool, device=dev)
-                  if right_mask is None else _as_tensor(right_mask, torch.bool, dev))
+                  if right_mask is None else as_tensor(right_mask, torch.bool, dev))
 
     # ---- base-level regions (CorrelationView.cc:84-120) --------------------
     # Padded so every pyramid level halves exactly; extra `up` margin keeps
@@ -312,10 +394,19 @@ def pyramid_correlate(left, right, search_region: BBox2i,
             prior = disparity_upsample(dm)
             pr_d = _pad_to(prior.disparity[:out_h, :out_w], nty * t, ntx * t)
             pr_v = _pad_to(prior.valid[:out_h, :out_w], nty * t, ntx * t)
-            s_x_eff = min(int(refine_window), s_w_l)
-            s_y_eff = min(int(refine_window), s_h_l)
-            offsets = _tile_offsets(pr_d, pr_v, t, 2,
-                                    s_w_l - s_x_eff, s_h_l - s_y_eff)
+            if sgm_mode:
+                # SGM refines +-sgm_search_buffer around the seed (ref
+                # SGM.h:113); BM uses the wider refine window
+                rw = 2 * int(sgm_search_buffer) + 1
+                s_x_eff, s_y_eff = min(rw, s_w_l), min(rw, s_h_l)
+                offsets = _tile_offsets_centered(
+                    pr_d, pr_v, t, int(sgm_search_buffer), s_w_l - s_x_eff,
+                    s_h_l - s_y_eff, value_bounds=(s_w_l, s_h_l))
+            else:
+                s_x_eff = min(int(refine_window), s_w_l)
+                s_y_eff = min(int(refine_window), s_h_l)
+                offsets = _tile_offsets(pr_d, pr_v, t, 2,
+                                        s_w_l - s_x_eff, s_h_l - s_y_eff)
 
         # Base (left) frame for tile extraction, origin at the unpadded
         # region minus half the kernel; match frame: right pyramid, same origin.
@@ -338,8 +429,18 @@ def pyramid_correlate(left, right, search_region: BBox2i,
             patches = tuple(patches[:, :out_h, :out_w].unbind(0))
         else:
             mbase = crop_extended(right_pyr[level], lx0, ly0, mw, mh)
-            disp, valid, _ = sweep(lbase, mbase, offsets, t, s_x_eff, s_y_eff,
-                                   kw, kh, cost_type, want_patches=False)
+            if sgm_mode:
+                # per-pixel seeds from the (filtered, upsampled) previous
+                # level and the level's left mask: SGM invalidates internally
+                # (ref m_disp_bound_image / ZERO_SEARCH_AREA, SGM.h:180-198)
+                lm_lvl = _pad_to(lmask_pyr[level][:out_h, :out_w], nty * t, ntx * t)
+                seeds = None if level == levels else (pr_d.to(torch.float32), pr_v)
+                disp, valid = sgm_search(lbase, mbase, offsets, s_x_eff, s_y_eff,
+                                         on_last, seeds, lm_lvl, (s_w_l, s_h_l))
+            else:
+                disp, valid, _ = sweep(lbase, mbase, offsets, t, s_x_eff,
+                                       s_y_eff, kw, kh, cost_type,
+                                       want_patches=False)
         dm = DisparityMap(disp[:out_h, :out_w], valid[:out_h, :out_w])
 
         # L<->R consistency check at level 0 (CorrelationView.cc:653-695).
@@ -351,8 +452,6 @@ def pyramid_correlate(left, right, search_region: BBox2i,
             rnty, rntx = _cdiv(rl_out_h, t), _cdiv(rl_out_w, t)
             # Reuse LR tile offsets where available; edge tiles take 0.
             off_rl_src = _pad_to(offsets, rnty, rntx)
-            eff = torch.tensor([s_x_eff - 1, s_y_eff - 1], dtype=torch.int32,
-                               device=dev)
             rbh = rnty * t + kh - 1
             rbw = rntx * t + kw - 1
             rl_base = crop_extended(right_pyr[level], lx0, ly0, rbw, rbh)
@@ -364,13 +463,18 @@ def pyramid_correlate(left, right, search_region: BBox2i,
             lm_w = rbw + s_x_eff - 1 + margin_x
             rl_match = crop_extended(left_pyr[level], lx0 - margin_x,
                                      ly0 - margin_y, lm_w, lm_h)
-            rl_origin = torch.tensor([margin_x, margin_y], dtype=torch.int32,
-                                     device=dev)
-            rl_offsets = (rl_origin - (off_rl_src + eff)).contiguous()
-            rl_disp, rl_valid, _ = sweep(rl_base, rl_match, rl_offsets, t,
-                                         s_x_eff, s_y_eff, kw, kh, cost_type,
-                                         want_patches=False)
-            rl_dm = DisparityMap((rl_disp - rl_origin)[:rl_out_h, :rl_out_w],
+            # RL offset = origin - (LR offset + window - 1)
+            rl_offsets = _plus_xy(-off_rl_src, margin_x - (s_x_eff - 1),
+                                  margin_y - (s_y_eff - 1))
+            if sgm_mode:
+                rl_disp, rl_valid = sgm_search(rl_base, rl_match, rl_offsets,
+                                               s_x_eff, s_y_eff, on_last)
+            else:
+                rl_disp, rl_valid, _ = sweep(rl_base, rl_match, rl_offsets, t,
+                                             s_x_eff, s_y_eff, kw, kh,
+                                             cost_type, want_patches=False)
+            rl_dm = DisparityMap(_plus_xy(rl_disp, -margin_x, -margin_y)
+                                 [:rl_out_h, :rl_out_w],
                                  rl_valid[:rl_out_h, :rl_out_w])
             dm = cross_corr_consistency_check(dm, rl_dm, consistency_threshold)
 
@@ -394,8 +498,8 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                 ca, cb = max(0, -smin_x), min(w + s_w, rw_o - smin_x)
                 iy = torch.arange(out_h, dtype=torch.int32, device=dev)[:, None]
                 ix = torch.arange(out_w, dtype=torch.int32, device=dev)[None, :]
-                ty = iy + dm.disparity[..., 1]
-                tx = ix + dm.disparity[..., 0]
+                ty = iy + dm.disparity[..., 1].to(torch.int32)
+                tx = ix + dm.disparity[..., 0].to(torch.int32)
                 ok = (ty >= ra) & (ty < rb) & (tx >= ca) & (tx < cb)
                 valid = dm.valid & ok
                 dm = DisparityMap(torch.where(valid[..., None], dm.disparity,
@@ -406,11 +510,11 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                                     rmask_pyr[level])
 
     # Absolute disparities (CorrelationView.cc: final offset add).
-    smin = torch.tensor([smin_x, smin_y], dtype=dm.disparity.dtype, device=dev)
-    final = DisparityMap(torch.where(dm.valid[..., None], dm.disparity + smin,
+    final = DisparityMap(torch.where(dm.valid[..., None],
+                                     _plus_xy(dm.disparity, smin_x, smin_y),
                                      torch.zeros_like(dm.disparity)),
                          dm.valid)
-    if use_patches:
+    if use_patches:       # (SGM applied its subpixel mode inside the last level)
         final = DisparityMap(_fit_parabola(patches, final.disparity, final.valid),
                              final.valid)
     return final
