@@ -9,18 +9,24 @@ Phases (each raises on a mismatch; none catches its own failure):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
    to the 1/256 grid (integer disparities, validity, cost patches and keep
-   masks exact), the three SGM/MGM scans on integer-valued inputs (exact).
+   masks exact), the three SGM/MGM scans on integer-valued inputs (exact),
+   with the scan carry in shared memory and, for ``calc_disparity_sgm``'s
+   64x8 search, in global scratch.
 3. Run the main paths, each with the launch counts set to 0 just before it
    and read just after: ``pyramid_correlate`` at the configuration of
    ``bench.py`` (1024^2 pair, 64x8 search, 15x15 kernel, 4 levels, tile 64,
    parabola), again with the L<->R check, then the repo's SGM configuration
    (``tools_bench_configs.py`` config 6: 512^2 pair, 64x2 search, census
    5x5, 4 levels, tile 64, parabola) with ``stereo_algorithm="sgm"`` and
-   ``"mgm"``; apply ``bench.py``'s sanity check to each.
+   ``"mgm"``, and ``calc_disparity_sgm`` as ``docs/stereo.md`` calls it
+   (64x8 search, census 5x5, parabola) on a 256^2 frame; apply
+   ``bench.py``'s sanity check to each.
 4. Run the slices small on the card and on the CPU (plain versions) on
    quantized inputs: BM at 256^2 with 2 levels (integer disparities and
    validity equal, the parabola output allclose at atol 1e-4), SGM and MGM
-   at 128^2 with 2 levels and subpixel none (equal).
+   at 128^2 with 2 levels and subpixel none (equal), ``calc_disparity_sgm``
+   at 128^2 with the 64x8 search (validity equal, parabola allclose at
+   atol 2e-5).
 5. Time the frames and each kernel with CUDA events, and profile one frame
    of each path for the device's idle share.
 
@@ -54,6 +60,9 @@ SGM_HW = 512
 SGM_SEARCH = (0, -1, 64, 2)
 SGM_P1, SGM_P2 = 15.0, 750.0
 SGM_BAD = 255.0 + SGM_P2
+# calc_disparity_sgm as docs/stereo.md calls it: a 64x8 search volume.
+CALC_HW = 256
+CALC_SEARCH = (64, 8)
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM rate and fp32
 # rate outside the tensor cores. int32 ALU work is counted at the fp32 rate.
@@ -85,6 +94,14 @@ def _make_pair(h, w):
            + 0.5 * np.sin(xs * 0.047 + ys * 0.031)
            + 0.3 * rng.random(xs.shape)).astype(np.float32)
     return tex[:, 16:16 + w], tex[:, :w]
+
+
+def _make_calc_pair(h, w):
+    """The same texture for ``calc_disparity_sgm``: the right frame carries
+    the search margin, and left(p) == right(p + (16, 3))."""
+    sx, sy = CALC_SEARCH
+    _, right = _make_pair(h + sy - 1, w + sx - 1)
+    return right[3:3 + h, 16:16 + w].copy(), right
 
 
 def _quantized(rng, shape):
@@ -179,19 +196,25 @@ def _speckle_input(case, dev, seed):
 def scan_cases():
     """The SGM/MGM scans' shapes on config 6's main path: the level-0
     (512^2, window 5x2) x-scan (3 directions), y-scan and MGM scans, and the
-    level-4 x-scan (64^2 padded, window 4x1)."""
+    level-4 x-scan (64^2 padded, window 4x1); and ``calc_disparity_sgm``'s
+    x-scan at the 64x8 search on 256^2, whose carry (1 MB per line) is in
+    global scratch."""
     n = SGM_HW
     return [dict(kernel="scan_bidir", name="level0_x", shape=(n, 2, 5, n), shifts=(0, 1, -1)),
             dict(kernel="scan_bidir", name="level0_y", shape=(n, 2, 5, n), shifts=(0,)),
             dict(kernel="scan_bidir", name="level4_x", shape=(64, 1, 4, 64), shifts=(0, 1, -1)),
             dict(kernel="mgm_fwd", name="level0_sheared", shape=(2 * n, 4, 2, 5, n),
                  shifts=(0, 1)),
-            dict(kernel="mgm_bidir", name="level0", shape=(n, 2, 5, n), shifts=(1, -1))]
+            dict(kernel="mgm_bidir", name="level0", shape=(n, 2, 5, n), shifts=(1, -1)),
+            dict(kernel="scan_bidir", name="calc_x_scratch",
+                 shape=(CALC_HW, CALC_SEARCH[1], CALC_SEARCH[0], CALC_HW),
+                 shifts=(0, 1, -1))]
 
 
 def _scan_inputs(case, dev, seed):
     """Integer-valued inputs: census 5x5 costs (<= 24) with 3 % absent
-    candidates, pixel differences, guards."""
+    candidates, pixel differences in [0, 256) (those of 8-bit images, so
+    the P2' clamp is reached), guards."""
     import torch
     rng = np.random.default_rng(seed)
     shape = case["shape"]
@@ -202,7 +225,7 @@ def _scan_inputs(case, dev, seed):
             "mgm_fwd": (n, shape[1], nl)}[case["kernel"]]
 
     def pd():
-        return np.floor(rng.random(side) * 40).astype(np.float32)
+        return np.floor(rng.random(side) * 256).astype(np.float32)
 
     def guard():
         return rng.random(side) > 0.1
@@ -317,6 +340,12 @@ def _sgm_run(left, right, dev, algo):
                              stereo_algorithm=algo, subpixel="parabola", device=dev)
 
 
+def _calc_run(left, right, dev):
+    from visionworkbench_torch.stereo.sgm import calc_disparity_sgm
+    return calc_disparity_sgm(left, right, CALC_SEARCH, kernel_size=5,
+                              cost_type="census", subpixel="parabola", device=dev)
+
+
 def _reset_counts():
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
     sweep.launches = 0
@@ -334,6 +363,7 @@ def phase_main(dev):
     import torch
     left, right = _make_pair(H, W)
     sgm_left, sgm_right = _make_pair(SGM_HW, SGM_HW)
+    calc_left, calc_right = _make_calc_pair(CALC_HW, CALC_HW)
     none = {"sweep": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
     runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5}, H),
             ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
@@ -341,7 +371,9 @@ def phase_main(dev):
             ("sgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "sgm"),
              {"scan_bidir": 10}, SGM_HW),
             ("mgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "mgm"),
-             {"mgm_fwd": 5, "mgm_bidir": 10}, SGM_HW))
+             {"mgm_fwd": 5, "mgm_bidir": 10}, SGM_HW),
+            ("calc_sgm", lambda: _calc_run(calc_left, calc_right, dev),
+             {"scan_bidir": 2, "speckle": 0}, CALC_HW))
     counts = {}
     for what, run, want, hw in runs:
         want = {**none, "speckle": 9, **want}
@@ -398,6 +430,15 @@ def phase_slice_vs_cpu(dev):
               f"{int((vg != vc).sum())} pixels, max |gpu - cpu| {e}")
         if not (np.array_equal(vg, vc) and np.array_equal(dg, dc)):
             raise SystemExit(f"slice {algo}: GPU and CPU outputs differ")
+    left, right = _make_calc_pair(128, 128)
+    left = np.round(left * 256) / 256
+    right = np.round(right * 256) / 256
+    (dg, vg), (dc, vc) = [_calc_run(left, right, d).to_numpy() for d in (dev, "cpu")]
+    e = float(np.abs(dg - dc).max())
+    print(f"[slice] calc_disparity_sgm 128^2 {CALC_SEARCH}: valid {vg.mean():.4f}, "
+          f"validity differs at {int((vg != vc).sum())} pixels, max |gpu - cpu| {e}")
+    if not (np.array_equal(vg, vc) and np.allclose(dg, dc, rtol=1e-5, atol=2e-5)):
+        raise SystemExit("slice calc_disparity_sgm: GPU and CPU outputs differ")
 
 
 # ---- phase 5 ----------------------------------------------------------------
@@ -440,6 +481,11 @@ def phase_timings(dev):
         print(f"[time] frame {algo} (config 6, {SGM_HW}^2): {ms:.4f} ms, "
               f"{frame[algo]['mps']:.3f} Mp/s")
         _profile_frame(lambda: _sgm_run(sl, sr, dev, algo), algo, ms)
+    cl, cr = (torch.as_tensor(a, device=dev) for a in _make_calc_pair(CALC_HW, CALC_HW))
+    ms = _time_ms(lambda: _calc_run(cl, cr, dev), reps=5)
+    frame["calc_sgm"] = {"ms": ms, "mps": CALC_HW * CALC_HW / (ms * 1e3)}
+    print(f"[time] frame calc_disparity_sgm ({CALC_HW}^2, {CALC_SEARCH}): {ms:.4f} ms, "
+          f"{frame['calc_sgm']['mps']:.3f} Mp/s")
     rows = {}
     for i, c in enumerate(sweep_cases()):
         base, match, offs = _sweep_inputs(c, dev, 100 + i)
@@ -548,6 +594,7 @@ def main() -> int:
                       "sgm_frame_mps": frame["sgm"]["mps"],
                       "mgm_frame_ms": frame["mgm"]["ms"],
                       "mgm_frame_mps": frame["mgm"]["mps"],
+                      "calc_sgm_frame_ms": frame["calc_sgm"]["ms"],
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

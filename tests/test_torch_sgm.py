@@ -254,3 +254,42 @@ def test_card_matches_cpu(cuda, algo):
     cd, cv = tpyr.pyramid_correlate(*args, device="cpu", **opts).to_numpy()
     np.testing.assert_array_equal(gv, cv)
     np.testing.assert_array_equal(gd, cd)
+
+
+@pytest.mark.cuda
+def test_calc_disparity_sgm_wide_search_card_matches_cpu(cuda):
+    """The documented call, ``calc_disparity_sgm(left, right, (64, 8), ...)``,
+    on a 256^2 frame: 512 disparity cells, so the scans keep their carry in
+    global scratch. Card against CPU: validity exact, parabola subpixel
+    allclose at the subpixel tolerance."""
+    from visionworkbench_torch.ops import sgm_scan
+    rng = np.random.default_rng(101)
+    h = w = 256
+    right = quantized(rng, (h + 7, w + 63))
+    left = right[3:3 + h, 20:20 + w].copy()
+    args = (left, right, (64, 8))
+    opts = dict(kernel_size=5, cost_type="census", subpixel="parabola")
+    before = sgm_scan.launches["scan_bidir"]
+    gd, gv = tsgm.calc_disparity_sgm(*args, device=cuda, **opts).to_numpy()
+    assert sgm_scan.launches["scan_bidir"] == before + 2
+    cd, cv = tsgm.calc_disparity_sgm(*args, device="cpu", **opts).to_numpy()
+    np.testing.assert_array_equal(gv, cv)
+    np.testing.assert_allclose(gd, cd, **SUB_TOL)
+    core = np.s_[8:-8, 8:-8]
+    assert (np.abs(gd[core] - [20, 3]) < 0.5).all(-1).mean() > 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["sgm", "mgm"])
+def test_single_level_wide_search_card_matches_cpu(cuda, algo):
+    """``pyramid_correlate`` at one level with config 6's 64x2 search on a
+    64x512 frame: 128 cells over 512 lanes need the global-scratch carry.
+    Card against CPU: integer disparities and validity exact."""
+    left, right = _pair(102, 64, 512, (16, 0))
+    args = (left, right, BBox2i(0, -1, 64, 2))
+    opts = dict(stereo_algorithm=algo, max_pyramid_levels=0, tile_size=64,
+                subpixel="none")
+    gd, gv = tpyr.pyramid_correlate(*args, device=cuda, **opts).to_numpy()
+    cd, cv = tpyr.pyramid_correlate(*args, device="cpu", **opts).to_numpy()
+    np.testing.assert_array_equal(gv, cv)
+    np.testing.assert_array_equal(gd, cd)

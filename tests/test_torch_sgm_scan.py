@@ -6,7 +6,11 @@ the same seeded integer-valued inputs.
 
 Tolerance: exact. Every value is an integer-valued fp32 below 2^24, so the
 recurrences are exact in any order. The CUDA kernels are held against the
-plain versions on the card (skipped without one), also exactly.
+plain versions on the card (skipped without one), also exactly, with the
+carry in shared memory and, for wide search windows, in global scratch.
+Pixel differences are drawn from [0, 256), the range of |dI| on 8-bit
+images, so the P2' = max(floor(P2 / |dI|), P1) clamp and every IEEE
+quotient of the penalty are reached.
 """
 
 import jax
@@ -25,6 +29,9 @@ P1, P2 = 15.0, 750.0
 BAD = 255.0 + P2
 
 
+PD_HI = 256       # |dI| of 8-bit images
+
+
 def _ints(rng, shape, hi, bad_frac=0.0):
     """Integer-valued float32 in [0, hi), with a share of absent (bad)
     candidates."""
@@ -36,20 +43,20 @@ def _ints(rng, shape, hi, bad_frac=0.0):
 
 def _scan_inputs(seed, n, sy, sx, nl, b):
     rng = np.random.default_rng(seed)
-    return (_ints(rng, (n, sy, sx, nl), 30, 0.05), _ints(rng, (n, b, nl), 20),
-            _ints(rng, (n, b, nl), 20))
+    return (_ints(rng, (n, sy, sx, nl), 30, 0.05), _ints(rng, (n, b, nl), PD_HI),
+            _ints(rng, (n, b, nl), PD_HI))
 
 
 def _mgm_inputs(seed, n, sy, sx, nl):
     rng = np.random.default_rng(seed)
-    return (_ints(rng, (n, sy, sx, nl), 30, 0.05), _ints(rng, (n, nl), 20),
-            _ints(rng, (n, nl), 20), rng.random((n, nl)) > 0.2,
+    return (_ints(rng, (n, sy, sx, nl), 30, 0.05), _ints(rng, (n, nl), PD_HI),
+            _ints(rng, (n, nl), PD_HI), rng.random((n, nl)) > 0.2,
             rng.random((n, nl)) > 0.2)
 
 
 def _fwd_inputs(seed, n, b, sy, sx, nl):
     rng = np.random.default_rng(seed)
-    return (_ints(rng, (n, b, sy, sx, nl), 30, 0.05), _ints(rng, (n, b, nl), 20),
+    return (_ints(rng, (n, b, sy, sx, nl), 30, 0.05), _ints(rng, (n, b, nl), PD_HI),
             rng.random((n, b, nl)) > 0.2)
 
 
@@ -134,7 +141,9 @@ def test_wrappers_reject_bad_arguments():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(24, 2, 5, 128, (0, 1, -1)), (40, 1, 4, 1100, (0,)),
-                                  (7, 3, 3, 33, (1, -1))])
+                                  (7, 3, 3, 33, (1, -1)),
+                                  # a 64x8 search: the carry is in global scratch
+                                  (24, 8, 64, 256, (0, 1, -1))])
 def test_scan_bidir_kernel_matches_plain(cuda, case):
     n, sy, sx, nl, shifts = case
     args = _t(_scan_inputs(24, n, sy, sx, nl, len(shifts)), cuda)
@@ -146,7 +155,8 @@ def test_scan_bidir_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(16, 2, 5, 128), (9, 1, 1, 1030)])
+@pytest.mark.parametrize("case", [(16, 2, 5, 128), (9, 1, 1, 1030),
+                                  (9, 8, 16, 256)])      # global scratch
 def test_mgm_kernels_match_plain(cuda, case):
     n, sy, sx, nl = case
     args = _t(_mgm_inputs(25, n, sy, sx, nl), cuda)

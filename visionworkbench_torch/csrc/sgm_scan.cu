@@ -19,12 +19,16 @@
 // Parallel and sequential axes: one block per (group, direction) line; its
 // threads cover the line's L lanes (several lanes per thread above 1024),
 // each lane all sy*sx disparity cells. Only the N steps are sequential. The
-// carry (sy, sx, L) is double-buffered in shared memory (2 * 10 * 512 * 4 B
-// = 40 KB at the 512^2 level 0; above 48 KB through the opt-in attribute),
-// so each step is one __syncthreads: step t reads one buffer (lane l - shift
-// of every cell, for the min and the 3x3 grid min) and writes the other. The
-// (N, sy, sx, L) layout puts lanes last, so each step's cost loads, output
-// stores and atomics are coalesced.
+// carry (sy, sx, L) is double-buffered, so each step is one __syncthreads:
+// step t reads one buffer (lane l - shift of every cell, for the min and the
+// 3x3 grid min) and writes the other. The buffers live in shared memory when
+// 2 * sy * sx * L * 4 B fits a block's opt-in limit (40 KB at the 512^2
+// level 0; above 48 KB through the opt-in attribute), else in the block's
+// own slice of a global scratch buffer (a 64x8 search over 256 lanes needs
+// 1 MB): one block owns the line either way, and __syncthreads orders its
+// global accesses as it does its shared ones. The (N, sy, sx, L) layout
+// puts lanes last, so each step's cost loads, output stores and atomics are
+// coalesced.
 //
 // Exactness: every value is an integer-valued fp32 below 2^24 (census costs
 // <= 64, bad = 255 + P2, sums of 8 paths), so the fp32 atomicAdd of the
@@ -55,6 +59,7 @@ struct Args {
   const float* pd[2];
   const unsigned char* guard[2];  // null in mode 0
   float* out[2];
+  float* scratch;  // global carry, 2 * sy * sx * L per block; null: shared
   int B, N, sy, sx, L;
   long long cost_n, cost_b, pd_n, pd_b, out_n, out_b;  // strides, elements
   int reverse1;   // group 1 walks n = N-1-t (cost, pd, guard and out)
@@ -94,7 +99,10 @@ __device__ __forceinline__ float path_cell(const float* P, int L, int sy,
   return cost + (best - mp);
 }
 
-template <int MODE>
+// SCRATCH is a template argument, not a run-time test of a.scratch, so the
+// shared-memory instance keeps shared loads and stores: a pointer that may
+// point to either space compiles to generic loads and stores.
+template <int MODE, bool SCRATCH>
 __global__ void line_scan_kernel(Args a) {
   extern __shared__ float sm[];
   const int L = a.L, sy = a.sy, sx = a.sx, cells = sy * sx;
@@ -108,13 +116,17 @@ __global__ void line_scan_kernel(Args a) {
   const int s0 = MODE == 0 ? a.shift[b] : a.shift[0];
   const int s1 = a.shift[1];
 
-  for (int i = threadIdx.x; i < cells * L; i += blockDim.x) sm[i] = bad;
+  float* carry = SCRATCH
+                     ? a.scratch + (long long)(g * gridDim.x + b) * 2 * cells * L
+                     : sm;
+
+  for (int i = threadIdx.x; i < cells * L; i += blockDim.x) carry[i] = bad;
   __syncthreads();
 
   for (int t = 0; t < a.N; ++t) {
     const long long n = rev ? a.N - 1 - t : t;
-    const float* P = sm + (t & 1) * cells * L;
-    float* Q = sm + ((t + 1) & 1) * cells * L;
+    const float* P = carry + (t & 1) * cells * L;
+    float* Q = carry + ((t + 1) & 1) * cells * L;
     const float* cn = cost + n * a.cost_n;
     float* on = out + n * a.out_n;
     for (int l = threadIdx.x; l < L; l += blockDim.x) {
@@ -148,29 +160,32 @@ __global__ void line_scan_kernel(Args a) {
   }
 }
 
-template <int MODE>
+template <int MODE, bool SCRATCH>
 cudaError_t launch(const Args& a, int groups, int threads, size_t smem,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      line_scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      line_scan_kernel<MODE, SCRATCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  line_scan_kernel<MODE><<<dim3(a.B, groups), threads, smem, stream>>>(a);
+  line_scan_kernel<MODE, SCRATCH>
+      <<<dim3(a.B, groups), threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t (0 on success). The caller checks shapes, types and
-// contiguity and sizes smem = 2 * sy * sx * L * 4 bytes. mode 0: SGM
-// (scan_bidir), mode 1: MGM (mgm_bidir, mgm_fwd). Group g of the (B, groups)
-// grid reads cost_g / pd_g / guard_g and writes out_g.
+// contiguity, and either sizes smem = 2 * sy * sx * L * 4 bytes with a null
+// scratch, or passes smem = 0 and a scratch of groups * B * 2 * sy * sx * L
+// floats. mode 0: SGM (scan_bidir), mode 1: MGM (mgm_bidir, mgm_fwd). Group
+// g of the (B, groups) grid reads cost_g / pd_g / guard_g and writes out_g.
 extern "C" int vw_line_scan(int mode, const float* cost0, const float* cost1,
                             const float* pd0, const float* pd1,
                             const unsigned char* guard0,
                             const unsigned char* guard1, float* out0,
-                            float* out1, int groups, int B, int N, int sy,
-                            int sx, int L, long long cost_n, long long cost_b,
+                            float* out1, float* scratch, int groups, int B,
+                            int N, int sy, int sx, int L, long long cost_n,
+                            long long cost_b,
                             long long pd_n, long long pd_b, long long out_n,
                             long long out_b, int reverse1, int shift0,
                             int shift1, int shift2, int store, float p1,
@@ -185,6 +200,7 @@ extern "C" int vw_line_scan(int mode, const float* cost0, const float* cost1,
   a.guard[1] = guard1;
   a.out[0] = out0;
   a.out[1] = out1;
+  a.scratch = scratch;
   a.B = B;
   a.N = N;
   a.sy = sy;
@@ -205,6 +221,11 @@ extern "C" int vw_line_scan(int mode, const float* cost0, const float* cost1,
   a.p2 = p2;
   a.bad = bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 0) return launch<0>(a, groups, threads, (size_t)smem, s);
-  return launch<1>(a, groups, threads, (size_t)smem, s);
+  const size_t sm = (size_t)smem;
+  if (scratch != nullptr) {
+    if (mode == 0) return launch<0, true>(a, groups, threads, sm, s);
+    return launch<1, true>(a, groups, threads, sm, s);
+  }
+  if (mode == 0) return launch<0, false>(a, groups, threads, sm, s);
+  return launch<1, false>(a, groups, threads, sm, s);
 }

@@ -23,7 +23,8 @@ written as Python loops over the N steps with the helpers below
 Every value is an integer-valued fp32 below 2^24 (census costs <= 64, the
 absent-candidate value ``bad = 255 + P2``, sums of 8 paths), so sums are
 exact in any order and each kernel equals its plain version bit for bit.
-What bounds the kernels on the H100, and what their design does about it:
+Any search window runs on the card: a line's carry that does not fit a
+block's shared memory goes to a global scratch buffer. What bounds the kernels on the H100, and what their design does about it:
 see the note at the top of ``csrc/sgm_scan.cu``.
 """
 
@@ -53,6 +54,7 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vw_line_scan.argtypes = [
             i, p, p, p, p, p, p, p, p,     # mode, cost/pd/guard/out per group
+            p,                             # scratch (null: shared memory)
             i, i, i, i, i, i,              # groups, B, N, sy, sx, L
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
@@ -200,7 +202,9 @@ def _check(name, cost_t, side, shifts, n_shifts):
 def _launch(name, mode, groups, b, n, sy, sx, nl, cost, pd, guard, out,
             strides, reverse, shifts, store, p1, p2, bad):
     """Check device, type and contiguity, then launch one block per (group,
-    direction) of ``csrc/sgm_scan.cu``."""
+    direction) of ``csrc/sgm_scan.cu``. The double-buffered carry is in
+    shared memory when it fits a block's opt-in limit, else in a global
+    scratch buffer, one slice per block."""
     tensors = [("cost_t", cost[0], torch.float32), ("out", out[0], torch.float32)]
     tensors += [(f"pd[{g}]", t, torch.float32) for g, t in enumerate(pd)]
     tensors += [(f"guard[{g}]", t, torch.bool) for g, t in enumerate(guard)
@@ -212,14 +216,15 @@ def _launch(name, mode, groups, b, n, sy, sx, nl, cost, pd, guard, out,
                               f"tensor on {dev}")
     threads = min(-(-nl // 32) * 32, _MAX_THREADS)
     smem = 2 * sy * sx * nl * 4                        # the carry, twice
+    scratch = None
     if smem > _MAX_SMEM:
-        raise ArgumentErr(f"{name}: a line of {nl} lanes x {sy}x{sx} "
-                          f"disparities needs {smem} B of shared memory; the "
-                          f"CUDA scan takes at most {_MAX_SMEM}")
+        scratch = torch.empty(groups * b * 2 * sy * sx * nl,
+                              dtype=torch.float32, device=dev)
+        smem = 0
     lib = _library()
     ptr = [t.data_ptr() if t is not None else None
            for t in (cost[0], cost[-1], pd[0], pd[-1], guard[0], guard[-1],
-                     out[0], out[-1])]
+                     out[0], out[-1], scratch)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vw_line_scan(mode, *ptr, groups, b, n, sy, sx, nl, *strides,

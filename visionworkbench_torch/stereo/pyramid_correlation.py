@@ -48,7 +48,7 @@ from visionworkbench_torch.stereo.prefilter import (
     PREFILTER_NONE, check_prefilter_mode, prefilter_image,
 )
 from visionworkbench_torch.stereo.sgm import (
-    SUBPIXEL_MODES, _P1_TABLE, _P2_TABLE, sgm_relative_search,
+    SUBPIXEL_MODES, default_penalties, sgm_relative_search,
 )
 from visionworkbench_torch.stereo.subpixel import _fit_parabola
 
@@ -171,13 +171,6 @@ def _tile_offsets_centered(prior_disp, prior_valid, tile: int, buffer: int,
                         off[..., 1].clamp(0, max_off_y)], -1).contiguous()
 
 
-def _plus_xy(t: torch.Tensor, x: int, y: int) -> torch.Tensor:
-    """``t + (x, y)`` over the last (dx, dy) axis, per channel: a small
-    tensor made from host values would be a host-to-device copy, which
-    waits for the stream to drain and stops the host from running ahead."""
-    return torch.stack([t[..., 0] + x, t[..., 1] + y], -1)
-
-
 def _pad_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Zero-pad the first two axes of ``x`` at the bottom/right to (h, w)."""
     out = x.new_zeros((h, w) + tuple(x.shape[2:]))
@@ -287,9 +280,7 @@ def pyramid_correlate(left, right, search_region: BBox2i,
         # the census support drives the pyramid padding in SGM mode
         kw = kh = int(census_window)
         sgm_cost = "ternary_census" if cost_type == "ternary_census" else "census"
-        tkey = (sgm_cost, int(census_window))
-        sgm_p1 = float(_P1_TABLE.get(tkey, 3))
-        sgm_p2 = float(_P2_TABLE.get(tkey, 70))
+        sgm_p1, sgm_p2 = default_penalties(sgm_cost, census_window)
 
         def sgm_search(lbase_, mbase_, offsets_, sx_, sy_, last_, seeds=None,
                        lmask_=None, ranges=(0, 0)):
@@ -452,6 +443,8 @@ def pyramid_correlate(left, right, search_region: BBox2i,
             rnty, rntx = _cdiv(rl_out_h, t), _cdiv(rl_out_w, t)
             # Reuse LR tile offsets where available; edge tiles take 0.
             off_rl_src = _pad_to(offsets, rnty, rntx)
+            eff = torch.tensor([s_x_eff - 1, s_y_eff - 1], dtype=torch.int32,
+                               device=dev)
             rbh = rnty * t + kh - 1
             rbw = rntx * t + kw - 1
             rl_base = crop_extended(right_pyr[level], lx0, ly0, rbw, rbh)
@@ -463,9 +456,9 @@ def pyramid_correlate(left, right, search_region: BBox2i,
             lm_w = rbw + s_x_eff - 1 + margin_x
             rl_match = crop_extended(left_pyr[level], lx0 - margin_x,
                                      ly0 - margin_y, lm_w, lm_h)
-            # RL offset = origin - (LR offset + window - 1)
-            rl_offsets = _plus_xy(-off_rl_src, margin_x - (s_x_eff - 1),
-                                  margin_y - (s_y_eff - 1))
+            rl_origin = torch.tensor([margin_x, margin_y], dtype=torch.int32,
+                                     device=dev)
+            rl_offsets = (rl_origin - (off_rl_src + eff)).contiguous()
             if sgm_mode:
                 rl_disp, rl_valid = sgm_search(rl_base, rl_match, rl_offsets,
                                                s_x_eff, s_y_eff, on_last)
@@ -473,8 +466,7 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                 rl_disp, rl_valid, _ = sweep(rl_base, rl_match, rl_offsets, t,
                                              s_x_eff, s_y_eff, kw, kh,
                                              cost_type, want_patches=False)
-            rl_dm = DisparityMap(_plus_xy(rl_disp, -margin_x, -margin_y)
-                                 [:rl_out_h, :rl_out_w],
+            rl_dm = DisparityMap((rl_disp - rl_origin)[:rl_out_h, :rl_out_w],
                                  rl_valid[:rl_out_h, :rl_out_w])
             dm = cross_corr_consistency_check(dm, rl_dm, consistency_threshold)
 
@@ -510,8 +502,8 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                                     rmask_pyr[level])
 
     # Absolute disparities (CorrelationView.cc: final offset add).
-    final = DisparityMap(torch.where(dm.valid[..., None],
-                                     _plus_xy(dm.disparity, smin_x, smin_y),
+    smin = torch.tensor([smin_x, smin_y], dtype=dm.disparity.dtype, device=dev)
+    final = DisparityMap(torch.where(dm.valid[..., None], dm.disparity + smin,
                                      torch.zeros_like(dm.disparity)),
                          dm.valid)
     if use_patches:       # (SGM applied its subpixel mode inside the last level)

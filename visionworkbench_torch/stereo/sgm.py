@@ -21,7 +21,8 @@ The scans run in ``ops/sgm_scan.py``: the CUDA kernels for tensors on the
 card, their plain versions on the CPU. Everything else is plain tensor
 work. All arithmetic is integer-valued fp32 below 2^24, so the port's
 integer winners equal the JAX package's exactly; the subpixel fits agree to
-fp32 rounding (the parabola fit runs in float64, as the reference's does).
+fp32 rounding. The parabola fit runs in float64, as the C++ reference's
+does, where the JAX package fits in fp32 (see ``_parabola_2d``).
 
 Only the reference-semantics branch is ported: the JAX package's A/B knobs
 (``VWTPU_SGM_EXACT_TIES``, ``VWTPU_SGM_ITER_COND``, ``VWTPU_SGM_TIE_STATS``,
@@ -33,7 +34,6 @@ no device-to-host sync is needed.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
@@ -293,22 +293,19 @@ def _subpixel_1d(sm1, s0, sp1, mode: str, left_bound, right_bound):
     return torch.where(both_zero, torch.zeros_like(off), off)
 
 
-@functools.lru_cache(maxsize=None)
-def _pinv64(device: torch.device) -> torch.Tensor:
-    """``_PINV_A_SGM`` in float64 on ``device``, copied there once: a host
-    to device copy waits for the stream to drain."""
-    return torch.as_tensor(_PINV_A_SGM, device=device).to(torch.float64)
-
-
 def _parabola_2d(z):
     """The reference SGM parabola: 9-point quadratic fit, erf squashing and
     norm clamp at 0.5; |denom| < 0.01 keeps the integer disparity
     (``ParabolaFit2d::find_peak``, SGMAssist.h:97-135). ``z`` (H, W, 9), dx
-    fastest. Computed in float64 like the reference (its offsets pass
-    through float32 before the erf): the fit cancels large terms, so fp32
-    sums carry noise of ~1e-5 px whose sign depends on the summation order,
-    while float64 gives the same offsets on the CPU and on the card."""
-    v = z.to(torch.float64) @ _pinv64(z.device).T
+    fastest. A deliberate departure from the JAX package, which fits in
+    fp32 (an einsum): the port fits in float64, as the C++ reference's
+    ``ParabolaFit2d`` does (its offsets pass through float32 before the
+    erf). The fit cancels large terms, so fp32 sums carry noise of ~1e-5 px
+    whose sign depends on the summation order, while float64 gives the same
+    offsets on the CPU and on the card; the two packages agree within the
+    2e-5 px subpixel tolerance."""
+    pinv = torch.as_tensor(_PINV_A_SGM, device=z.device).to(torch.float64)
+    v = z.to(torch.float64) @ pinv.T
     a, b, c, d, e = v.unbind(-1)[:5]
     denom = 4.0 * a * b - c * c
     ok = denom.abs() >= 0.01
@@ -556,7 +553,9 @@ def sgm_relative_search(lbase, mbase, offsets, tile: int, rx: int, ry: int,
     return torch.where(valid[..., None], disp, torch.zeros_like(disp)), valid
 
 
-def _penalties(cost_type: str, window: int, p1, p2):
+def default_penalties(cost_type: str, window: int, p1=None, p2=None):
+    """(P1, P2): the given penalties, or the reference's defaults for the
+    cost and census window (ref SGM.cc:104-160)."""
     key = (cost_type, int(window))
     return (float(p1 if p1 is not None else _P1_TABLE.get(key, 3)),
             float(p2 if p2 is not None else _P2_TABLE.get(key, 70)))
@@ -593,7 +592,7 @@ def calc_disparity_sgm(left, right, search_volume, kernel_size: int = 5,
     if cost_type not in ("census", "ternary_census"):
         raise ArgumentErr("SGM supports census / ternary_census costs")
     ternary = cost_type == "ternary_census"
-    p1v, p2v = _penalties(cost_type, kernel_size, p1, p2)
+    p1v, p2v = default_penalties(cost_type, kernel_size, p1, p2)
     dev = resolve_device(device)
     left = as_tensor(left, torch.float32, dev)
     right = as_tensor(right, torch.float32, dev)
@@ -679,7 +678,7 @@ def sgm_reference_region(left_u8, right_u8, search_volume, kernel_size: int = 5,
     sx, sy = int(search_volume[0]), int(search_volume[1])
     window = int(kernel_size)
     ternary = cost_type == "ternary_census"
-    p1v, p2v = _penalties(cost_type, window, p1, p2)
+    p1v, p2v = default_penalties(cost_type, window, p1, p2)
     dev = resolve_device(device)
     hk = window // 2
     lq = as_tensor(left_u8, torch.int32, dev)
