@@ -9,9 +9,14 @@ Phases (each raises on a mismatch; none catches its own failure):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
    to the 1/256 grid (integer disparities, validity, cost patches and keep
-   masks exact), the three SGM/MGM scans on integer-valued inputs (exact),
-   with the scan carry in shared memory and, for ``calc_disparity_sgm``'s
-   64x8 search, in global scratch.
+   masks exact) -- the sweep with abs and census 5x5 costs at the bench and
+   config-4 shapes, ternary census 7x7 at level 0, NCC and the full-frame
+   census 7x7 codes at config 3's shape (NCC with black blocks in both
+   frames, so zero-energy windows give NaN metrics), and the entry points of
+   the first-generation sweeps (``ops/cost_volume.py``) -- and the three
+   SGM/MGM scans on integer-valued inputs (exact), with the scan carry in
+   shared memory and, for ``calc_disparity_sgm``'s 64x8 search, in global
+   scratch.
 3. Run the main paths, each with the launch counts set to 0 just before it
    and read just after: ``pyramid_correlate`` at the configuration of
    ``bench.py`` (1024^2 pair, 64x8 search, 15x15 kernel, 4 levels, tile 64,
@@ -19,14 +24,21 @@ Phases (each raises on a mismatch; none catches its own failure):
    (``tools_bench_configs.py`` config 6: 512^2 pair, 64x2 search, census
    5x5, 4 levels, tile 64, parabola) with ``stereo_algorithm="sgm"`` and
    ``"mgm"``, and ``calc_disparity_sgm`` as ``docs/stereo.md`` calls it
-   (64x8 search, census 5x5, parabola) on a 256^2 frame; apply
-   ``bench.py``'s sanity check to each.
+   (64x8 search, census 5x5, parabola) on a 256^2 frame; config 4 (the
+   bench frame with census 5x5 costs, ``tools_bench_configs.py:166-182``)
+   without and with the L<->R check, and with ternary census 7x7;
+   ``calc_disparity`` at config 3 (``tools_bench_configs.py:150-164``:
+   1024^2, 32x1 search, 15x15, the right frame edge-padded by 31 columns)
+   with abs, ncc and census 7x7 costs; and the entry points of TPU kernels
+   6 and 7 on config 3's frames; apply ``bench.py``'s sanity check to each.
 4. Run the slices small on the card and on the CPU (plain versions) on
    quantized inputs: BM at 256^2 with 2 levels (integer disparities and
    validity equal, the parabola output allclose at atol 1e-4), SGM and MGM
    at 128^2 with 2 levels and subpixel none (equal), ``calc_disparity_sgm``
    at 128^2 with the 64x8 search (validity equal, parabola allclose at
-   atol 2e-5).
+   atol 2e-5), config 4 at 256^2 with 2 levels (integer disparities and
+   validity equal, parabola allclose at atol 1e-4), ``calc_disparity`` with
+   ncc and ternary census 7x7 at 128^2 (equal).
 5. Time the frames and each kernel with CUDA events, and profile one frame
    of each path for the device's idle share.
 
@@ -64,6 +76,18 @@ SGM_BAD = 255.0 + SGM_P2
 CALC_HW = 256
 CALC_SEARCH = (64, 8)
 
+# Config 4 (tools_bench_configs.py:166-182): the bench frame with census
+# 5x5 costs. Config 3 and its census/NCC variants (tools_bench_configs.py:
+# 150-164, tools_ab_sweep.py:96-110): calc_disparity over the 1024^2 frame,
+# 32x1 search, 15x15 kernel, the right frame edge-padded by 31 columns.
+CENSUS_WINDOW = 5
+CALC3_SEARCH = (32, 1)
+CALC3_OUT = H - KERNEL[1] + 1
+# Kernel 7's run on config 3's frames: per-tile offsets (12, 0), an 11x1
+# window (disparities 12..22 around the true 16).
+K7_WINDOW = (11, 1)
+K7_OFFSET = (12, 0)
+
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM rate and fp32
 # rate outside the tensor cores. int32 ALU work is counted at the fp32 rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -73,6 +97,16 @@ PEAK_OPS_PER_S = 67e12
 # best/worst update (2) for each searched (not ring) candidate.
 SWEEP_OPS_BOX = 6
 SWEEP_OPS_SELECT = 2
+# Census: an xor and a popcount per code word and the adds joining the
+# words, then the two running sums (4); computing the codes once per frame
+# pixel: a compare and an or per sample position (two of each, ternary).
+CENSUS_CODE_OPS = 2
+# NCC per pixel and candidate: the product, the two running sums (4),
+# lprec * rprec, the square root and the scale (3); each window energy
+# (left per pixel, right per window position): square, the two running
+# sums, the reciprocal.
+SWEEP_OPS_NCC = 8
+NCC_ENERGY_OPS = 6
 # Per pixel and window neighbour of the speckle stencil: two field
 # extracts, two differences, two abs, two compares, an and, an add.
 SPECKLE_OPS = 10
@@ -94,6 +128,10 @@ def _make_pair(h, w):
            + 0.5 * np.sin(xs * 0.047 + ys * 0.031)
            + 0.3 * rng.random(xs.shape)).astype(np.float32)
     return tex[:, 16:16 + w], tex[:, :w]
+
+
+def sweep_ops_census(n_words):
+    return 3 * n_words - 1 + 4
 
 
 def _make_calc_pair(h, w):
@@ -170,6 +208,78 @@ def _sweep_inputs(case, dev, seed):
                      rng.integers(0, case["max_off"][1] + 1, (nt, nt))], -1)
     return (torch.as_tensor(base, device=dev), torch.as_tensor(match, device=dev),
             torch.as_tensor(offs.astype(np.int32), device=dev))
+
+
+def sweep_mode_cases():
+    """Each sweep mode and the main-path shapes it runs at: (row key,
+    shape name, cost, census window)."""
+    rows = []
+    for c in sweep_cases():
+        rows.append(("sweep", c, "abs", 5))
+        rows.append(("sweep_census", c, "census", CENSUS_WINDOW))
+        if c["name"] == "level0_patches":
+            rows.append(("sweep_ternary_census", c, "ternary_census", 7))
+    return rows
+
+
+def _calc3_pair(h=None, w=None):
+    """Config 3's frames (H x W unless given): the bench pair, the right
+    frame edge-padded by 31 columns (tools_bench_configs.py:155)."""
+    left, right = _make_pair(h or H, w or W)
+    return left, np.pad(right, ((0, 0), (0, CALC3_SEARCH[0] - 1)), mode="edge")
+
+
+def _frame_inputs(dev, seed):
+    """Quantized frames at config 3's shape, left(p) == right(p + (16, 0)),
+    with black blocks in both frames: zero-energy NCC windows give NaN
+    metrics (the JAX package's first-NaN-wins rule)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    right = _quantized(rng, (H, W + CALC3_SEARCH[0] - 1))
+    left = right[:, 16:16 + W].copy()
+    y0, y1, x0 = H * 3 // 10, H * 4 // 10, W // 2
+    left[y0:y1, x0:x0 + W // 8] = 0.0
+    right[y0:y1, x0:x0 + W // 8 + 40] = 0.0
+    right[H * 6 // 10:H * 7 // 10, W // 10:W // 5] = 0.0
+    return torch.as_tensor(left, device=dev), torch.as_tensor(right, device=dev)
+
+
+def _k7_args(left, right, dev, seed=None):
+    """Kernel 7's inputs on config 3's frames: tile grid of TILE covering
+    the 1010^2 output, per-tile offsets (K7_OFFSET, or random in range)."""
+    import torch
+    from visionworkbench_torch.image.edge import crop_extended
+    kw, kh = KERNEL
+    nt = -(-CALC3_OUT // TILE)
+    side = nt * TILE + kw - 1
+    base = crop_extended(left, 0, 0, side, side)
+    match = crop_extended(right, 0, 0, side + CALC3_SEARCH[0] - 1, side)
+    if seed is None:
+        offs = torch.tensor(K7_OFFSET, dtype=torch.int32, device=dev).expand(nt, nt, 2)
+    else:
+        rng = np.random.default_rng(seed)
+        offs = torch.as_tensor(rng.integers(0, CALC3_SEARCH[0] - K7_WINDOW[0] + 1,
+                                            (nt, nt, 2)).astype(np.int32), device=dev)
+        offs[..., 1] = 0
+    return base, match, offs.contiguous(), TILE, *K7_WINDOW, kw, kh, "abs"
+
+
+def _max_err(got, ref):
+    """Largest difference between two output tuples (None entries skipped;
+    NaN equal to NaN; bool planes count mismatches)."""
+    import torch
+    e = 0.0
+    for a, b in zip(got, ref):
+        if b is None:
+            continue
+        if a.dtype == torch.bool:
+            e = max(e, float((a != b).sum()))
+            continue
+        d = (a.double() - b.double()).abs()
+        if a.is_floating_point():
+            d = torch.where(a.isnan() & b.isnan(), torch.zeros_like(d), d)
+        e = max(e, float(torch.nan_to_num(d, nan=float("inf")).max()))
+    return e
 
 
 def speckle_cases():
@@ -261,24 +371,51 @@ def phase_kernels(dev):
     import torch
     from visionworkbench_torch.ops import speckle, sweep
     kw, kh = KERNEL
-    err = {"sweep": 0.0, "speckle": 0.0, "scan_bidir": 0.0, "mgm_bidir": 0.0,
-           "mgm_fwd": 0.0}
-    for i, c in enumerate(sweep_cases()):
-        base, match, offs = _sweep_inputs(c, dev, 100 + i)
-        args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, "abs",
-                bool(c["ring"]))
-        d1, v1, p1 = sweep.sweep(*args)
-        d0, v0, p0 = sweep.sweep_plain(*args)
+    from visionworkbench_torch.ops import cost_volume
+    err = {k: 0.0 for k in ("sweep", "sweep_census", "sweep_ternary_census",
+                            "sweep_ncc", "sweep_census_codes", "best_of_search",
+                            "tiled_search", "speckle", "scan_bidir", "mgm_bidir",
+                            "mgm_fwd")}
+
+    def check(key, what, got, ref):
         torch.cuda.synchronize()
-        e = max(float((d1 - d0).abs().max()), float((v1 != v0).sum()))
-        if p1 is not None:
-            e = max(e, float((p1 - p0).abs().max()))
-        err["sweep"] = max(err["sweep"], e)
-        print(f"[kernels] sweep {c['name']}: tiles {c['nt']}x{c['nt']}, "
-              f"window {c['sx']}x{c['sy']}, valid {float(v1.float().mean()):.4f}, "
+        e = _max_err(got, ref)
+        err[key] = max(err[key], e)
+        print(f"[kernels] {key} {what}: valid {float(got[1].float().mean()):.4f}, "
               f"max_abs_err {e}")
         if e != 0.0:
-            raise SystemExit(f"sweep kernel disagrees with its plain version at {c['name']}")
+            raise SystemExit(f"{key} disagrees with its plain version at {what}")
+
+    for i, (key, c, cost, cw) in enumerate(sweep_mode_cases()):
+        base, match, offs = _sweep_inputs(c, dev, 100 + i)
+        args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, cost,
+                bool(c["ring"]), cw)
+        check(key, f"{c['name']} ({cost} {cw}, tiles {c['nt']}x{c['nt']}, window "
+              f"{c['sx']}x{c['sy']})", sweep.sweep(*args), sweep.sweep_plain(*args))
+    left, right = _frame_inputs(dev, 150)
+    sx, sy = CALC3_SEARCH
+    for key, cost, cw in (("sweep_ncc", "ncc", 5), ("sweep_census_codes", "census", 7)):
+        args = (left, right, sx, sy, kw, kh, cost, cw)
+        got = sweep.search_frame(*args, want_best=True)
+        ref = sweep.search_frame(*args, want_best=True, plain=True)
+        if cost == "ncc":
+            nan = got[2].isnan()
+            print(f"[kernels] sweep_ncc: {int(nan.sum())} pixels with a NaN metric, "
+                  f"all valid: {bool(got[1][nan].all())}")
+            if not (bool(nan.any()) and bool(got[1][nan].all())):
+                raise SystemExit("sweep_ncc: the zero-energy windows did not give "
+                                 "valid NaN-metric pixels")
+        check(key, f"config3 ({cost} {cw}, {H}x{W}, window {sx}x{sy})", got, ref)
+    args = (left, right, sx, sy, kw, kh, "abs")
+    check("best_of_search", "config3 (abs)", cost_volume.best_of_search(*args),
+          cost_volume.best_of_search_plain(*args))
+    args = _k7_args(left, right, dev, seed=160)
+    got = cost_volume.tiled_search(*args)
+    zeroed = bool((got[0][~got[1]] == 0).all())
+    check("tiled_search", f"config3 tiles (abs, window {K7_WINDOW}, invalid "
+          f"disparities zeroed: {zeroed})", got, cost_volume.tiled_search_plain(*args))
+    if not zeroed:
+        raise SystemExit("tiled_search: invalid disparities are not zeroed")
     for i, c in enumerate(speckle_cases()):
         code = _speckle_input(c, dev, 200 + i)
         args = (code, c["half"], c["half"], c["t"], c["min_match"])
@@ -346,6 +483,29 @@ def _calc_run(left, right, dev):
                               cost_type="census", subpixel="parabola", device=dev)
 
 
+def _calc3_run(left, right, dev, cost, cw=5):
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo.correlation import calc_disparity
+    return calc_disparity(cost, left, right, BBox2i(0, 0, W, H), CALC3_SEARCH,
+                          KERNEL, census_window=cw, device=dev)
+
+
+def _k6_run(left, right, dev):
+    """Kernel 6's entry point on config 3's frames (abs)."""
+    from visionworkbench_torch.ops.cost_volume import best_of_search
+    from visionworkbench_torch.stereo.correlation import DisparityMap
+    d, v, _ = best_of_search(left, right, *CALC3_SEARCH, *KERNEL, "abs")
+    return DisparityMap(d, v)
+
+
+def _k7_run(left, right, dev):
+    """Kernel 7's entry point on config 3's frames: tile offsets (12, 0)."""
+    from visionworkbench_torch.ops.cost_volume import tiled_search
+    from visionworkbench_torch.stereo.correlation import DisparityMap
+    d, v = tiled_search(*_k7_args(left, right, dev))
+    return DisparityMap(d[:CALC3_OUT, :CALC3_OUT], v[:CALC3_OUT, :CALC3_OUT])
+
+
 def _reset_counts():
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
     sweep.launches = 0
@@ -364,7 +524,9 @@ def phase_main(dev):
     left, right = _make_pair(H, W)
     sgm_left, sgm_right = _make_pair(SGM_HW, SGM_HW)
     calc_left, calc_right = _make_calc_pair(CALC_HW, CALC_HW)
+    c3_left, c3_right = (torch.as_tensor(a, device=dev) for a in _calc3_pair())
     none = {"sweep": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
+    c3 = {"sweep": 1, "speckle": 0}
     runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5}, H),
             ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
              {"sweep": 6}, H),
@@ -373,7 +535,21 @@ def phase_main(dev):
             ("mgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "mgm"),
              {"mgm_fwd": 5, "mgm_bidir": 10}, SGM_HW),
             ("calc_sgm", lambda: _calc_run(calc_left, calc_right, dev),
-             {"scan_bidir": 2, "speckle": 0}, CALC_HW))
+             {"scan_bidir": 2, "speckle": 0}, CALC_HW),
+            ("config4", lambda: _bench_run(left, right, dev, cost_type="census",
+                                           census_window=CENSUS_WINDOW), {"sweep": 5}, H),
+            ("config4_lr", lambda: _bench_run(left, right, dev, cost_type="census",
+                                              census_window=CENSUS_WINDOW,
+                                              consistency_threshold=2.0), {"sweep": 6}, H),
+            ("config4_ternary7", lambda: _bench_run(left, right, dev,
+                                                    cost_type="ternary_census",
+                                                    census_window=7), {"sweep": 5}, H),
+            ("calc3_abs", lambda: _calc3_run(c3_left, c3_right, dev, "abs"), c3, CALC3_OUT),
+            ("calc3_ncc", lambda: _calc3_run(c3_left, c3_right, dev, "ncc"), c3, CALC3_OUT),
+            ("calc3_census7", lambda: _calc3_run(c3_left, c3_right, dev, "census", 7), c3,
+             CALC3_OUT),
+            ("k6_best_of_search", lambda: _k6_run(c3_left, c3_right, dev), c3, CALC3_OUT),
+            ("k7_tiled_search", lambda: _k7_run(c3_left, c3_right, dev), c3, CALC3_OUT))
     counts = {}
     for what, run, want, hw in runs:
         want = {**none, "speckle": 9, **want}
@@ -430,6 +606,34 @@ def phase_slice_vs_cpu(dev):
               f"{int((vg != vc).sum())} pixels, max |gpu - cpu| {e}")
         if not (np.array_equal(vg, vc) and np.array_equal(dg, dc)):
             raise SystemExit(f"slice {algo}: GPU and CPU outputs differ")
+    left, right = _make_pair(256, 256)
+    left = np.round(left * 256) / 256
+    right = np.round(right * 256) / 256
+    for what, kw in (("config4 integer+lr", dict(consistency_threshold=2.0)),
+                     ("config4 parabola", dict(subpixel="parabola"))):
+        (dg, vg), (dc, vc) = [
+            pyramid_correlate(left, right, BBox2i(*SEARCH), kernel_size=KERNEL,
+                              cost_type="census", census_window=CENSUS_WINDOW,
+                              max_pyramid_levels=2, tile_size=TILE, device=d,
+                              **kw).to_numpy()
+            for d in (dev, "cpu")]
+        e = float(np.abs(dg - dc).max())
+        print(f"[slice] {what} 256^2: valid {vg.mean():.4f}, validity differs at "
+              f"{int((vg != vc).sum())} pixels, max |gpu - cpu| {e}")
+        tol = 1e-4 if "parabola" in what else 0.0
+        if not (np.array_equal(vg, vc) and np.allclose(dg, dc, rtol=0, atol=tol)):
+            raise SystemExit(f"slice {what}: GPU and CPU outputs differ")
+    left, right = _calc3_pair(128, 128)
+    left = np.round(left * 256) / 256
+    right = np.round(right * 256) / 256
+    for cost, cw in (("ncc", 5), ("ternary_census", 7)):
+        (dg, vg), (dc, vc) = [_calc3_run(left, right, d, cost, cw).to_numpy()
+                              for d in (dev, "cpu")]
+        print(f"[slice] calc_disparity {cost} {cw} 128^2: valid {vg.mean():.4f}, "
+              f"validity differs at {int((vg != vc).sum())} pixels, max |gpu - cpu| "
+              f"{float(np.abs(dg - dc).max())}")
+        if not (np.array_equal(vg, vc) and np.array_equal(dg, dc)):
+            raise SystemExit(f"slice calc_disparity {cost}: GPU and CPU outputs differ")
     left, right = _make_calc_pair(128, 128)
     left = np.round(left * 256) / 256
     right = np.round(right * 256) / 256
@@ -474,6 +678,22 @@ def phase_timings(dev):
         frame[what] = {"ms": ms, "mps": H * W / (ms * 1e3)}
         print(f"[time] frame {what}: {ms:.4f} ms, {H * W / (ms * 1e3):.3f} Mp/s")
     _profile_frame(lambda: _bench_run(lt, rt, dev), "bm", frame["plain"]["ms"])
+    census = {"cost_type": "census", "census_window": CENSUS_WINDOW}
+    for what, kwargs in (("config4", census),
+                         ("config4_lr", {**census, "consistency_threshold": 2.0})):
+        ms = _time_ms(lambda: _bench_run(lt, rt, dev, **kwargs), reps=10)
+        frame[what] = {"ms": ms, "mps": H * W / (ms * 1e3)}
+        print(f"[time] frame {what}: {ms:.4f} ms, {frame[what]['mps']:.3f} Mp/s")
+    _profile_frame(lambda: _bench_run(lt, rt, dev, **census), "config4",
+                   frame["config4"]["ms"])
+    c3l, c3r = (torch.as_tensor(a, device=dev) for a in _calc3_pair())
+    for cost, cw in (("abs", 5), ("ncc", 5), ("census", 7)):
+        what = f"calc3_{cost}" + ("7" if cost == "census" else "")
+        ms = _time_ms(lambda: _calc3_run(c3l, c3r, dev, cost, cw), reps=10)
+        frame[what] = {"ms": ms, "mps": H * W / (ms * 1e3)}
+        print(f"[time] frame {what} (config 3, {H}^2, {CALC3_SEARCH}): {ms:.4f} ms, "
+              f"{frame[what]['mps']:.3f} Mp/s")
+        _profile_frame(lambda: _calc3_run(c3l, c3r, dev, cost, cw), what, ms)
     sl, sr = (torch.as_tensor(a, device=dev) for a in _make_pair(SGM_HW, SGM_HW))
     for algo in ("sgm", "mgm"):
         ms = _time_ms(lambda: _sgm_run(sl, sr, dev, algo), reps=10)
@@ -487,18 +707,34 @@ def phase_timings(dev):
     print(f"[time] frame calc_disparity_sgm ({CALC_HW}^2, {CALC_SEARCH}): {ms:.4f} ms, "
           f"{frame['calc_sgm']['mps']:.3f} Mp/s")
     rows = {}
-    for i, c in enumerate(sweep_cases()):
+    for i, (key, c, cost, cw) in enumerate(sweep_mode_cases()):
         base, match, offs = _sweep_inputs(c, dev, 100 + i)
-        args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, "abs",
-                bool(c["ring"]))
+        args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, cost,
+                bool(c["ring"]), cw)
         ms = _time_ms(lambda: sweep.sweep(*args), reps=20)
         plain_ms = _time_ms(lambda: sweep.sweep_plain(*args), reps=3, warmup=1)
-        npx = (c["nt"] * TILE) ** 2
-        n_int = c["sx"] * c["sy"]
-        n_ext = (c["sx"] + 2 * c["ring"]) * (c["sy"] + 2 * c["ring"])
-        nbytes = 4 * (base.numel() + match.numel() + offs.numel()) + npx * (8 + 1 + 36 * c["ring"])
-        ops = npx * (SWEEP_OPS_BOX * n_ext + SWEEP_OPS_SELECT * n_int)
-        rows[("sweep", c["name"])] = _row(ms, plain_ms, nbytes, ops)
+        rows[(key, c["name"])] = _row(ms, plain_ms, *_sweep_work(*args))
+    fl, fr = _frame_inputs(dev, 150)
+    sx, sy = CALC3_SEARCH
+    for key, cost, cw in (("sweep_ncc", "ncc", 5), ("sweep_census_codes", "census", 7)):
+        base, match, offs, t = sweep.frame_sweep_args(fl, fr, sx, sy, kw, kh, cost, cw)
+        args = (base, match, offs, t, sx, sy, kw, kh, cost, False, cw)
+        ms = _time_ms(lambda: sweep.sweep(*args), reps=20)
+        plain_ms = _time_ms(lambda: sweep.sweep_plain(*args), reps=3, warmup=1)
+        rows[(key, "config3")] = _row(ms, plain_ms, *_sweep_work(*args))
+    from visionworkbench_torch.ops import cost_volume
+    args = (fl, fr, sx, sy, kw, kh, "abs")
+    ms = _time_ms(lambda: cost_volume.best_of_search(*args), reps=20)
+    plain_ms = _time_ms(lambda: cost_volume.best_of_search_plain(*args), reps=3, warmup=1)
+    npx = CALC3_OUT * CALC3_OUT
+    rows[("best_of_search", "config3")] = _row(
+        ms, plain_ms, 4 * (fl.numel() + fr.numel()) + npx * (8 + 1 + 4),
+        npx * (SWEEP_OPS_BOX + SWEEP_OPS_SELECT) * sx * sy)
+    args = _k7_args(fl, fr, dev)
+    ms = _time_ms(lambda: cost_volume.tiled_search(*args), reps=20)
+    plain_ms = _time_ms(lambda: cost_volume.tiled_search_plain(*args), reps=3, warmup=1)
+    rows[("tiled_search", "config3_tiles")] = _row(ms, plain_ms, *_sweep_work(
+        *args[:8], "abs", False))
     for i, c in enumerate(speckle_cases()):
         code = _speckle_input(c, dev, 200 + i)
         args = (code, c["half"], c["half"], c["t"], c["min_match"])
@@ -517,6 +753,33 @@ def phase_timings(dev):
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']})")
     return frame, rows
+
+
+def _sweep_work(base, match, offs, tile, sx, sy, kw, kh, cost, want_patches,
+                census_window=5):
+    """(bytes, operations) of one sweep: each input read once, each output
+    written once; operations per pixel and candidate (ring included), per
+    searched candidate for the best/worst update, plus the census codes of
+    both frames or NCC's window energies."""
+    import torch
+    from visionworkbench_torch.image.census import census_positions, census_words
+    ring = int(want_patches)
+    npx = offs.shape[0] * offs.shape[1] * tile * tile
+    n_int, n_ext = sx * sy, (sx + 2 * ring) * (sy + 2 * ring)
+    nbytes = (base.numel() * base.element_size() + match.numel() * match.element_size()
+              + 4 * offs.numel() + npx * (8 + 1 + 36 * ring))
+    per = SWEEP_OPS_NCC if cost == "ncc" else SWEEP_OPS_BOX
+    ops = 0
+    if cost in ("census", "ternary_census"):
+        ternary = cost == "ternary_census"
+        per = sweep_ops_census(census_words(census_window, ternary))
+        if base.dtype != torch.int32:   # codes from the frames' pixels
+            ops += ((base.shape[0] * base.shape[1] + match.shape[0] * match.shape[1])
+                    * len(census_positions(census_window, ternary))
+                    * CENSUS_CODE_OPS * (2 if ternary else 1))
+    if cost == "ncc":
+        ops += NCC_ENERGY_OPS * (npx + match.numel())
+    return nbytes, ops + npx * (per * n_ext + SWEEP_OPS_SELECT * n_int)
 
 
 def _profile_frame(run, what, frame_ms, frames=3):
@@ -567,9 +830,18 @@ def main() -> int:
     phase_slice_vs_cpu(dev)
     frame, rows = phase_timings(dev)
     # kernel: (heaviest main-path shape, main-path run, source, TPU kernel)
+    sweep_cu = "visionworkbench_torch/csrc/sweep.cu"
+    sweep_tpu = "visionworkbench_tpu/ops/sweep.py:603"
     table = {
-        "sweep": ("level0_patches", "plain", "visionworkbench_torch/csrc/sweep.cu",
-                  "visionworkbench_tpu/ops/sweep.py:603"),
+        "sweep": ("level0_patches", "plain", sweep_cu, sweep_tpu),
+        "sweep_census": ("level0_patches", "config4", sweep_cu, sweep_tpu),
+        "sweep_ternary_census": ("level0_patches", "config4_ternary7", sweep_cu, sweep_tpu),
+        "sweep_ncc": ("config3", "calc3_ncc", sweep_cu, sweep_tpu),
+        "sweep_census_codes": ("config3", "calc3_census7", sweep_cu, sweep_tpu),
+        "best_of_search": ("config3", "k6_best_of_search", sweep_cu,
+                           "visionworkbench_tpu/ops/cost_volume.py:165"),
+        "tiled_search": ("config3_tiles", "k7_tiled_search", sweep_cu,
+                         "visionworkbench_tpu/ops/cost_volume.py:332"),
         "speckle": ("1024x1024_11x11", "plain", "visionworkbench_torch/csrc/speckle.cu",
                     "visionworkbench_tpu/ops/speckle.py:93"),
         "scan_bidir": ("level0_x", "sgm", "visionworkbench_torch/csrc/sgm_scan.cu",
@@ -584,7 +856,8 @@ def main() -> int:
         r = rows[(k, shape)]
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[run][k], "max_abs_err": err[k], "ms": r["ms"],
+            "launches": counts[run][k if k in counts[run] else "sweep"],
+            "max_abs_err": err[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape})
     print(json.dumps({"frame_ms": frame["plain"]["ms"],
@@ -595,6 +868,9 @@ def main() -> int:
                       "mgm_frame_ms": frame["mgm"]["ms"],
                       "mgm_frame_mps": frame["mgm"]["mps"],
                       "calc_sgm_frame_ms": frame["calc_sgm"]["ms"],
+                      **{f"{k}_frame_ms": frame[k]["ms"] for k in
+                         ("config4", "config4_lr", "calc3_abs", "calc3_ncc",
+                          "calc3_census7")},
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -117,9 +117,14 @@ def test_search_matches_jax_correlation(cost):
 
 @pytest.mark.parametrize("cost", ["census", "ternary_census", "ncc", "nope"])
 def test_sweep_rejects_costs_not_ported(cost):
-    base, match, offsets = _inputs(14, CASES[0], 0)
+    """Every cost is ported now; what the sweep still rejects is a census
+    window with no variant, NCC in patch mode and an unknown cost."""
+    base, match, offsets = _inputs(14, CASES[0], 1)
+    _, tile, kw, kh, sx, sy, _, _ = CASES[0]
+    t = [torch.as_tensor(a) for a in (base, match, offsets)]
+    window = {"census": 4, "ternary_census": 11}.get(cost, 5)
     with pytest.raises(ArgumentErr):
-        _port(tsweep.sweep, base, match, offsets, (cost,) + CASES[0][1:], False)
+        tsweep.sweep(*t, tile, sx, sy, kw, kh, cost, cost == "ncc", window)
 
 
 def test_sweep_rejects_match_frame_smaller_than_a_window():

@@ -2,106 +2,261 @@
 // interface loaded through ctypes (visionworkbench_torch/ops/sweep.py).
 //
 // Replaces the TPU kernel visionworkbench_tpu/ops/sweep.py:_pallas_sweep
-// (pl.pallas_call at :603, body _make_sweep_kernel :193) for the absolute-
-// and squared-difference costs. Semantics are those of the JAX package's
-// _tiled_search / _tiled_search_patches:
+// (pl.pallas_call at :603, body _make_sweep_kernel :193) for all five
+// costs -- absolute and squared difference, NCC, binary and ternary census
+// (every window, 1-2 code words) -- and, as entry points onto the same
+// kernel, the first-generation sweeps of ops/cost_volume.py
+// (pallas_best_of_search :165, pallas_tiled_search :332). Semantics are
+// those of the JAX package's _tiled_search / _tiled_search_patches:
 //   * one block per T x T output tile; the tile reads its left block at
 //     (ty*T, tx*T) and its right window at (ty*T + off_y, tx*T + off_x),
 //     the start clamped into the frame like lax.dynamic_slice;
 //   * for each candidate (dx, dy) of the window, in dy-major then dx order,
-//     the cost plane |l - r| or (l - r)^2 is summed over kh x kw: column
-//     sums over kh rows (top to bottom), then row sums of those over kw
-//     columns (left to right), in exact fp32 -- the order of the plain
-//     PyTorch version, so the two agree bit for bit (built with
-//     --fmad=false, so no product is fused into a sum);
-//   * best = strict-improvement min (first best wins), worst = max,
-//     valid = best != worst; the in-window arg is zeroed where invalid
-//     before the tile offset is added (sweep.py:620-630);
+//     the cost plane is summed over kh x kw: column sums over kh rows (top
+//     to bottom), then row sums of those over kw columns (left to right),
+//     the order of the plain PyTorch version, so the two agree bit for bit
+//     (built with --fmad=false, so no product is fused into a sum);
+//   * costs: |l - r|, (l - r)^2, l * r for NCC, or popcount(xor) over the
+//     census words (an int32 sum, exact in any order). Census codes come
+//     either from the staged crop itself -- pixels quantized to
+//     (int)clip(x * 255, 0, 255), neighbours clamped to the crop, as the
+//     XLA engine computes them per tile -- or, with codes_in, from code
+//     planes (h, w, n_words) the wrapper computed over the whole frames;
+//   * NCC scales each window sum by sqrtf(lprec * rprec), lprec = 1 / the
+//     left window energy (once per tile pixel), rprec = 1 / the right
+//     window energy at the candidate (once per window position), both IEEE
+//     quotients; it is a max metric, and a NaN metric (0 * inf on a
+//     zero-energy window) counts as greater than any number, so the first
+//     NaN wins and the pixel stays valid (the JAX package's one-chunk
+//     jnp.max / jnp.argmax);
+//   * otherwise best = strict-improvement min (first best wins), worst =
+//     max; valid = best != worst; the in-window arg is zeroed where invalid
+//     before the tile offset is added (sweep.py:620-630); optionally the
+//     best metric is written out (pallas_best_of_search's third output);
 //   * with ring = 1 the window carries a +-1 ring, and a second pass
 //     recomputes the nine costs at each winner +-1 (in the same order, so
 //     the patch holds exactly the sweep's costs) for the parabola fit.
 //
 // What bounds it on the H100: shared-memory loads. The left tile and the
-// right window are staged once per block in shared memory (about 24 KB +
-// 31 KB at the 1024^2 bench's level 0, above the 48 KB static limit, hence
-// dynamic shared memory with the opt-in attribute), so device memory sees
-// each input about once; every candidate then re-reads the staged planes
-// (about 2*kh + kw shared loads per pixel and candidate). Sliding running
-// sums would cut that to O(1) per pixel but change the fp32 summation
-// order; this first kernel keeps the order exact. The TPU kernel's bf16
-// hi/lo split matmuls, (8, 128) alignment, pltpu.roll and SMEM (2, N)
-// offset layout are TPU workarounds and are not carried over.
+// right window (floats, or 1-2 code words a pixel) are staged once per
+// block in dynamic shared memory (opt-in above 48 KB; 2-word codes at the
+// 1024^2 census frame's level 0 take ~111 KB + the column buffer), so
+// device memory sees each input about once; every candidate then re-reads
+// the staged planes (about 2*kh + kw shared loads per pixel and
+// candidate). Sliding running sums would cut that to O(1) per pixel but
+// change the fp32 summation order; this kernel keeps the order exact. The
+// TPU kernel's bf16 hi/lo split matmuls, (8, 128) alignment, pltpu.roll
+// and SMEM (2, N) offset layout are TPU workarounds and are not carried
+// over.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kPer = 16;  // output pixels per thread
+constexpr int kPer = 16;           // output pixels per thread
+constexpr int kMaxPositions = 48;  // census samples (binary 7x7 dense)
+constexpr int kTernaryThreshold = 2;
 
-template <int COST>
-__device__ __forceinline__ float cost_of(float l, float r) {
-  const float d = l - r;
-  if (COST == 0) return fabsf(d);
-  return d * d;
+enum { kAbs = 0, kSq = 1, kNcc = 2, kCensus = 3 };
+
+struct Pattern {             // census sample offsets from the centre, bit order
+  int n;                     // positions
+  int ternary;               // 2 bits a position: >= c - thr, > c + thr
+  signed char dc[kMaxPositions], dr[kMaxPositions];
+};
+
+struct Args {
+  const void* base;          // float frame, or (hb, wb, n_words) code planes
+  int hb, wb;
+  const void* match;
+  int hm, wm;
+  const int* offsets;        // (nty, ntx, 2) per-tile (dx, dy)
+  int ntx, T, sx, sy, kw, kh, ring, codes_in;
+  Pattern pat;
+  int* disp;                 // (nty*T, ntx*T, 2)
+  unsigned char* valid;      // (nty*T, ntx*T)
+  float* patches;            // (9, nty*T, ntx*T) with ring, else null
+  float* best;               // (nty*T, ntx*T) or null
+};
+
+template <int COST> struct Traits { using E = float; using Acc = float; };
+template <> struct Traits<kCensus> { using E = unsigned; using Acc = int; };
+
+// Cost of left element li against right element ri; census codes are NW
+// planes of lplane / rplane words.
+template <int COST, int NW>
+__device__ __forceinline__ typename Traits<COST>::Acc cost_at(
+    const typename Traits<COST>::E* L, int li, int lplane,
+    const typename Traits<COST>::E* R, int ri, int rplane) {
+  if constexpr (COST == kCensus) {
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) c += __popc(L[w * lplane + li] ^ R[w * rplane + ri]);
+    return c;
+  } else if constexpr (COST == kNcc) {
+    return L[li] * R[ri];
+  } else {
+    const float d = L[li] - R[ri];
+    if constexpr (COST == kAbs) return fabsf(d);
+    return d * d;
+  }
 }
 
 // Window sum of the cost of candidate (ex, ey) at tile pixel (y, x), in the
 // sweep's order (column sums first, then across columns).
-template <int COST>
-__device__ float window_cost(const float* L, int lw, const float* R, int rw,
+template <int COST, int NW>
+__device__ float window_cost(const typename Traits<COST>::E* L, int lw, int lplane,
+                             const typename Traits<COST>::E* R, int rw, int rplane,
                              int y, int x, int ey, int ex, int kw, int kh) {
-  float s = 0.f;
+  using Acc = typename Traits<COST>::Acc;
+  Acc s = 0;
   for (int j = 0; j < kw; ++j) {
-    float col = 0.f;
+    Acc col = 0;
     for (int i = 0; i < kh; ++i)
-      col += cost_of<COST>(L[(y + i) * lw + x + j],
-                           R[(y + i + ey) * rw + x + j + ex]);
+      col += cost_at<COST, NW>(L, (y + i) * lw + x + j, lplane,
+                               R, (y + i + ey) * rw + x + j + ex, rplane);
     s += col;
   }
-  return s;
+  return static_cast<float>(s);
 }
 
-template <int COST>
-__global__ void sweep_kernel(const float* __restrict__ base, int wb,
-                             const float* __restrict__ match, int hm, int wm,
-                             const int* __restrict__ offsets, int ntx,
-                             int T, int sx, int sy, int kw, int kh, int ring,
-                             int* __restrict__ disp,
-                             unsigned char* __restrict__ valid,
-                             float* __restrict__ patches) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ unsigned char quantize(float x) {
+  return static_cast<unsigned char>(static_cast<int>(fminf(fmaxf(x * 255.f, 0.f), 255.f)));
+}
+
+// Census codes of an h x w crop of quantized pixels Q, neighbours clamped
+// to the crop, into NW planes of h*w words.
+template <int NW>
+__device__ void crop_codes(const unsigned char* Q, int h, int w, const Pattern& p,
+                           unsigned* out, int tid, int nt) {
+  for (int i = tid; i < h * w; i += nt) {
+    const int r = i / w, c = i - r * w;
+    const int center = Q[i];
+    unsigned w0 = 0u, w1 = 0u;
+    for (int k = 0; k < p.n; ++k) {
+      const int rr = min(max(r + p.dr[k], 0), h - 1);
+      const int cc = min(max(c + p.dc[k], 0), w - 1);
+      const int v = Q[rr * w + cc];
+      if (p.ternary) {
+        const int lo = 2 * k, hi = 2 * k + 1;
+        if (v >= center - kTernaryThreshold) {
+          if (lo < 32) w0 |= 1u << lo; else w1 |= 1u << (lo - 32);
+        }
+        if (v > center + kTernaryThreshold) {
+          if (hi < 32) w0 |= 1u << hi; else w1 |= 1u << (hi - 32);
+        }
+      } else if (v > center) {
+        if (k < 32) w0 |= 1u << k; else w1 |= 1u << (k - 32);
+      }
+    }
+    out[i] = w0;
+    if (NW > 1) out[h * w + i] = w1;
+  }
+}
+
+// Shared memory, in order: NW planes of the left block (lh x lw), NW planes
+// of the right window (rh x rw), the T x lw column sums, then for NCC the
+// (T + sy - 1) x (T + sx - 1) right precisions, or for census codes from
+// pixels the quantized crops (lh*lw + rh*rw bytes). ops/sweep.py sizes it.
+template <int COST, int NW>
+__global__ void sweep_kernel(const Args a) {
+  using E = typename Traits<COST>::E;
+  using Acc = typename Traits<COST>::Acc;
+  constexpr bool kMax = COST == kNcc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = a.T, kw = a.kw, kh = a.kh, sx = a.sx, sy = a.sy, ring = a.ring;
   const int lh = T + kh - 1, lw = T + kw - 1;
   const int sx_e = sx + 2 * ring, sy_e = sy + 2 * ring;
   const int rh = lh + sy_e - 1, rw = lw + sx_e - 1;
-  float* L = smem;          // lh x lw left block
-  float* R = L + lh * lw;   // rh x rw right window
-  float* C = R + rh * rw;   // T x lw column sums of one candidate
+  const int lplane = lh * lw, rplane = rh * rw;
+  E* L = reinterpret_cast<E*>(smem);
+  E* R = L + NW * lplane;
+  Acc* C = reinterpret_cast<Acc*>(R + NW * rplane);
+  float* RP = reinterpret_cast<float*>(C + T * lw);          // NCC only
+  unsigned char* Q = reinterpret_cast<unsigned char*>(C + T * lw);  // census only
+  const int pw = T + sx - 1;                                 // RP row (NCC: no ring)
 
   const int tx = blockIdx.x, ty = blockIdx.y;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int t = ty * ntx + tx;
-  const int off_x = offsets[2 * t], off_y = offsets[2 * t + 1];
+  const int t = ty * a.ntx + tx;
+  const int off_x = a.offsets[2 * t], off_y = a.offsets[2 * t + 1];
   const int by0 = ty * T, bx0 = tx * T;
-  const int ry0 = min(max(by0 + off_y, 0), hm - rh);
-  const int rx0 = min(max(bx0 + off_x, 0), wm - rw);
+  const int ry0 = min(max(by0 + off_y, 0), a.hm - rh);
+  const int rx0 = min(max(bx0 + off_x, 0), a.wm - rw);
 
-  for (int i = tid; i < lh * lw; i += nt) {
-    const int r = i / lw, c = i - r * lw;
-    L[i] = base[(size_t)(by0 + r) * wb + bx0 + c];
-  }
-  for (int i = tid; i < rh * rw; i += nt) {
-    const int r = i / rw, c = i - r * rw;
-    R[i] = match[(size_t)(ry0 + r) * wm + rx0 + c];
+  if constexpr (COST == kCensus) {
+    if (a.codes_in) {
+      const unsigned* B = static_cast<const unsigned*>(a.base);
+      const unsigned* M = static_cast<const unsigned*>(a.match);
+      for (int i = tid; i < lplane; i += nt) {
+        const int r = i / lw, c = i - r * lw;
+        const size_t g = ((size_t)(by0 + r) * a.wb + bx0 + c) * NW;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) L[w * lplane + i] = B[g + w];
+      }
+      for (int i = tid; i < rplane; i += nt) {
+        const int r = i / rw, c = i - r * rw;
+        const size_t g = ((size_t)(ry0 + r) * a.wm + rx0 + c) * NW;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) R[w * rplane + i] = M[g + w];
+      }
+    } else {
+      const float* B = static_cast<const float*>(a.base);
+      const float* M = static_cast<const float*>(a.match);
+      unsigned char* QL = Q;
+      unsigned char* QR = Q + lplane;
+      for (int i = tid; i < lplane; i += nt) {
+        const int r = i / lw, c = i - r * lw;
+        QL[i] = quantize(B[(size_t)(by0 + r) * a.wb + bx0 + c]);
+      }
+      for (int i = tid; i < rplane; i += nt) {
+        const int r = i / rw, c = i - r * rw;
+        QR[i] = quantize(M[(size_t)(ry0 + r) * a.wm + rx0 + c]);
+      }
+      __syncthreads();
+      crop_codes<NW>(QL, lh, lw, a.pat, L, tid, nt);
+      crop_codes<NW>(QR, rh, rw, a.pat, R, tid, nt);
+    }
+  } else {
+    const float* B = static_cast<const float*>(a.base);
+    const float* M = static_cast<const float*>(a.match);
+    for (int i = tid; i < lplane; i += nt) {
+      const int r = i / lw, c = i - r * lw;
+      L[i] = B[(size_t)(by0 + r) * a.wb + bx0 + c];
+    }
+    for (int i = tid; i < rplane; i += nt) {
+      const int r = i / rw, c = i - r * rw;
+      R[i] = M[(size_t)(ry0 + r) * a.wm + rx0 + c];
+    }
   }
   __syncthreads();
 
   const int npix = T * T;
+  float lp[kPer];            // NCC: 1 / left window energy of each pixel
+  if constexpr (kMax) {
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int p = tid + q * nt;
+      lp[q] = 0.f;
+      if (p < npix) {
+        const int y = p / T, x = p - y * T;
+        lp[q] = 1.f / window_cost<kNcc, 1>(L, lw, 0, L, lw, 0, y, x, 0, 0, kw, kh);
+      }
+    }
+    for (int i = tid; i < (T + sy - 1) * pw; i += nt) {
+      const int y = i / pw, x = i - y * pw;
+      RP[i] = 1.f / window_cost<kNcc, 1>(R, rw, 0, R, rw, 0, y, x, 0, 0, kw, kh);
+    }
+    __syncthreads();
+  }
+
+  const float inf = __int_as_float(0x7f800000);
   float best[kPer], worst[kPer];
   int arg[kPer];
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
-    best[q] = __int_as_float(0x7f800000);    // +inf
-    worst[q] = __int_as_float(0xff800000);   // -inf
+    best[q] = kMax ? -inf : inf;
+    worst[q] = kMax ? inf : -inf;
     arg[q] = 0;
   }
 
@@ -109,10 +264,10 @@ __global__ void sweep_kernel(const float* __restrict__ base, int wb,
     for (int ex = ring; ex < ring + sx; ++ex) {
       for (int i = tid; i < T * lw; i += nt) {
         const int r = i / lw, c = i - r * lw;
-        const float* lp = L + r * lw + c;
-        const float* rp = R + (r + ey) * rw + c + ex;
-        float acc = 0.f;
-        for (int k = 0; k < kh; ++k) acc += cost_of<COST>(lp[k * lw], rp[k * rw]);
+        Acc acc = 0;
+        for (int k = 0; k < kh; ++k)
+          acc += cost_at<COST, NW>(L, (r + k) * lw + c, lplane,
+                                   R, (r + k + ey) * rw + c + ex, rplane);
         C[i] = acc;
       }
       __syncthreads();
@@ -122,14 +277,24 @@ __global__ void sweep_kernel(const float* __restrict__ base, int wb,
         const int p = tid + q * nt;
         if (p < npix) {
           const int y = p / T, x = p - y * T;
-          const float* cp = C + y * lw + x;
-          float s = 0.f;
+          const Acc* cp = C + y * lw + x;
+          Acc s = 0;
           for (int j = 0; j < kw; ++j) s += cp[j];
-          if (s < best[q]) {
-            best[q] = s;
-            arg[q] = cand;
+          float m = static_cast<float>(s);
+          if constexpr (kMax) {
+            m = m * sqrtf(lp[q] * RP[(y + ey) * pw + x + ex]);
+            if (m > best[q] || (isnan(m) && !isnan(best[q]))) {
+              best[q] = m;
+              arg[q] = cand;
+            }
+            if (isnan(m) || m < worst[q]) worst[q] = m;
+          } else {
+            if (m < best[q]) {
+              best[q] = m;
+              arg[q] = cand;
+            }
+            if (m > worst[q]) worst[q] = m;
           }
-          if (s > worst[q]) worst[q] = s;
         }
       }
       __syncthreads();
@@ -144,11 +309,12 @@ __global__ void sweep_kernel(const float* __restrict__ base, int wb,
     if (p < npix) {
       const int y = p / T, x = p - y * T;
       const size_t o = (size_t)(by0 + y) * w_out + bx0 + x;
-      const bool v = best[q] != worst[q];
+      const bool v = best[q] != worst[q];   // true for NaN
       const int ax = arg[q] % sx, ay = arg[q] / sx;
-      disp[2 * o] = (v ? ax : 0) + off_x;
-      disp[2 * o + 1] = (v ? ay : 0) + off_y;
-      valid[o] = v ? 1 : 0;
+      a.disp[2 * o] = (v ? ax : 0) + off_x;
+      a.disp[2 * o + 1] = (v ? ay : 0) + off_y;
+      a.valid[o] = v ? 1 : 0;
+      if (a.best) a.best[o] = best[q];
       A[p] = arg[q];
     }
   }
@@ -161,25 +327,20 @@ __global__ void sweep_kernel(const float* __restrict__ base, int wb,
     const int ax = A[p] % sx, ay = A[p] / sx;
     for (int dy = -1; dy <= 1; ++dy)
       for (int dx = -1; dx <= 1; ++dx)
-        patches[(size_t)((dy + 1) * 3 + dx + 1) * plane + o] =
-            window_cost<COST>(L, lw, R, rw, y, x, ay + 1 + dy, ax + 1 + dx,
-                              kw, kh);
+        a.patches[(size_t)((dy + 1) * 3 + dx + 1) * plane + o] =
+            window_cost<COST, NW>(L, lw, lplane, R, rw, rplane, y, x,
+                                  ay + 1 + dy, ax + 1 + dx, kw, kh);
   }
 }
 
-template <int COST>
-cudaError_t launch(const float* base, int wb, const float* match, int hm,
-                   int wm, const int* offsets, int nty, int ntx, int T,
-                   int sx, int sy, int kw, int kh, int ring, int* disp,
-                   unsigned char* valid, float* patches, int threads,
-                   size_t smem, cudaStream_t stream) {
+template <int COST, int NW>
+cudaError_t launch(const Args& a, int nty, int threads, size_t smem,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<COST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_kernel<COST, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  sweep_kernel<COST><<<dim3(ntx, nty), threads, smem, stream>>>(
-      base, wb, match, hm, wm, offsets, ntx, T, sx, sy, kw, kh, ring, disp,
-      valid, patches);
+  sweep_kernel<COST, NW><<<dim3(a.ntx, nty), threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -187,20 +348,41 @@ cudaError_t launch(const float* base, int wb, const float* match, int hm,
 
 extern "C" int vw_sweep_pixels_per_thread() { return kPer; }
 
-// Returns a cudaError_t (0 on success). Shapes are checked by the caller:
-// base (hb, wb) with hb >= nty*T + kh - 1 and wb >= ntx*T + kw - 1; match
-// (hm, wm) at least one right window; outputs sized (nty*T, ntx*T).
-extern "C" int vw_sweep(const float* base, int wb, const float* match,
+// Returns a cudaError_t (0 on success), or -1 for arguments it does not
+// take. Shapes are checked by the caller: base (hb, wb) with
+// hb >= nty*T + kh - 1 and wb >= ntx*T + kw - 1; match (hm, wm) at least
+// one right window; outputs sized (nty*T, ntx*T). cost: 0 abs, 1 sq,
+// 2 ncc, 3 census (n_words 1 or 2; positions = n_pos (dc, dr) pairs).
+extern "C" int vw_sweep(const void* base, int hb, int wb, const void* match,
                         int hm, int wm, const int* offsets, int nty, int ntx,
                         int T, int sx, int sy, int kw, int kh, int cost,
-                        int ring, int* disp, unsigned char* valid,
-                        float* patches, int threads, long long smem,
-                        void* stream) {
+                        int ring, int n_words, int codes_in,
+                        const int* positions, int n_pos, int ternary,
+                        int* disp, unsigned char* valid, float* patches,
+                        float* best, int threads, long long smem, void* stream) {
+  Args a{};
+  a.base = base; a.hb = hb; a.wb = wb;
+  a.match = match; a.hm = hm; a.wm = wm;
+  a.offsets = offsets; a.ntx = ntx; a.T = T; a.sx = sx; a.sy = sy;
+  a.kw = kw; a.kh = kh; a.ring = ring; a.codes_in = codes_in;
+  a.disp = disp; a.valid = valid; a.patches = patches; a.best = best;
+  if (n_pos < 0 || n_pos > kMaxPositions) return -1;
+  a.pat.n = n_pos;
+  a.pat.ternary = ternary;
+  for (int k = 0; k < n_pos; ++k) {
+    a.pat.dc[k] = static_cast<signed char>(positions[2 * k]);
+    a.pat.dr[k] = static_cast<signed char>(positions[2 * k + 1]);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cost == 0)
-    return launch<0>(base, wb, match, hm, wm, offsets, nty, ntx, T, sx, sy,
-                     kw, kh, ring, disp, valid, patches, threads,
-                     (size_t)smem, s);
-  return launch<1>(base, wb, match, hm, wm, offsets, nty, ntx, T, sx, sy, kw,
-                   kh, ring, disp, valid, patches, threads, (size_t)smem, s);
+  const size_t sm = (size_t)smem;
+  switch (cost) {
+    case kAbs: return launch<kAbs, 1>(a, nty, threads, sm, s);
+    case kSq: return launch<kSq, 1>(a, nty, threads, sm, s);
+    case kNcc: return launch<kNcc, 1>(a, nty, threads, sm, s);
+    case kCensus:
+      if (n_words == 1) return launch<kCensus, 1>(a, nty, threads, sm, s);
+      if (n_words == 2) return launch<kCensus, 2>(a, nty, threads, sm, s);
+      return -1;
+    default: return -1;
+  }
 }

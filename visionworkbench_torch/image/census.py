@@ -10,8 +10,11 @@ pattern as the JAX package's ``uint32`` words (bit 31, used by the 7x7 and
 before its shifts so that no shift sign-extends, and counts bits with a SWAR
 popcount (PyTorch has no popcount).
 
-Inputs are uint8-valued arrays, compared as int32; border pixels within
-``radius`` of the edge are computed against replicated edges.
+Inputs are uint8-valued arrays (..., H, W), compared as int32; leading axes
+are carried through, and border pixels within ``radius`` of the edge are
+computed against replicated edges. ``census_positions`` gives each variant's
+sample offsets in bit order, which the CUDA sweep (``csrc/sweep.cu``) uses
+to compute the same codes in shared memory.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ from typing import List, Tuple
 import torch
 
 from visionworkbench_torch.core.exceptions import ArgumentErr
-from visionworkbench_torch.image.edge import edge_extend
 
 # The 32-position sparse 9x9 pattern (ref CensusTransform.h:130-155);
 # offsets (c, r) from the window's top-left corner.
@@ -64,72 +66,78 @@ def _census3x3_positions() -> List[Tuple[int, int]]:
                           (-1, 1), (0, 1), (1, 1)]))
 
 
+def census_positions(window: int, ternary: bool) -> List[Tuple[int, int]]:
+    """Sample offsets (dc, dr) from the centre in bit order (ternary census
+    takes bits 2i and 2i+1 at position i) of the reference's variants:
+    binary 3x3/5x5/7x7 dense and 9x9 sparse, ternary 3x3/5x5 dense and
+    7x7/9x9 sparse."""
+    if window == 3:
+        return _dense_positions(1) if ternary else _census3x3_positions()
+    if window == 5:
+        return _dense_positions(2)
+    if window == 7:
+        return ([(c - 3, r - 3) for (c, r) in _PATTERN_7T] if ternary
+                else _dense_positions(3))
+    if window == 9:
+        return [(c - 4, r - 4) for (c, r) in _PATTERN_9]
+    kind = "ternary census" if ternary else "census"
+    raise ArgumentErr(f"{kind} window must be 3/5/7/9, got {window}")
+
+
+def census_words(window: int, ternary: bool) -> int:
+    """32-bit words per pixel of a variant's codes (1 or 2)."""
+    bits = len(census_positions(window, ternary)) * (2 if ternary else 1)
+    return (bits + 31) // 32
+
+
 def _as_int(img) -> torch.Tensor:
     img = img if isinstance(img, torch.Tensor) else torch.as_tensor(img)
     return img.to(torch.int32)
 
 
+def _edge_pad(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Replicate-pad the last two axes by ``radius``."""
+    h, w = x.shape[-2], x.shape[-1]
+    rows = torch.arange(-radius, h + radius, device=x.device).clamp_(0, h - 1)
+    cols = torch.arange(-radius, w + radius, device=x.device).clamp_(0, w - 1)
+    return x.index_select(-2, rows).index_select(-1, cols)
+
+
 def _shifted(padded, radius: int, dc: int, dr: int, h: int, w: int):
-    return padded[radius + dr:radius + dr + h, radius + dc:radius + dc + w]
+    return padded[..., radius + dr:radius + dr + h, radius + dc:radius + dc + w]
 
 
-def _pack_binary(img, positions, radius: int) -> torch.Tensor:
+def _pack(img, window: int, ternary: bool, diff_threshold: int = 2) -> torch.Tensor:
+    positions = census_positions(window, ternary)
+    radius = window // 2
     center = _as_int(img)
-    h, w = center.shape
-    padded = edge_extend(center, radius, radius, mode="constant")
-    words = [torch.zeros((h, w), dtype=torch.int32, device=center.device)
-             for _ in range((len(positions) + 31) // 32)]
-    for bit, (dc, dr) in enumerate(positions):
-        val = _shifted(padded, radius, dc, dr, h, w)
-        words[bit // 32] |= (val > center).to(torch.int32) << (bit % 32)
-    return torch.stack(words, -1)
-
-
-def _pack_ternary(img, positions, radius: int, diff_threshold: int) -> torch.Tensor:
-    center = _as_int(img)
-    h, w = center.shape
-    padded = edge_extend(center, radius, radius, mode="constant")
+    h, w = center.shape[-2], center.shape[-1]
+    padded = _edge_pad(center, radius)
     low, high = center - diff_threshold, center + diff_threshold
-    words = [torch.zeros((h, w), dtype=torch.int32, device=center.device)
-             for _ in range((2 * len(positions) + 31) // 32)]
+    words = [torch.zeros_like(center) for _ in range(census_words(window, ternary))]
     for i, (dc, dr) in enumerate(positions):
         val = _shifted(padded, radius, dc, dr, h, w)
-        lo_bit, hi_bit = 2 * i, 2 * i + 1
-        words[lo_bit // 32] |= (val >= low).to(torch.int32) << (lo_bit % 32)
-        words[hi_bit // 32] |= (val > high).to(torch.int32) << (hi_bit % 32)
+        if ternary:
+            lo_bit, hi_bit = 2 * i, 2 * i + 1
+            words[lo_bit // 32] |= (val >= low).to(torch.int32) << (lo_bit % 32)
+            words[hi_bit // 32] |= (val > high).to(torch.int32) << (hi_bit % 32)
+        else:
+            words[i // 32] |= (val > center).to(torch.int32) << (i % 32)
     return torch.stack(words, -1)
 
 
 def census_transform(img, window: int = 5) -> torch.Tensor:
-    """Binary census codes, (H, W, n_words) int32 words (ref
+    """Binary census codes, (..., H, W, n_words) int32 words (ref
     ``get_census_value_*``): window 3 -> 8 bits (1 word), 5 -> 24 bits (1),
     7 -> 48 bits (2), 9 -> the sparse 32-position pattern (1)."""
-    if window == 3:
-        return _pack_binary(img, _census3x3_positions(), 1)
-    if window == 5:
-        return _pack_binary(img, _dense_positions(2), 2)
-    if window == 7:
-        return _pack_binary(img, _dense_positions(3), 3)
-    if window == 9:
-        return _pack_binary(img, [(c - 4, r - 4) for (c, r) in _PATTERN_9], 4)
-    raise ArgumentErr(f"census window must be 3/5/7/9, got {window}")
+    return _pack(img, window, False)
 
 
 def ternary_census_transform(img, window: int = 5,
                              diff_threshold: int = 2) -> torch.Tensor:
     """Ternary census codes, 2 bits per sample position (ref
     ``get_census_value_ternary_*``, CensusTransform.h:168-300)."""
-    if window == 3:
-        return _pack_ternary(img, _dense_positions(1), 1, diff_threshold)
-    if window == 5:
-        return _pack_ternary(img, _dense_positions(2), 2, diff_threshold)
-    if window == 7:
-        return _pack_ternary(img, [(c - 3, r - 3) for (c, r) in _PATTERN_7T],
-                             3, diff_threshold)
-    if window == 9:
-        return _pack_ternary(img, [(c - 4, r - 4) for (c, r) in _PATTERN_9],
-                             4, diff_threshold)
-    raise ArgumentErr(f"ternary census window must be 3/5/7/9, got {window}")
+    return _pack(img, window, True, diff_threshold)
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:

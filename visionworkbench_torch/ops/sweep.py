@@ -2,20 +2,25 @@
 plain PyTorch version and the wrapper that picks between them by device.
 
 Replaces the TPU kernel ``visionworkbench_tpu/ops/sweep.py:_pallas_sweep``
-(``pl.pallas_call`` at ``:603``; wrapper ``pallas_sweep`` ``:454``) for the
-absolute- and squared-difference costs; census and NCC come with a later
-slice. Contract, as ``_tiled_search`` / ``_tiled_search_patches`` of the JAX
+(``pl.pallas_call`` at ``:603``; wrapper ``pallas_sweep`` ``:454``) for all
+five costs: abs, sq, ncc, census and ternary_census (every census window).
+Contract, as ``_tiled_search`` / ``_tiled_search_patches`` of the JAX
 package: ``base`` is the padded left frame, tile (ty, tx) reads rows
 ``ty*tile .. ty*tile + tile + kh - 2``; ``match`` is the frame searched,
 tile (ty, tx) reads its window at ``(ty*tile + off_y, tx*tile + off_x)``
 (start clamped into the frame like ``lax.dynamic_slice``). With
 ``want_patches`` the window carries a ±1 ring (``match`` origin shifted by
 (-1, -1) by the caller) and the nine costs around each winner come back as
-(9, H, W) planes, dx fastest.
+(9, H, W) planes, dx fastest; NCC has no patch mode.
+
+Census costs take either the float frames, whose codes are computed over
+each tile's crop as the XLA engine does (the pyramid path), or int32 code
+planes (H, W, n_words) computed beforehand over whole frames
+(:func:`search_frame`, the path of ``best_of_search_convolution``).
 
 What bounds the kernel on the H100, and what its design does about it: see
 the note at the top of ``csrc/sweep.cu`` (shared-memory loads; the tile and
-its window are staged once per block, window sums are exact fp32 in a fixed
+its window are staged once per block, window sums are exact in a fixed
 order, and the patches are recomputed at each winner in a second pass).
 """
 
@@ -26,10 +31,13 @@ import ctypes
 import torch
 
 from visionworkbench_torch.core.exceptions import ArgumentErr
+from visionworkbench_torch.image.census import census_positions, census_words
+from visionworkbench_torch.image.edge import crop_extended
 from visionworkbench_torch.ops import _build
 from visionworkbench_torch.stereo.correlation import (
-    ABSOLUTE_DIFFERENCE, _best_of_search, _search_with_patches,
-    check_cost_type,
+    ABSOLUTE_DIFFERENCE, CENSUS_COSTS, CENSUS_TRANSFORM, CROSS_CORRELATION,
+    SQUARED_DIFFERENCE, TERNARY_CENSUS_TRANSFORM, _best_of_search,
+    _search_with_patches, census_codes, check_cost_type,
 )
 
 # Kernel launches since the count was last set to 0 (the wrapper adds one
@@ -38,6 +46,9 @@ launches = 0
 
 _MAX_THREADS = 1024
 _MAX_SMEM = 232448        # bytes of shared memory one H100 block may opt into
+_COST_CODE = {ABSOLUTE_DIFFERENCE: 0, SQUARED_DIFFERENCE: 1,
+              CROSS_CORRELATION: 2, CENSUS_TRANSFORM: 3,
+              TERNARY_CENSUS_TRANSFORM: 3}
 _lib = None
 
 
@@ -46,8 +57,9 @@ def _library():
     if _lib is None:
         lib = _build.load("sweep")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vw_sweep.argtypes = [p, i, p, i, i, p, i, i, i, i, i, i, i, i, i,
-                                 p, p, p, i, ctypes.c_longlong, p]
+        lib.vw_sweep.argtypes = [p, i, i, p, i, i, p, i, i, i, i, i, i, i, i,
+                                 i, i, i, p, i, i, p, p, p, p, i,
+                                 ctypes.c_longlong, p]
         lib.vw_sweep.restype = i
         lib.vw_sweep_pixels_per_thread.argtypes = []
         lib.vw_sweep_pixels_per_thread.restype = i
@@ -55,9 +67,31 @@ def _library():
     return _lib
 
 
-def _check_shapes(base, match, offsets, tile, s_x, s_y, kw, kh, ring):
-    if base.dim() != 2 or match.dim() != 2:
-        raise ArgumentErr("sweep: base and match must be 2D")
+def smem_bytes(tile: int, s_x: int, s_y: int, kw: int, kh: int, ring: int,
+               cost_type: str, n_words: int = 1, codes_in: bool = False) -> int:
+    """Shared memory of one block of the kernel, laid out as in
+    ``csrc/sweep.cu``: the left block and right window (1-2 words a pixel),
+    the column sums, then NCC's right precisions or the census crops'
+    quantized pixels."""
+    lh, lw = tile + kh - 1, tile + kw - 1
+    rh, rw = lh + s_y + 2 * ring - 1, lw + s_x + 2 * ring - 1
+    census = cost_type in CENSUS_COSTS
+    words = n_words if census else 1
+    total = 4 * (words * (lh * lw + rh * rw) + tile * lw)
+    if cost_type == CROSS_CORRELATION:
+        total += 4 * (tile + s_y - 1) * (tile + s_x - 1)
+    if census and not codes_in:
+        total += lh * lw + rh * rw
+    return total
+
+
+def _check_shapes(base, match, offsets, tile, s_x, s_y, kw, kh, ring, codes_in):
+    dims = 3 if codes_in else 2
+    if base.dim() != dims or match.dim() != dims:
+        raise ArgumentErr("sweep: base and match must be 2D frames, or for "
+                          "census (H, W, n_words) code planes")
+    if codes_in and base.shape[2] != match.shape[2]:
+        raise ArgumentErr("sweep: base and match code planes differ in words")
     if offsets.dim() != 3 or offsets.shape[2] != 2:
         raise ArgumentErr("sweep: offsets must be (nty, ntx, 2)")
     if min(tile, s_x, s_y, kw, kh) < 1:
@@ -74,84 +108,111 @@ def _check_shapes(base, match, offsets, tile, s_x, s_y, kw, kh, ring):
     return nty, ntx, lh, lw, rh, rw
 
 
+def _check_cost(cost_type, want_patches, census_window, base):
+    """Returns (census, codes_in, n_words)."""
+    check_cost_type(cost_type, census_window)
+    if cost_type == CROSS_CORRELATION and want_patches:
+        raise ArgumentErr("sweep: NCC has no parabola-patch mode; use "
+                          "want_patches=False")
+    census = cost_type in CENSUS_COSTS
+    codes_in = census and base.dtype == torch.int32
+    n_words = (census_words(int(census_window), cost_type == TERNARY_CENSUS_TRANSFORM)
+               if census else 1)
+    if codes_in and base.dim() == 3 and base.shape[2] != n_words:
+        raise ArgumentErr(f"sweep: {cost_type} {census_window} codes have "
+                          f"{n_words} words, got {base.shape[2]}")
+    return census, codes_in, n_words
+
+
 def sweep_plain(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
                 kh: int, cost_type: str = ABSOLUTE_DIFFERENCE,
-                want_patches: bool = True):
+                want_patches: bool = True, census_window: int = 5,
+                best_out=None):
     """Plain PyTorch version of the kernel: gathers every tile and window
     and runs ``stereo.correlation``'s search batched over tiles."""
+    _, codes_in, _ = _check_cost(cost_type, want_patches, census_window, base)
     ring = 1 if want_patches else 0
     nty, ntx, lh, lw, rh, rw = _check_shapes(base, match, offsets, tile, s_x,
-                                             s_y, kw, kh, ring)
+                                             s_y, kw, kh, ring, codes_in)
     dev = base.device
     ty0 = torch.arange(nty, device=dev) * tile
     tx0 = torch.arange(ntx, device=dev) * tile
     rows = (ty0[:, None] + torch.arange(lh, device=dev))[:, None, :, None]
     cols = (tx0[:, None] + torch.arange(lw, device=dev))[None, :, None, :]
-    left = base[rows, cols]                               # (nty, ntx, lh, lw)
+    left = base[rows, cols]                         # (nty, ntx, lh, lw[, nw])
     off = offsets.long()
     y0 = (ty0[:, None] + off[..., 1]).clamp(0, match.shape[0] - rh)
     x0 = (tx0[None, :] + off[..., 0]).clamp(0, match.shape[1] - rw)
     right = match[y0[..., None, None] + torch.arange(rh, device=dev)[:, None],
                   x0[..., None, None] + torch.arange(rw, device=dev)[None, :]]
-    if want_patches:
-        disp, valid, _, patch = _search_with_patches(left, right, s_x, s_y,
-                                                     kw, kh, cost_type)
-    else:
-        disp, valid, _ = _best_of_search(left, right, s_x, s_y, kw, kh,
-                                         cost_type)
-        patch = None
+    search = _search_with_patches if want_patches else _best_of_search
+    out = search(left, right, s_x, s_y, kw, kh, cost_type, census_window)
+    disp, valid, best = out[:3]
     disp = disp + offsets.to(torch.int32)[:, :, None, None, :]
 
     def untile(a):                    # (nty, ntx, T, T, ...) -> (H, W, ...)
         a = a.transpose(1, 2)
         return a.reshape((nty * tile, ntx * tile) + tuple(a.shape[4:]))
 
-    disp, valid = untile(disp), untile(valid)
-    if patch is not None:
-        patch = untile(patch).movedim(-1, 0).contiguous()
-    return disp, valid, patch
+    if best_out is not None:
+        best_out.copy_(untile(best))
+    patch = untile(out[3]).movedim(-1, 0).contiguous() if want_patches else None
+    return untile(disp), untile(valid), patch
 
 
 def sweep(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
           kh: int, cost_type: str = ABSOLUTE_DIFFERENCE,
-          want_patches: bool = True):
-    """Fused per-tile disparity sweep. ``base``/``match`` (H, W) float32,
-    ``offsets`` (nty, ntx, 2) int32 per-tile (dx, dy). Returns
+          want_patches: bool = True, census_window: int = 5, best_out=None):
+    """Fused per-tile disparity sweep. ``base``/``match`` (H, W) float32
+    (or, for census costs, (H, W, n_words) int32 code planes), ``offsets``
+    (nty, ntx, 2) int32 per-tile (dx, dy). Returns
     ``(disp (nty*tile, ntx*tile, 2) int32, valid bool, patches)``, patches
     (9, H, W) float32 with ``want_patches`` else None; disp = offset +
-    in-window argbest, with the argbest zeroed where invalid.
+    in-window argbest, with the argbest zeroed where invalid. ``best_out``,
+    an optional (nty*tile, ntx*tile) float32 tensor, receives the best
+    metric.
 
     CPU tensors run :func:`sweep_plain`; CUDA tensors launch the kernel or
     raise."""
     global launches
-    check_cost_type(cost_type)
     tile, s_x, s_y, kw, kh = int(tile), int(s_x), int(s_y), int(kw), int(kh)
+    census_window = int(census_window)
     if base.device.type == "cpu":
         return sweep_plain(base, match, offsets, tile, s_x, s_y, kw, kh,
-                           cost_type, want_patches)
+                           cost_type, want_patches, census_window, best_out)
     if base.device.type != "cuda":
         raise ArgumentErr(f"sweep: unsupported device {base.device}")
+    census, codes_in, n_words = _check_cost(cost_type, want_patches,
+                                            census_window, base)
     ring = 1 if want_patches else 0
     nty, ntx, lh, lw, rh, rw = _check_shapes(base, match, offsets, tile, s_x,
-                                             s_y, kw, kh, ring)
-    for name, t, dt in (("base", base, torch.float32),
-                        ("match", match, torch.float32),
-                        ("offsets", offsets, torch.int32)):
+                                             s_y, kw, kh, ring, codes_in)
+    frame_dt = torch.int32 if codes_in else torch.float32
+    h, w = nty * tile, ntx * tile
+    for name, t, dt in (("base", base, frame_dt), ("match", match, frame_dt),
+                        ("offsets", offsets, torch.int32),
+                        ("best_out", best_out, torch.float32)):
+        if t is None:
+            continue
         if t.device != base.device or t.dtype != dt or not t.is_contiguous():
             raise ArgumentErr(f"sweep: {name} must be a contiguous {dt} "
                               f"tensor on {base.device}")
+    if best_out is not None and tuple(best_out.shape) != (h, w):
+        raise ArgumentErr(f"sweep: best_out must be {(h, w)}")
     lib = _library()
     per = lib.vw_sweep_pixels_per_thread()
     threads = -(-tile * tile // per)
     threads = -(-threads // 32) * 32
-    smem = 4 * (lh * lw + rh * rw + tile * lw)
+    smem = smem_bytes(tile, s_x, s_y, kw, kh, ring, cost_type, n_words, codes_in)
     if threads > _MAX_THREADS or smem > _MAX_SMEM:
         raise ArgumentErr(
             f"sweep: tile {tile} with kernel {kw}x{kh} and window "
-            f"{s_x}x{s_y} needs {threads} threads and {smem} B of shared "
-            f"memory per block; the CUDA sweep takes at most "
+            f"{s_x}x{s_y} ({cost_type}) needs {threads} threads and {smem} B "
+            f"of shared memory per block; the CUDA sweep takes at most "
             f"{_MAX_THREADS} and {_MAX_SMEM}")
-    h, w = nty * tile, ntx * tile
+    pos = (census_positions(census_window, cost_type == TERNARY_CENSUS_TRANSFORM)
+           if census else [])
+    pos_arr = (ctypes.c_int * max(2 * len(pos), 1))(*[v for p in pos for v in p])
     dev = base.device
     disp = torch.empty((h, w, 2), dtype=torch.int32, device=dev)
     valid = torch.empty((h, w), dtype=torch.bool, device=dev)
@@ -160,12 +221,77 @@ def sweep(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vw_sweep(
-            base.data_ptr(), base.shape[1], match.data_ptr(), match.shape[0],
-            match.shape[1], offsets.data_ptr(), nty, ntx, tile, s_x, s_y, kw,
-            kh, 0 if cost_type == ABSOLUTE_DIFFERENCE else 1, ring,
-            disp.data_ptr(), valid.data_ptr(),
-            patches.data_ptr() if want_patches else None, threads, smem,
-            stream)
+            base.data_ptr(), base.shape[0], base.shape[1], match.data_ptr(),
+            match.shape[0], match.shape[1], offsets.data_ptr(), nty, ntx,
+            tile, s_x, s_y, kw, kh, _COST_CODE[cost_type], ring, n_words,
+            int(codes_in), pos_arr, len(pos),
+            int(cost_type == TERNARY_CENSUS_TRANSFORM), disp.data_ptr(),
+            valid.data_ptr(), patches.data_ptr() if want_patches else None,
+            best_out.data_ptr() if best_out is not None else None, threads,
+            smem, stream)
     _build.check(err, "sweep")
     launches += 1
     return disp, valid, patches
+
+
+def frame_tile(out_h: int, out_w: int, s_x: int, s_y: int, kw: int, kh: int,
+               cost_type: str, n_words: int = 1, tile: int = 64) -> int:
+    """Tile of a whole-frame search: the smallest power of two (>= 8) that
+    covers the output, at most ``tile`` (capped at 64, 256 threads a
+    block), halved while a block's shared memory would not fit. The result
+    does not depend on the tile."""
+    t = 8
+    while t < min(max(out_h, out_w), min(int(tile), 64)):
+        t *= 2
+    while t > 8 and smem_bytes(t, s_x, s_y, kw, kh, 0, cost_type, n_words,
+                               True) > _MAX_SMEM:
+        t //= 2
+    return t
+
+
+def frame_sweep_args(left, right, s_x: int, s_y: int, kw: int, kh: int,
+                     cost_type: str = ABSOLUTE_DIFFERENCE,
+                     census_window: int = 5, tile: int = 64):
+    """``(base, match, offsets, tile)`` of the sweep that searches ``left``
+    (H, W) over ``right`` (H+s_y-1, W+s_x-1) (see :func:`search_frame`)."""
+    h, w = left.shape
+    oh, ow = h - kh + 1, w - kw + 1
+    n_words = 1
+    if cost_type in CENSUS_COSTS:
+        left = census_codes(left, cost_type, census_window)
+        right = census_codes(right, cost_type, census_window)
+        n_words = left.shape[-1]
+    t = frame_tile(oh, ow, s_x, s_y, kw, kh, cost_type, n_words, tile)
+    nty, ntx = -(-oh // t), -(-ow // t)
+    base = crop_extended(left, 0, 0, ntx * t + kw - 1, nty * t + kh - 1)
+    match = crop_extended(right, 0, 0, ntx * t + kw + s_x - 2,
+                          nty * t + kh + s_y - 2)
+    offsets = torch.zeros((nty, ntx, 2), dtype=torch.int32, device=base.device)
+    return base, match, offsets, t
+
+
+def search_frame(left, right, s_x: int, s_y: int, kw: int, kh: int,
+                 cost_type: str = ABSOLUTE_DIFFERENCE, census_window: int = 5,
+                 tile: int = 64, want_best: bool = False, plain: bool = False):
+    """Whole-frame search on the sweep (the engine of
+    ``best_of_search_convolution`` and of ``ops/cost_volume.py``'s
+    ``best_of_search``). ``left`` (H, W), ``right`` (H+s_y-1, W+s_x-1)
+    float32. Returns ``(disp (oh, ow, 2) int32 in [0, s_x) x [0, s_y),
+    valid, best or None)``, (oh, ow) = (H-kh+1, W-kw+1).
+
+    Census codes are computed over the whole frames (edges replicated at
+    the frame border) and handed to the sweep as code planes. The frames
+    are edge-padded to a whole grid of :func:`frame_tile` tiles with zero
+    offsets; the padding reaches only outputs that are cropped away.
+    ``plain`` runs :func:`sweep_plain` on any device (the plain version)."""
+    oh, ow = left.shape[0] - kh + 1, left.shape[1] - kw + 1
+    base, match, offsets, t = frame_sweep_args(left, right, s_x, s_y, kw, kh,
+                                               cost_type, census_window, tile)
+    best = (torch.empty(offsets.shape[0] * t, offsets.shape[1] * t,
+                        dtype=torch.float32, device=base.device)
+            if want_best else None)
+    fn = sweep_plain if plain else sweep
+    disp, valid, _ = fn(base, match, offsets, t, s_x, s_y, kw, kh, cost_type,
+                        False, census_window, best_out=best)
+    return (disp[:oh, :ow], valid[:oh, :ow],
+            None if best is None else best[:oh, :ow])

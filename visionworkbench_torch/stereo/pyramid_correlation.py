@@ -8,8 +8,9 @@ crop the right image at ``search_region.min`` so in-pyramid disparities are
 pyramids with 2-of-4 mask downsampling; then correlate coarse-to-fine on a
 fixed tile grid with per-tile search offsets taken from the upsampled
 previous level, speckle-filter every level, and at level 0 optionally run
-the L<->R consistency check and the parabola fit on the sweep's 3x3 cost
-patches.
+the L<->R consistency check and the parabola fit: on the sweep's 3x3 cost
+patches for the abs, sq and census costs, through ``parabola_subpixel``'s
+re-evaluation for NCC, which has no patch mode.
 
 With ``stereo_algorithm="sgm"``/``"mgm"`` each level runs semi-global
 matching (``stereo/sgm.py:sgm_relative_search``) over census costs of
@@ -38,7 +39,7 @@ from visionworkbench_torch.image.filters import generate_pyramid_smoothing_kerne
 from visionworkbench_torch.math.bbox import BBox2i
 from visionworkbench_torch.ops.sweep import sweep
 from visionworkbench_torch.stereo.correlation import (
-    ABSOLUTE_DIFFERENCE, DisparityMap, check_cost_type,
+    ABSOLUTE_DIFFERENCE, CROSS_CORRELATION, DisparityMap, check_cost_type,
 )
 from visionworkbench_torch.stereo.disparity import (
     cross_corr_consistency_check, disparity_cleanup_using_thresh,
@@ -50,7 +51,7 @@ from visionworkbench_torch.stereo.prefilter import (
 from visionworkbench_torch.stereo.sgm import (
     SUBPIXEL_MODES, default_penalties, sgm_relative_search,
 )
-from visionworkbench_torch.stereo.subpixel import _fit_parabola
+from visionworkbench_torch.stereo.subpixel import _fit_parabola, parabola_subpixel
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -192,9 +193,9 @@ def _mean_fill(img, mask, frame_h: int, frame_w: int):
     return torch.where(mask, img, mean)
 
 
-def _check_slice_options(cost_type, prefilter_mode, stereo_algorithm,
-                         subpixel, corr_timeout, blob_filter_area,
-                         keep_levels, engine):
+def _check_slice_options(cost_type, census_window, prefilter_mode,
+                         stereo_algorithm, subpixel, corr_timeout,
+                         blob_filter_area, keep_levels, engine):
     """Options of the JAX signature that this port does not run yet raise,
     naming the slice that brings them. In SGM/MGM mode the cost is census
     (``cost_type`` only selects ternary census), so the BM cost check does
@@ -205,7 +206,7 @@ def _check_slice_options(cost_type, prefilter_mode, stereo_algorithm,
         if subpixel not in SUBPIXEL_MODES:
             raise ArgumentErr(f"unknown SGM subpixel mode {subpixel!r}")
     else:
-        check_cost_type(cost_type)
+        check_cost_type(cost_type, census_window)
         if subpixel in ("affine", "em"):
             raise ArgumentErr(f"subpixel {subpixel!r} is not ported yet "
                               "(quality-subpixel slice)")
@@ -256,10 +257,12 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     Returns a :class:`DisparityMap` of torch tensors the size of ``left``,
     whose (dx, dy) are absolute right-image offsets (``search_region.min``
     added). In BM mode ``subpixel='parabola'`` refines them with the 9-point
-    quadratic fit on the level-0 sweep's cost patches.
+    quadratic fit on the level-0 sweep's cost patches, or for NCC on the
+    absolute costs ``parabola_subpixel`` re-evaluates.
 
-    ``stereo_algorithm``: ``'bm'`` with the ``abs``/``sq`` costs and
-    subpixel ``none``/``parabola``, or ``'sgm'``/``'mgm'`` (ref
+    ``stereo_algorithm``: ``'bm'`` with any of the five costs (``abs``,
+    ``sq``, ``ncc``, ``census`` and ``ternary_census`` of ``census_window``)
+    and subpixel ``none``/``parabola``, or ``'sgm'``/``'mgm'`` (ref
     ``CorrelationAlgorithm``, CorrelationView.h:45) with census costs of
     ``census_window`` (``cost_type='ternary_census'`` for ternary), any SGM
     subpixel mode applied inside the last level, and
@@ -267,9 +270,9 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     options raise :class:`ArgumentErr` naming the slice that brings them.
     ``seconds_per_op`` and ``prefilter_width`` only matter for those.
     """
-    _check_slice_options(cost_type, prefilter_mode, stereo_algorithm,
-                         subpixel, corr_timeout, blob_filter_area, keep_levels,
-                         engine)
+    _check_slice_options(cost_type, census_window, prefilter_mode,
+                         stereo_algorithm, subpixel, corr_timeout,
+                         blob_filter_area, keep_levels, engine)
     dev = resolve_device(device)
     left = as_tensor(left, torch.float32, dev)
     right = as_tensor(right, torch.float32, dev)
@@ -298,7 +301,9 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     if search_region.width <= 0 or search_region.height <= 0:
         raise ArgumentErr("pyramid_correlate: search region must be non-empty")
     half_kw, half_kh = kw // 2, kh // 2
-    use_patches = subpixel == "parabola" and not sgm_mode
+    # NCC has no patch mode: its parabola re-evaluates absolute costs
+    use_patches = (subpixel == "parabola" and not sgm_mode
+                   and cost_type != CROSS_CORRELATION)
 
     s_w, s_h = int(search_region.width), int(search_region.height)
     smin_x, smin_y = int(search_region.min_x), int(search_region.min_y)
@@ -416,7 +421,8 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                                     mw + 2, mh + 2)
             disp, valid, patches = sweep(lbase, mbase_p, offsets, t, s_x_eff,
                                          s_y_eff, kw, kh, cost_type,
-                                         want_patches=True)
+                                         want_patches=True,
+                                         census_window=census_window)
             patches = tuple(patches[:, :out_h, :out_w].unbind(0))
         else:
             mbase = crop_extended(right_pyr[level], lx0, ly0, mw, mh)
@@ -431,7 +437,8 @@ def pyramid_correlate(left, right, search_region: BBox2i,
             else:
                 disp, valid, _ = sweep(lbase, mbase, offsets, t, s_x_eff,
                                        s_y_eff, kw, kh, cost_type,
-                                       want_patches=False)
+                                       want_patches=False,
+                                       census_window=census_window)
         dm = DisparityMap(disp[:out_h, :out_w], valid[:out_h, :out_w])
 
         # L<->R consistency check at level 0 (CorrelationView.cc:653-695).
@@ -465,7 +472,8 @@ def pyramid_correlate(left, right, search_region: BBox2i,
             else:
                 rl_disp, rl_valid, _ = sweep(rl_base, rl_match, rl_offsets, t,
                                              s_x_eff, s_y_eff, kw, kh,
-                                             cost_type, want_patches=False)
+                                             cost_type, want_patches=False,
+                                             census_window=census_window)
             rl_dm = DisparityMap((rl_disp - rl_origin)[:rl_out_h, :rl_out_w],
                                  rl_valid[:rl_out_h, :rl_out_w])
             dm = cross_corr_consistency_check(dm, rl_dm, consistency_threshold)
@@ -506,7 +514,11 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     final = DisparityMap(torch.where(dm.valid[..., None], dm.disparity + smin,
                                      torch.zeros_like(dm.disparity)),
                          dm.valid)
-    if use_patches:       # (SGM applied its subpixel mode inside the last level)
+    # (SGM applied its subpixel mode inside the last level)
+    if use_patches:
         final = DisparityMap(_fit_parabola(patches, final.disparity, final.valid),
                              final.valid)
+    elif subpixel == "parabola" and not sgm_mode:
+        final = parabola_subpixel(final, left, right, (kw, kh), prefilter_mode,
+                                  prefilter_width)
     return final
