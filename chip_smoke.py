@@ -5,7 +5,9 @@
 Phases (each raises on a mismatch; none catches its own failure):
 
 1. Build the CUDA kernels from ``visionworkbench_torch/csrc/`` (one nvcc per
-   source, started together) and print the card's name and power limit.
+   source, started together), print each build's registers and spills (and
+   fail if an instance of the register-carry MGM kernel that the wrappers
+   can select spills), and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
    to the 1/256 grid (integer disparities, validity, cost patches and keep
@@ -16,7 +18,11 @@ Phases (each raises on a mismatch; none catches its own failure):
    the first-generation sweeps (``ops/cost_volume.py``) -- and the three
    SGM/MGM scans on integer-valued inputs (exact), with the scan carry in
    shared memory and, for ``calc_disparity_sgm``'s 64x8 search, in global
-   scratch.
+   scratch. The MGM scans run the register-carry kernel
+   (``csrc/mgm_scan.cu``) at every shape of config 6's pyramid, held
+   against the plain version and against ``line_scan_kernel<1>`` on the
+   same inputs, and ``line_scan_kernel<1>`` at the 64x8 search (the launch
+   counts show which kernel ran).
 3. Run the main paths, each with the launch counts set to 0 just before it
    and read just after: ``pyramid_correlate`` at the configuration of
    ``bench.py`` (1024^2 pair, 64x8 search, 15x15 kernel, 4 levels, tile 64,
@@ -39,8 +45,10 @@ Phases (each raises on a mismatch; none catches its own failure):
    atol 2e-5), config 4 at 256^2 with 2 levels (integer disparities and
    validity equal, parabola allclose at atol 1e-4), ``calc_disparity`` with
    ncc and ternary census 7x7 at 128^2 (equal).
-5. Time the frames and each kernel with CUDA events, and profile one frame
-   of each path for the device's idle share.
+5. Time the frames and each kernel with CUDA events (the MGM scans in
+   turns with ``line_scan_kernel<1>`` at the same shapes, with us per
+   step), and profile one frame of each path for the device's idle share
+   and its device time by kernel name.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -52,6 +60,7 @@ Exits non-zero, printing no result, without a CUDA device or without the
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -155,16 +164,64 @@ def _smi() -> str:
 
 # ---- phase 1 ----------------------------------------------------------------
 
+def _ptxas_table(text):
+    """{kernel function: {"regs", "spill", "stack"}} from an -Xptxas=-v log
+    (spill: bytes of spill stores and loads)."""
+    table, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line)
+        if m:
+            fn = table.setdefault(m.group(1), {"regs": 0, "spill": 0, "stack": 0})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn is not None:
+            fn.update(stack=int(m[1]), spill=int(m[2]) + int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["regs"] = int(m[1])
+    return table
+
+
+def _mgm_instances(table):
+    """{(sy, sx, bidir): ptxas entry} of csrc/mgm_scan.cu."""
+    out = {}
+    for name, v in table.items():
+        m = re.search(r"mgm_scan_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+        if m:
+            out[(int(m[1]), int(m[2]), m[3] == "1")] = v
+    return out
+
+
 def phase_build():
-    from visionworkbench_torch.ops import _build
+    from visionworkbench_torch.ops import _build, sgm_scan
     t0 = time.perf_counter()
     libs = _build.build()
     print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        table = _ptxas_table(log.read_text() if log.exists() else "")
+        if name != "mgm_scan":
+            for fn, v in table.items():
+                print(f"[build] {name}: {fn[:70]}: {v['regs']} registers, "
+                      f"{v['spill']} B spilled, {v['stack']} B stack")
+            continue
+        inst = _mgm_instances(table)
+        if not inst:
+            raise SystemExit("mgm_scan: no kernel instance in the build log")
+        # every instance is one the wrappers select (ops/sgm_scan.py:
+        # _mgm_variant), at up to _build.MGM_MAX_LANES threads
+        bad = [(key, v) for key, v in sorted(inst.items())
+               if sgm_scan._mgm_variant(key[0], key[1], _build.MGM_MAX_LANES) is None
+               or v["spill"] or v["stack"]]
+        regs = [v["regs"] for v in inst.values()]
+        print(f"[build] mgm_scan: {len(inst)} instances, {min(regs)}-{max(regs)} "
+              f"registers, instances that spill or are past the limits: {bad or 'none'}")
+        for key in ((2, 5, False), (2, 5, True), (1, 5, False), (1, 5, True),
+                    (1, 4, False), (1, 4, True), (4, 4, True)):
+            print(f"[build] mgm_scan (sy, sx, bidir) {key}: {inst.get(key)}")
+        if bad:
+            raise SystemExit(f"mgm_scan: instances spill or are past the limits: {bad}")
 
 
 # ---- phase 2 ----------------------------------------------------------------
@@ -305,20 +362,35 @@ def _speckle_input(case, dev, seed):
 
 def scan_cases():
     """The SGM/MGM scans' shapes on config 6's main path: the level-0
-    (512^2, window 5x2) x-scan (3 directions), y-scan and MGM scans, and the
-    level-4 x-scan (64^2 padded, window 4x1); and ``calc_disparity_sgm``'s
-    x-scan at the 64x8 search on 256^2, whose carry (1 MB per line) is in
-    global scratch."""
+    (512^2, window 5x2) x-scan (3 directions), y-scan and MGM scans, the
+    level-4 x-scan (64^2 padded, window 4x1), and the MGM scans of levels
+    4-1 (window 4x1, then 5x1 over 64-256 lanes); and
+    ``calc_disparity_sgm``'s x-scan at the 64x8 search on 256^2, whose
+    carry (1 MB per line) is in global scratch."""
     n = SGM_HW
+    levels = []
+    for lv in (1, 2, 3):
+        nl = n >> lv
+        levels += [dict(kernel="mgm_fwd", name=f"level{lv}_sheared",
+                        shape=(2 * nl, 4, 1, 5, nl), shifts=(0, 1)),
+                   dict(kernel="mgm_bidir", name=f"level{lv}", shape=(nl, 1, 5, nl),
+                        shifts=(1, -1))]
     return [dict(kernel="scan_bidir", name="level0_x", shape=(n, 2, 5, n), shifts=(0, 1, -1)),
             dict(kernel="scan_bidir", name="level0_y", shape=(n, 2, 5, n), shifts=(0,)),
             dict(kernel="scan_bidir", name="level4_x", shape=(64, 1, 4, 64), shifts=(0, 1, -1)),
             dict(kernel="mgm_fwd", name="level0_sheared", shape=(2 * n, 4, 2, 5, n),
                  shifts=(0, 1)),
             dict(kernel="mgm_bidir", name="level0", shape=(n, 2, 5, n), shifts=(1, -1)),
+            dict(kernel="mgm_fwd", name="level4_sheared", shape=(128, 4, 1, 4, 64),
+                 shifts=(0, 1)),
+            dict(kernel="mgm_bidir", name="level4", shape=(64, 1, 4, 64), shifts=(1, -1)),
+            *levels,
             dict(kernel="scan_bidir", name="calc_x_scratch",
                  shape=(CALC_HW, CALC_SEARCH[1], CALC_SEARCH[0], CALC_HW),
-                 shifts=(0, 1, -1))]
+                 shifts=(0, 1, -1)),
+            dict(kernel="mgm_bidir", name="calc_scratch",
+                 shape=(CALC_HW, CALC_SEARCH[1], CALC_SEARCH[0], CALC_HW),
+                 shifts=(1, -1))]
 
 
 def _scan_inputs(case, dev, seed):
@@ -350,6 +422,22 @@ def _scan_call(case, inputs, plain=False):
     from visionworkbench_torch.ops import sgm_scan
     fn = getattr(sgm_scan, case["kernel"] + ("_plain" if plain else ""))
     return fn(*inputs, case["shifts"], SGM_P1, SGM_P2, SGM_BAD)
+
+
+def _mgm_threads(case):
+    """Threads of the register-carry instance the MGM wrapper picks for the
+    case, or None where it runs line_scan_kernel<1>."""
+    from visionworkbench_torch.ops import sgm_scan
+    shape = case["shape"]
+    return sgm_scan._mgm_variant(shape[-3], shape[-2], shape[-1])
+
+
+def _line_scan_call(case, inputs):
+    """An MGM case on line_scan_kernel<1> (csrc/sgm_scan.cu), whatever the
+    wrapper would pick."""
+    from visionworkbench_torch.ops import sgm_scan
+    fn = getattr(sgm_scan, f"_{case['kernel']}_cuda")
+    return fn(*inputs, case["shifts"], SGM_P1, SGM_P2, SGM_BAD, None)
 
 
 def _scan_work(case):
@@ -428,18 +516,37 @@ def phase_kernels(dev):
               f"max_abs_err {e}")
         if e != 0.0:
             raise SystemExit(f"speckle kernel disagrees with its plain version at {c['name']}")
+    from visionworkbench_torch.ops import sgm_scan
     for i, c in enumerate(scan_cases()):
         inputs = _scan_inputs(c, dev, 300 + i)
+        mgm = c["kernel"] != "scan_bidir"
+        before = sgm_scan.mgm_scan_launches.get(c["kernel"], 0)
         got = _scan_call(c, inputs)
+        on_reg = sgm_scan.mgm_scan_launches.get(c["kernel"], 0) - before
         ref = _scan_call(c, inputs, plain=True)
         torch.cuda.synchronize()
         e = float((got - ref).abs().max())
         err[c["kernel"]] = max(err[c["kernel"]], e)
-        print(f"[kernels] {c['kernel']} {c['name']} {c['shape']} shifts {c['shifts']}: "
-              f"mean {float(got.mean()):.4f}, max_abs_err {e}")
+        which = ""
+        if mgm:
+            which = "mgm_scan" if on_reg else "line_scan_kernel<1>"
+            if on_reg != int(_mgm_threads(c) is not None):
+                raise SystemExit(f"{c['kernel']} {c['name']}: ran {which}, expected "
+                                 f"threads {_mgm_threads(c)}")
+        print(f"[kernels] {c['kernel']} {c['name']} {c['shape']} shifts {c['shifts']} "
+              f"{which}: mean {float(got.mean()):.4f}, max_abs_err {e}")
         if e != 0.0:
             raise SystemExit(f"{c['kernel']} kernel disagrees with its plain version "
                              f"at {c['name']}")
+        if mgm and on_reg:
+            old = _line_scan_call(c, inputs)
+            torch.cuda.synchronize()
+            e = float((got - old).abs().max())
+            print(f"[kernels] {c['kernel']} {c['name']}: mgm_scan vs line_scan_kernel<1> "
+                  f"max_abs_err {e}")
+            if e != 0.0:
+                raise SystemExit(f"{c['kernel']} {c['name']}: mgm_scan disagrees with "
+                                 "line_scan_kernel<1>")
     return err
 
 
@@ -510,13 +617,17 @@ def _reset_counts():
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
     sweep.launches = 0
     speckle.launches = 0
-    for k in sgm_scan.launches:
-        sgm_scan.launches[k] = 0
+    for counts in (sgm_scan.launches, sgm_scan.mgm_scan_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _read_counts():
+    """Launches per wrapper; ``<wrapper>/mgm_scan``: of those, the MGM
+    launches of the register-carry kernel."""
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
-    return {"sweep": sweep.launches, "speckle": speckle.launches, **sgm_scan.launches}
+    return {"sweep": sweep.launches, "speckle": speckle.launches, **sgm_scan.launches,
+            **{f"{k}/mgm_scan": v for k, v in sgm_scan.mgm_scan_launches.items()}}
 
 
 def phase_main(dev):
@@ -525,7 +636,8 @@ def phase_main(dev):
     sgm_left, sgm_right = _make_pair(SGM_HW, SGM_HW)
     calc_left, calc_right = _make_calc_pair(CALC_HW, CALC_HW)
     c3_left, c3_right = (torch.as_tensor(a, device=dev) for a in _calc3_pair())
-    none = {"sweep": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
+    none = {"sweep": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0,
+            "mgm_bidir/mgm_scan": 0, "mgm_fwd/mgm_scan": 0}
     c3 = {"sweep": 1, "speckle": 0}
     runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5}, H),
             ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
@@ -533,7 +645,8 @@ def phase_main(dev):
             ("sgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "sgm"),
              {"scan_bidir": 10}, SGM_HW),
             ("mgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "mgm"),
-             {"mgm_fwd": 5, "mgm_bidir": 10}, SGM_HW),
+             {"mgm_fwd": 5, "mgm_bidir": 10, "mgm_fwd/mgm_scan": 5,
+              "mgm_bidir/mgm_scan": 10}, SGM_HW),
             ("calc_sgm", lambda: _calc_run(calc_left, calc_right, dev),
              {"scan_bidir": 2, "speckle": 0}, CALC_HW),
             ("config4", lambda: _bench_run(left, right, dev, cost_type="census",
@@ -745,13 +858,36 @@ def phase_timings(dev):
         rows[("speckle", c["name"])] = _row(ms, plain_ms, 8 * npx, ops)
     for i, c in enumerate(scan_cases()):
         inputs = _scan_inputs(c, dev, 300 + i)
-        ms = _time_ms(lambda: _scan_call(c, inputs), reps=20)
+        n = c["shape"][0]
+        if c["kernel"] != "scan_bidir" and _mgm_threads(c) is not None:
+            # in turns with line_scan_kernel<1> at the same shape:
+            # old, new, new, old
+            old = lambda: _line_scan_call(c, inputs)  # noqa: E731
+            new = lambda: _scan_call(c, inputs)       # noqa: E731
+            ts = [_time_ms(f, reps=20) for f in (old, new, new, old)]
+            old_ms = statistics.median([ts[0], ts[3]])
+            ms = statistics.median([ts[1], ts[2]])
+            print(f"[time] {c['kernel']} {c['name']} in turns (line_scan_kernel<1>, "
+                  f"mgm_scan, mgm_scan, line_scan_kernel<1>): "
+                  + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+        else:
+            ms, old_ms = _time_ms(lambda: _scan_call(c, inputs), reps=20), None
         plain_ms = _time_ms(lambda: _scan_call(c, inputs, plain=True), reps=3, warmup=1)
-        rows[(c["kernel"], c["name"])] = _row(ms, plain_ms, *_scan_work(c))
+        r = _row(ms, plain_ms, *_scan_work(c))
+        r["us_per_step"] = ms * 1e3 / n
+        if old_ms is not None:
+            r.update(line_scan_ms=old_ms, line_scan_us_per_step=old_ms * 1e3 / n)
+        rows[(c["kernel"], c["name"])] = r
     for (k, name), r in rows.items():
+        extra = ""
+        if "us_per_step" in r:
+            extra = f", {r['us_per_step']:.4f} us per step"
+        if "line_scan_ms" in r:
+            extra += (f"; line_scan_kernel<1> {r['line_scan_ms']:.4f} ms, "
+                      f"{r['line_scan_us_per_step']:.4f} us per step")
         print(f"[time] {k} {name}: {r['ms']:.4f} ms per launch, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']})")
+              f"({r['bound_by']}){extra}")
     return frame, rows
 
 
@@ -806,6 +942,13 @@ def _profile_frame(run, what, frame_ms, frames=3):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile] {what} {e.self_device_time_total / 1e3 / frames:9.4f} ms/frame "
               f"{e.count / frames:6.1f} calls/frame  {e.key[:90]}")
+    for name in ("sweep_kernel", "speckle", "line_scan_kernel", "mgm_scan_kernel"):
+        mine = [e for e in events if name in e.key]
+        if mine:
+            ms = sum(e.self_device_time_total for e in mine) / 1e3 / frames
+            print(f"[profile] {what} by kernel: {name} {ms:.4f} ms/frame "
+                  f"({ms / busy_ms:.4f} of device time), "
+                  f"{sum(e.count for e in mine) / frames:.1f} calls/frame")
 
 
 def _row(ms, plain_ms, nbytes, ops):
@@ -846,20 +989,23 @@ def main() -> int:
                     "visionworkbench_tpu/ops/speckle.py:93"),
         "scan_bidir": ("level0_x", "sgm", "visionworkbench_torch/csrc/sgm_scan.cu",
                        "visionworkbench_tpu/ops/sgm_scan.py:149"),
-        "mgm_bidir": ("level0", "mgm", "visionworkbench_torch/csrc/sgm_scan.cu",
+        "mgm_bidir": ("level0", "mgm", "visionworkbench_torch/csrc/mgm_scan.cu",
                       "visionworkbench_tpu/ops/sgm_scan.py:222"),
-        "mgm_fwd": ("level0_sheared", "mgm", "visionworkbench_torch/csrc/sgm_scan.cu",
+        "mgm_fwd": ("level0_sheared", "mgm", "visionworkbench_torch/csrc/mgm_scan.cu",
                     "visionworkbench_tpu/ops/sgm_scan.py:272"),
     }
     kernels = []
     for k, (shape, run, source, replaces) in table.items():
         r = rows[(k, shape)]
+        # the MGM rows: launches of the register-carry kernel on the path
+        key = f"{k}/mgm_scan" if k.startswith("mgm") else k if k in counts[run] else "sweep"
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[run][k if k in counts[run] else "sweep"],
+            "launches": counts[run][key],
             "max_abs_err": err[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None, "shape": shape})
+            "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
+            **{x: r[x] for x in ("us_per_step", "line_scan_ms") if x in r}})
     print(json.dumps({"frame_ms": frame["plain"]["ms"],
                       "frame_mps": frame["plain"]["mps"],
                       "frame_lr_ms": frame["consistency"]["ms"],

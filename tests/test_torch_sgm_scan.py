@@ -7,7 +7,11 @@ the same seeded integer-valued inputs.
 Tolerance: exact. Every value is an integer-valued fp32 below 2^24, so the
 recurrences are exact in any order. The CUDA kernels are held against the
 plain versions on the card (skipped without one), also exactly, with the
-carry in shared memory and, for wide search windows, in global scratch.
+carry in shared memory and, for wide search windows, in global scratch; the
+MGM scans' register-carry kernel (``csrc/mgm_scan.cu``) also against
+``line_scan_kernel<1>`` on the same inputs, with the launch counts showing
+which kernel ran. On the CPU, the choice between the two MGM kernels
+(``_mgm_variant``) is held against the shapes config 6's MGM pyramid gives.
 Pixel differences are drawn from [0, 256), the range of |dI| on 8-bit
 images, so the P2' = max(floor(P2 / |dI|), P1) clamp and every IEEE
 quotient of the penalty are reached.
@@ -47,17 +51,19 @@ def _scan_inputs(seed, n, sy, sx, nl, b):
             _ints(rng, (n, b, nl), PD_HI))
 
 
-def _mgm_inputs(seed, n, sy, sx, nl):
+def _mgm_inputs(seed, n, sy, sx, nl, bad_frac=0.05, guard_off=0.2):
+    """Costs with a share ``bad_frac`` of absent candidates, and guards
+    false with probability ``guard_off`` (1: all false, 0: all true)."""
     rng = np.random.default_rng(seed)
-    return (_ints(rng, (n, sy, sx, nl), 30, 0.05), _ints(rng, (n, nl), PD_HI),
-            _ints(rng, (n, nl), PD_HI), rng.random((n, nl)) > 0.2,
-            rng.random((n, nl)) > 0.2)
+    return (_ints(rng, (n, sy, sx, nl), 30, bad_frac), _ints(rng, (n, nl), PD_HI),
+            _ints(rng, (n, nl), PD_HI), rng.random((n, nl)) >= guard_off,
+            rng.random((n, nl)) >= guard_off)
 
 
-def _fwd_inputs(seed, n, b, sy, sx, nl):
+def _fwd_inputs(seed, n, b, sy, sx, nl, bad_frac=0.05, guard_off=0.2):
     rng = np.random.default_rng(seed)
-    return (_ints(rng, (n, b, sy, sx, nl), 30, 0.05), _ints(rng, (n, b, nl), PD_HI),
-            rng.random((n, b, nl)) > 0.2)
+    return (_ints(rng, (n, b, sy, sx, nl), 30, bad_frac), _ints(rng, (n, b, nl), PD_HI),
+            rng.random((n, b, nl)) >= guard_off)
 
 
 def _t(arrays, device="cpu"):
@@ -124,6 +130,90 @@ def test_path_update_quotient_is_ieee():
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+# config 6's MGM pyramid (512^2, search 64x2, sgm_search_buffer 2): level 4
+# (1, 4) over 64 lanes, levels 3-1 (1, 5) over 64-256, level 0 (2, 5) over 512
+_CONFIG6_MGM = {
+    ("mgm_fwd", (128, 4, 1, 4, 64)): 1, ("mgm_bidir", (64, 1, 4, 64)): 2,
+    ("mgm_fwd", (128, 4, 1, 5, 64)): 1, ("mgm_bidir", (64, 1, 5, 64)): 2,
+    ("mgm_fwd", (256, 4, 1, 5, 128)): 1, ("mgm_bidir", (128, 1, 5, 128)): 2,
+    ("mgm_fwd", (512, 4, 1, 5, 256)): 1, ("mgm_bidir", (256, 1, 5, 256)): 2,
+    ("mgm_fwd", (1024, 4, 2, 5, 512)): 1, ("mgm_bidir", (512, 2, 5, 512)): 2}
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((1, 4, 64), 64), ((1, 5, 128), 128), ((1, 5, 256), 256), ((2, 5, 512), 512),
+    ((1, 1, 33), 64), ((3, 3, 65), 96), ((4, 4, 512), 512), ((1, 16, 500), 512),
+    # past the cell or lane limits, and scratch-sized windows:
+    # line_scan_kernel<1>
+    ((2, 3, 1024), None), ((1, 6, 513), None),
+    ((1, 17, 64), None), ((5, 5, 64), None), ((3, 3, 513), None),
+    ((2, 5, 1024), None), ((1, 7, 513), None), ((1, 1, 1030), None),
+    ((8, 16, 256), None),
+    ((8, 64, 256), None),
+    ((1, 5, 64), 64), ((16, 1, 480), 480), ((1, 1, 513), None)])
+def test_mgm_variant_picks_by_grid_and_line(shape, want):
+    """Threads of the register-carry instance, or None for
+    ``line_scan_kernel<1>``: up to 16 cells over up to 512 lanes."""
+    assert tscan._mgm_variant(*shape) == want
+
+
+def test_mgm_variant_covers_config6_mgm_pyramid(monkeypatch):
+    """Every MGM scan of config 6's pyramid (tools_bench_configs.py config 6,
+    as chip_smoke.py runs it) has a register-carry instance. The scans are
+    replaced by a recorder (no scan runs; the shapes do not depend on the
+    data)."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo import sgm as tsgm
+    from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    seen = {}
+
+    def recorder(kind):
+        def scan(cost_t, *args):
+            key = (kind, tuple(cost_t.shape))
+            seen[key] = seen.get(key, 0) + 1
+            return torch.zeros_like(cost_t)
+        return scan
+
+    monkeypatch.setattr(tsgm, "mgm_fwd", recorder("mgm_fwd"))
+    monkeypatch.setattr(tsgm, "mgm_bidir", recorder("mgm_bidir"))
+    img = np.random.default_rng(27).random((512, 512)).astype(np.float32)
+    pyramid_correlate(img, img, BBox2i(0, -1, 64, 2), kernel_size=(5, 5),
+                      max_pyramid_levels=4, tile_size=64, stereo_algorithm="mgm",
+                      subpixel="none", device="cpu")
+    assert seen == _CONFIG6_MGM
+    for (_, shape) in seen:
+        assert tscan._mgm_variant(*shape[-3:]) == shape[-1]
+
+
+def test_mgm_instance_limits_are_built_from_the_variant_limits(monkeypatch):
+    """``_mgm_variant``'s limits are the macros ``csrc/mgm_scan.cu`` is built
+    with, and they are part of the library's name (a change rebuilds)."""
+    from visionworkbench_torch.ops import _build
+    flags = _build.flags("mgm_scan")
+    assert f"-DVW_MGM_MAX_CELLS={_build.MGM_MAX_CELLS}" in flags
+    assert f"-DVW_MGM_MAX_LANES={_build.MGM_MAX_LANES}" in flags
+    assert _build.flags("sgm_scan") == _build.NVCC_FLAGS
+    cells, lanes = _build.MGM_MAX_CELLS, _build.MGM_MAX_LANES
+    assert tscan._mgm_variant(1, cells, lanes) == lanes
+    assert tscan._mgm_variant(1, cells + 1, lanes) is None
+    assert tscan._mgm_variant(1, cells, lanes + 1) is None
+    name = _build.library_path("mgm_scan")
+    monkeypatch.setitem(_build.DEFINES, "mgm_scan", (
+        f"-DVW_MGM_MAX_CELLS={cells}", f"-DVW_MGM_MAX_LANES={lanes // 2}"))
+    assert _build.library_path("mgm_scan") != name
+
+
+def test_ablation_variants_edit_the_kernel_source(tmp_path):
+    """Each variant of ``tools/mgm_scan_ablation.py`` is a text edit of
+    ``csrc/mgm_scan.cu`` whose text occurs there exactly once."""
+    from visionworkbench_torch.tools import mgm_scan_ablation as ablation
+    paths = ablation._variant_sources(tmp_path, [])
+    assert set(paths) == set(ablation.ABLATIONS)
+    as_is = paths["as_is"].read_text()
+    for name, path in paths.items():
+        assert (path.read_text() != as_is) == bool(ablation.ABLATIONS[name])
+
+
 def test_wrappers_reject_bad_arguments():
     cost, pf, pr = _t(_scan_inputs(23, 4, 1, 2, 8, 1))
     with pytest.raises(ArgumentErr):
@@ -154,19 +244,60 @@ def test_scan_bidir_kernel_matches_plain(cuda, case):
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
 
 
+def _mgm_both_kernels(args, fargs):
+    """mgm_bidir and mgm_fwd through their wrappers, each held bit for bit
+    against its plain version and, where the wrapper ran the register-carry
+    kernel, against line_scan_kernel<1> on the same inputs. Returns the
+    register-carry launches of each."""
+    before = dict(tscan.launches)
+    reg = dict(tscan.mgm_scan_launches)
+    for name, a, shifts, plain in (("mgm_bidir", args, (1, -1), tscan.mgm_bidir_plain),
+                                   ("mgm_fwd", fargs, (0, 1), tscan.mgm_fwd_plain)):
+        got = getattr(tscan, name)(*a, shifts, P1, P2, BAD)
+        assert tscan.launches[name] == before[name] + 1
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      plain(*a, shifts, P1, P2, BAD).cpu().numpy())
+        if tscan.mgm_scan_launches[name] > reg[name]:
+            old = getattr(tscan, f"_{name}_cuda")(*a, shifts, P1, P2, BAD, None)
+            np.testing.assert_array_equal(got.cpu().numpy(), old.cpu().numpy())
+    return {k: tscan.mgm_scan_launches[k] - reg[k] for k in reg}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(16, 2, 5, 128), (9, 1, 1, 1030),
-                                  (9, 8, 16, 256)])      # global scratch
+@pytest.mark.parametrize("case", [
+    (16, 2, 5, 128),
+    # grids (1, 1), (1, 4), (3, 3) and 16 cells; partial warps (33, 65),
+    # whole warps (64, 512, the longest line an instance takes)
+    (12, 1, 1, 33), (12, 1, 4, 64), (12, 3, 3, 65), (10, 4, 4, 512),
+    (10, 1, 16, 64), (10, 16, 1, 33),
+    # line_scan_kernel<1>: lines too long for any instance (1024, 1030,
+    # 600), and a wide window (global scratch)
+    (9, 2, 3, 1024),
+    (9, 1, 1, 1030), (9, 1, 7, 600), (9, 3, 3, 600), (9, 8, 16, 256),
+    # the (1, 5) grid of config 6's levels 1-3
+    (12, 1, 5, 64), (16, 1, 5, 256)])
 def test_mgm_kernels_match_plain(cuda, case):
     n, sy, sx, nl = case
     args = _t(_mgm_inputs(25, n, sy, sx, nl), cuda)
-    before = dict(tscan.launches)
-    got = tscan.mgm_bidir(*args, (1, -1), P1, P2, BAD)
-    ref = tscan.mgm_bidir_plain(*args, (1, -1), P1, P2, BAD)
-    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
     fargs = _t(_fwd_inputs(26, n, 4, sy, sx, nl), cuda)
-    got = tscan.mgm_fwd(*fargs, (0, 1), P1, P2, BAD)
-    ref = tscan.mgm_fwd_plain(*fargs, (0, 1), P1, P2, BAD)
-    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
-    assert tscan.launches["mgm_bidir"] == before["mgm_bidir"] + 1
-    assert tscan.launches["mgm_fwd"] == before["mgm_fwd"] + 1
+    on_reg = int(tscan._mgm_variant(sy, sx, nl) is not None)
+    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": on_reg, "mgm_fwd": on_reg}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [dict(guard_off=1.0), dict(guard_off=0.0),
+                                  dict(bad_frac=0.9)])
+def test_mgm_kernels_guards_and_absent_costs(cuda, fill):
+    """Guards all false, all true, and a cost plane that is mostly bad."""
+    args = _t(_mgm_inputs(28, 24, 2, 5, 65, **fill), cuda)
+    fargs = _t(_fwd_inputs(29, 24, 4, 2, 5, 65, **fill), cuda)
+    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": 1, "mgm_fwd": 1}
+
+
+@pytest.mark.cuda
+def test_mgm_kernels_match_plain_at_level0(cuda):
+    """Config 6's level-0 shapes: mgm_fwd (1024, 4, 2, 5, 512) and
+    mgm_bidir (512, 2, 5, 512)."""
+    args = _t(_mgm_inputs(30, 512, 2, 5, 512), cuda)
+    fargs = _t(_fwd_inputs(31, 1024, 4, 2, 5, 512), cuda)
+    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": 1, "mgm_fwd": 1}

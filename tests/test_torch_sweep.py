@@ -180,10 +180,11 @@ def test_kernel_build_runs_once_or_raises(monkeypatch, tmp_path, fail):
         assert not list((tmp_path / "build").glob("*.so"))
         return
     libs = _build.build()
-    assert set(libs) == set(_build.SOURCES) == {"sweep", "speckle", "sgm_scan"}
+    assert set(libs) == set(_build.SOURCES) == {"sweep", "speckle", "sgm_scan",
+                                                  "mgm_scan"}
     assert all(p.exists() for p in libs.values())
     assert _build.build() == libs
-    assert len(calls.read_text().splitlines()) == 3     # one nvcc per source
+    assert len(calls.read_text().splitlines()) == 4     # one nvcc per source
 
 
 def test_launch_error_code_raises():

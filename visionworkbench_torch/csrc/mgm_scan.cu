@@ -1,0 +1,322 @@
+// MGM line scans for Hopper (sm_90a) with each lane's carry in registers,
+// with a plain C interface loaded through ctypes
+// (visionworkbench_torch/ops/sgm_scan.py).
+//
+// Replaces two TPU kernels of visionworkbench_tpu/ops/sgm_scan.py on the
+// shapes the MGM main path gives them (up to VW_MGM_MAX_CELLS disparity
+// cells a lane, up to VW_MGM_MAX_LANES lanes a line, both set by
+// ops/_build.py):
+//   * pallas_mgm_bidir (pl.pallas_call at :222): the forward and reverse
+//     diagonal-pair tasks, prior lane shifts (+1, -1), summed;
+//   * pallas_mgm_fwd (:272): the sheared forward scan over B orientations,
+//     prior lane shifts (0, +1), every step stored.
+// Each step is floor((L(prior shifted by s0) + L(prior shifted by s1)) / 2)
+// with  L = C + min(prior, min3x3(prior) + P1, min_prior + P2') - min_prior
+// and  P2' = max(floor(P2 / max(|dI|, 1)), P1), reset to C where the guard is
+// false, and forced to bad where C >= bad; a prior lane shifted in from
+// outside the line, and an out-of-grid 3x3 neighbour, read bad. Other grids,
+// longer lines and other shift pairs run line_scan_kernel<1> of
+// csrc/sgm_scan.cu, which computes the same function.
+//
+// What bounds it on the H100: the time of one step times the N steps. The
+// work is tiny and sequential; only B (fwd) or 2 (bidir) blocks run, one per
+// SM. The earlier kernel (line_scan_kernel<1>) kept the carry in shared
+// memory and re-read, for every cell of every lane, the source lane's priors
+// and its 3x3 neighbours, once per shift: ~140 dependent shared loads and
+// mins per lane and step, ~9 us per step at config 6's level 0. Here a step
+// takes ~1.6 us (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W). Taken out one
+// at a time (visionworkbench_torch/tools/mgm_scan_ablation.py), the next
+// step's loads cost ~0.45-0.6 us of it, the barrier ~0.4, the stores or
+// atomics ~0.2-0.27; the rest is issue: the (2, 5) instances are 632 (fwd)
+// and 704 (bidir) SASS instructions, most of them the step's, for 16 warps
+// on one SM's four schedulers. Here:
+//   * The grid (SY, SX) is a template argument, so every per-lane loop
+//     unrolls and the lane's carry P[SY * SX] lives in registers.
+//   * One thread per lane. Each lane computes once per step, from its own
+//     prior, what any lane that reads it needs: min_prior mp and
+//     m1 = min(P, min3x3(P) + P1) per cell (the separable 3x3 grid min, as
+//     the plain version). The reader takes best = min(m1, mp + P2'), where
+//     P2' comes from its own |dI|, and L = C + (best - mp): the plain
+//     version's operations in its order, so the result is bit for bit.
+//   * The neighbour lane's m1 and mp arrive by warp shuffles (shfl_up for
+//     lane l - 1, shfl_down for lane l + 1). Only a warp's edge lane crosses
+//     warps: lane 31 (and lane 0, bidir) posts its CELLS + 1 values as
+//     float4s to a double-buffered shared array, so a step costs one
+//     __syncthreads. Two extra rows hold what a lane outside the line
+//     gives (bad priors), so no lane tests whether its source is inside.
+//   * Step t + 1's costs, |dI| and guard are loaded (read-only path) into
+//     registers before step t computes; fwd stores each step with
+//     streaming stores, bidir adds both groups into a zeroed output with
+//     fire-and-forget atomics (two integer-valued terms onto 0: exact in
+//     either order, and one launch instead of two outputs and a sum). The
+//     lane's pointers advance by one step each and one branch per step
+//     skips lanes past L: no 64-bit product and no per-cell branch in the
+//     step (mgm_fwd took 19 % longer with them).
+// Lanes past L (the partial last warp) run the loop with the block, so the
+// shuffles and the barrier stay converged; they load and store nothing, and
+// their carry stays bad, so lane L - 1 reads from lane L what a lane outside
+// the line gives.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+#if !defined(VW_MGM_MAX_CELLS) || !defined(VW_MGM_MAX_LANES)
+#error "needs -DVW_MGM_MAX_CELLS and -DVW_MGM_MAX_LANES (ops/_build.py)"
+#endif
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxCells = VW_MGM_MAX_CELLS;  // grids with sy * sx <= this
+constexpr int kMaxLanes = VW_MGM_MAX_LANES;  // threads a block, 32 | this
+
+struct MgmArgs {
+  const float* cost[2];
+  const float* pd[2];
+  const unsigned char* guard[2];
+  float* out[2];
+  int N, L;
+  long long cost_n, cost_b, pd_n, pd_b, out_n, out_b;  // strides, elements
+  float p1, p2, bad;
+};
+
+// BIDIR: sources lane l - 1 (shift +1) and l + 1 (shift -1), group 1 walks
+// n = N-1-t, atomicAdd into a zeroed output. Else: sources lane l (shift 0)
+// and l - 1 (shift +1), one group, each step stored.
+template <int SY, int SX, bool BIDIR>
+__global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
+  constexpr int CELLS = SY * SX;
+  constexpr int SIDES = BIDIR ? 2 : 1;
+  constexpr int ROW = (CELLS + 4) / 4 * 4;  // m1 of each cell, mp; float4s
+  // [buffer][warp + 1][0: lane 31's row, 1: lane 0's]; rows 0 and
+  // warps + 1 hold what the lanes outside the line give
+  __shared__ __align__(16) float edge[2][kMaxLanes / 32 + 2][SIDES][ROW];
+
+  const int L = a.L, N = a.N;
+  const int l = threadIdx.x, lane = l & 31, warp = l >> 5;
+  const int warps = blockDim.x >> 5;
+  const bool active = l < L;
+  const int b = blockIdx.x, g = blockIdx.y;
+  // The lane's inputs and output at step 0, and their steps: group 1 of
+  // bidir walks n = N-1-t. Pointers advance by a step each; nothing is
+  // multiplied in the loop.
+  const bool rev = BIDIR && g == 1;
+  const long long n0 = rev ? N - 1 : 0, dir = rev ? -1 : 1;
+  const float* __restrict__ cost = a.cost[g] + b * a.cost_b + n0 * a.cost_n + l;
+  const float* __restrict__ pd = a.pd[g] + b * a.pd_b + n0 * a.pd_n + l;
+  const unsigned char* __restrict__ guard =
+      a.guard[g] + b * a.pd_b + n0 * a.pd_n + l;
+  float* __restrict__ out = a.out[g] + b * a.out_b + n0 * a.out_n + l;
+  const long long dcost = dir * a.cost_n, dpd = dir * a.pd_n,
+                  dout = dir * a.out_n;
+  const float p1 = a.p1, p2 = a.p2, bad = a.bad;
+  // What a source lane outside the line gives (every prior bad): the rows
+  // beside the first and last warp. Lanes past L in the last warp give the
+  // same: their carry stays bad (their cost is bad), and they compute it
+  // with the same operations.
+  if (l < ROW) {
+    const float v = l < CELLS ? fminf(bad, bad + p1) : bad;
+    for (int buf = 0; buf < 2; ++buf) {
+      edge[buf][0][0][l] = v;
+      edge[buf][warps + 1][SIDES - 1][l] = v;
+    }
+  }
+
+  float P[CELLS], Cn[CELLS];
+#pragma unroll
+  for (int c = 0; c < CELLS; ++c) P[c] = Cn[c] = bad;
+  float pdn = 1.f;
+  bool gn = false;
+  // the next step's inputs (lanes past L keep bad costs), then one step on
+  auto load = [&]() {
+    if (active) {
+      const float* cn = cost;
+#pragma unroll
+      for (int c = 0; c < CELLS; ++c, cn += L) Cn[c] = __ldg(cn);
+      pdn = __ldg(pd);
+      gn = __ldg(guard) != 0;
+    }
+    cost += dcost;
+    pd += dpd;
+    guard += dpd;
+  };
+  load();
+
+  for (int t = 0; t < N; ++t) {
+    float C[CELLS];
+#pragma unroll
+    for (int c = 0; c < CELLS; ++c) C[c] = Cn[c];
+    const float pdv = pdn;
+    const bool keep = gn;
+    if (t + 1 < N) load();
+
+    // The lane's own source terms: min_prior, and m1 = min(P, grid_min + P1)
+    // with the grid min as the plain version's two separable passes.
+    float mp = P[0];
+#pragma unroll
+    for (int c = 1; c < CELLS; ++c) mp = fminf(mp, P[c]);
+    float q[CELLS], m1[CELLS];
+#pragma unroll
+    for (int y = 0; y < SY; ++y)
+#pragma unroll
+      for (int x = 0; x < SX; ++x) {
+        float v = P[y * SX + x];
+        if (SY > 1) {
+          v = fminf(v, y > 0 ? P[(y - 1) * SX + x] : bad);
+          v = fminf(v, y < SY - 1 ? P[(y + 1) * SX + x] : bad);
+        }
+        q[y * SX + x] = v;
+      }
+#pragma unroll
+    for (int y = 0; y < SY; ++y)
+#pragma unroll
+      for (int x = 0; x < SX; ++x) {
+        float v = q[y * SX + x];
+        if (SX > 1) {
+          v = fminf(v, x > 0 ? q[y * SX + x - 1] : bad);
+          v = fminf(v, x < SX - 1 ? q[y * SX + x + 1] : bad);
+        }
+        m1[y * SX + x] = fminf(P[y * SX + x], v + p1);
+      }
+
+    // Post the warp's edge lanes (float4 stores), then one barrier for
+    // the block.
+    float(*eb)[SIDES][ROW] = edge[t & 1];
+    auto post = [&](float* row) {
+      float e[ROW];
+#pragma unroll
+      for (int k = 0; k < ROW; ++k) e[k] = k < CELLS ? m1[k] : mp;
+#pragma unroll
+      for (int k = 0; k < ROW; k += 4)
+        *reinterpret_cast<float4*>(row + k) =
+            make_float4(e[k], e[k + 1], e[k + 2], e[k + 3]);
+    };
+    if (lane == 31) post(eb[warp + 1][0]);
+    if (BIDIR && lane == 0) post(eb[warp + 1][SIDES - 1]);
+    __syncthreads();
+    // Lane l - 1's value and lane l + 1's, by shuffles (every lane takes
+    // part); lane 0 takes the row of the previous warp's lane 31, and lane
+    // 31 that of the next warp's lane 0, read by the warp as float4
+    // broadcasts. k: the cell, or CELLS for mp.
+    const float4* row_up = reinterpret_cast<const float4*>(eb[warp][0]);
+    const float4* row_dn =
+        reinterpret_cast<const float4*>(eb[warp + 2][SIDES - 1]);
+    float4 up4, dn4;
+    auto pick = [](const float4& v, int k) {
+      return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+    };
+    auto from_up = [&](float v, int k) {
+      if (k % 4 == 0 || k == CELLS) up4 = row_up[k / 4];
+      const float u = __shfl_up_sync(kFull, v, 1);
+      return lane == 0 ? pick(up4, k % 4) : u;
+    };
+    auto from_dn = [&](float v, int k) {
+      if (k % 4 == 0 || k == CELLS) dn4 = row_dn[k / 4];
+      const float d = __shfl_down_sync(kFull, v, 1);
+      return lane == 31 ? pick(dn4, k % 4) : d;
+    };
+
+    const float p2m = fmaxf(floorf(p2 / fmaxf(pdv, 1.f)), p1);
+    float mp0, mp1;
+    if (BIDIR) {
+      mp0 = from_up(mp, CELLS);
+      mp1 = from_dn(mp, CELLS);
+    } else {
+      mp0 = mp;
+      mp1 = from_up(mp, CELLS);
+    }
+    const float lim0 = mp0 + p2m, lim1 = mp1 + p2m;
+#pragma unroll
+    for (int c = 0; c < CELLS; ++c) {
+      float s0, s1;
+      if (BIDIR) {
+        s0 = from_up(m1[c], c);
+        s1 = from_dn(m1[c], c);
+      } else {
+        s0 = m1[c];
+        s1 = from_up(m1[c], c);
+      }
+      const float va = C[c] + (fminf(s0, lim0) - mp0);
+      const float vb = C[c] + (fminf(s1, lim1) - mp1);
+      float v = keep ? floorf((va + vb) * 0.5f) : C[c];
+      if (C[c] >= bad) v = bad;
+      P[c] = v;
+    }
+    if (active) {
+      float* on = out;
+#pragma unroll
+      for (int c = 0; c < CELLS; ++c, on += L) {
+        if (BIDIR)
+          atomicAdd(on, P[c]);
+        else
+          __stcs(on, P[c]);
+      }
+    }
+    out += dout;
+  }
+}
+
+template <int SY, int SX, bool BIDIR>
+cudaError_t launch(const MgmArgs& a, int B, int groups, int threads,
+                   cudaStream_t s) {
+  mgm_scan_kernel<SY, SX, BIDIR><<<dim3(B, groups), threads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// The instance of grid (sy, sx): every SY * SX <= kMaxCells, in turn.
+template <int SY, int SX>
+cudaError_t dispatch(int sy, int sx, bool bidir, const MgmArgs& a, int B,
+                     int groups, int threads, cudaStream_t s) {
+  if constexpr (SY > kMaxCells) {
+    return cudaErrorInvalidValue;
+  } else if constexpr (SY * SX > kMaxCells) {
+    return dispatch<SY + 1, 1>(sy, sx, bidir, a, B, groups, threads, s);
+  } else {
+    if (sy == SY && sx == SX)
+      return bidir ? launch<SY, SX, true>(a, B, groups, threads, s)
+                   : launch<SY, SX, false>(a, B, groups, threads, s);
+    return dispatch<SY, SX + 1>(sy, sx, bidir, a, B, groups, threads, s);
+  }
+}
+
+}  // namespace
+
+// Returns a cudaError_t (0 on success). The caller checks shapes, types and
+// contiguity and passes threads = L rounded up to a warp (at most
+// kMaxLanes) and a grid of at most kMaxCells cells. bidir 1: mgm_bidir,
+// groups 2 (group 1 reverse); bidir 0: mgm_fwd, groups 1. Block (b, g)
+// reads cost_g / pd_g / guard_g at offset b * (cost_b, pd_b) and writes
+// out_g at b * out_b.
+extern "C" int vw_mgm_scan(int bidir, const float* cost0, const float* cost1,
+                           const float* pd0, const float* pd1,
+                           const unsigned char* guard0,
+                           const unsigned char* guard1, float* out0,
+                           float* out1, int groups, int B, int N, int sy,
+                           int sx, int L, long long cost_n, long long cost_b,
+                           long long pd_n, long long pd_b, long long out_n,
+                           long long out_b, float p1, float p2, float bad,
+                           int threads, void* stream) {
+  if (threads < L || threads % 32 != 0 || threads > kMaxLanes)
+    return cudaErrorInvalidValue;
+  MgmArgs a;
+  a.cost[0] = cost0;
+  a.cost[1] = cost1;
+  a.pd[0] = pd0;
+  a.pd[1] = pd1;
+  a.guard[0] = guard0;
+  a.guard[1] = guard1;
+  a.out[0] = out0;
+  a.out[1] = out1;
+  a.N = N;
+  a.L = L;
+  a.cost_n = cost_n;
+  a.cost_b = cost_b;
+  a.pd_n = pd_n;
+  a.pd_b = pd_b;
+  a.out_n = out_n;
+  a.out_b = out_b;
+  a.p1 = p1;
+  a.p2 = p2;
+  a.bad = bad;
+  return dispatch<1, 1>(sy, sx, bidir != 0, a, B, groups, threads,
+                        static_cast<cudaStream_t>(stream));
+}

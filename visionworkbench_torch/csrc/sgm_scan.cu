@@ -10,7 +10,10 @@
 //   * pallas_mgm_bidir (:222) and pallas_mgm_fwd (:272): mode 1, the MGM
 //     step floor((L(shift0) + L(shift1)) / 2), reset to the local cost where
 //     the guard is false; summed over the two groups (bidir) or stored per
-//     step and orientation (fwd).
+//     step and orientation (fwd). Mode 1 runs the shapes that the
+//     register-carry kernel of csrc/mgm_scan.cu does not take (more than 16
+//     disparity cells, longer lines, other shift pairs); that kernel runs
+//     every MGM scan of the main path.
 // Every step then forces absent candidates (C >= bad) to exactly bad, and a
 // prior lane shifted in from outside the line reads bad. The semantics are
 // those of the lax.scan engines of visionworkbench_tpu/stereo/sgm.py

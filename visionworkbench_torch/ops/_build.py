@@ -21,11 +21,24 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sweep", "speckle", "sgm_scan")
+SOURCES = ("sweep", "speckle", "sgm_scan", "mgm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+# The limits of csrc/mgm_scan.cu's register-carry instances, given to nvcc
+# as macros and read by ops/sgm_scan.py:_mgm_variant: disparity cells a lane
+# (sy * sx) and lanes a line (threads a block).
+MGM_MAX_CELLS = 16
+MGM_MAX_LANES = 512
+DEFINES = {"mgm_scan": (f"-DVW_MGM_MAX_CELLS={MGM_MAX_CELLS}",
+                        f"-DVW_MGM_MAX_LANES={MGM_MAX_LANES}")}
+
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + DEFINES.get(name, ())
 
 
 def _nvcc() -> str:
@@ -41,7 +54,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -59,7 +72,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     procs = {}
     for n, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)

@@ -1,5 +1,6 @@
-"""SGM/MGM aggregation scans: the CUDA kernels of ``csrc/sgm_scan.cu``, their
-plain PyTorch versions and the wrappers that pick between them by device.
+"""SGM/MGM aggregation scans: the CUDA kernels of ``csrc/sgm_scan.cu`` and
+``csrc/mgm_scan.cu``, their plain PyTorch versions and the wrappers that
+pick between them by device.
 
 Replaces the TPU kernels of ``visionworkbench_tpu/ops/sgm_scan.py``:
 
@@ -23,9 +24,16 @@ written as Python loops over the N steps with the helpers below
 Every value is an integer-valued fp32 below 2^24 (census costs <= 64, the
 absent-candidate value ``bad = 255 + P2``, sums of 8 paths), so sums are
 exact in any order and each kernel equals its plain version bit for bit.
-Any search window runs on the card: a line's carry that does not fit a
-block's shared memory goes to a global scratch buffer. What bounds the kernels on the H100, and what their design does about it:
-see the note at the top of ``csrc/sgm_scan.cu``.
+
+On the card, the two MGM wrappers take the register-carry kernel of
+``csrc/mgm_scan.cu`` where :func:`_mgm_variant` has an instance for the
+grid and line (up to ``_build.MGM_MAX_CELLS`` disparity cells over up to
+``_build.MGM_MAX_LANES`` lanes) and the wrapper's own pair of lane shifts;
+every other shape runs ``line_scan_kernel<1>`` of ``csrc/sgm_scan.cu``,
+which computes the same function. Any search window runs on the card: a
+line's carry that does not fit a block's shared memory goes to a global
+scratch buffer. What bounds the kernels on the H100, and what their design
+does about it: see the notes at the top of the two sources.
 """
 
 from __future__ import annotations
@@ -38,13 +46,50 @@ import torch
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.ops import _build
 
-# Kernel launches since the count was last set to 0, one count per kernel
-# (each wrapper adds one per launch of its CUDA kernel, and nowhere else).
+# Kernel launches since the count was last set to 0, one count per wrapper
+# (each wrapper adds one per launch of a CUDA kernel, and nowhere else), and
+# of those the MGM launches that went to the register-carry kernel.
 launches = {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
+mgm_scan_launches = {"mgm_bidir": 0, "mgm_fwd": 0}
 
 _MAX_THREADS = 1024
 _MAX_SMEM = 232448        # bytes of shared memory one H100 block may opt into
+# Each MGM wrapper's lane shifts on the main path, the pair its instances take.
+_MGM_SHIFTS = {"mgm_bidir": (-1, 1), "mgm_fwd": (0, 1)}
 _lib = None
+_mgm_lib = None
+
+
+def _mgm_variant(sy: int, sx: int, nl: int):
+    """Threads per block of the register-carry MGM kernel
+    (``csrc/mgm_scan.cu``) for a (``sy``, ``sx``) grid over ``nl`` lanes,
+    or None where ``line_scan_kernel<1>`` (``csrc/sgm_scan.cu``) runs the
+    shape: more than ``_build.MGM_MAX_CELLS`` cells (wide search windows,
+    those whose carry is in global scratch included), lines of more than
+    ``_build.MGM_MAX_LANES`` lanes. The limits are the instances' own: nvcc
+    builds them from the same numbers."""
+    if sy * sx > _build.MGM_MAX_CELLS or nl > _build.MGM_MAX_LANES:
+        return None
+    return -(-nl // 32) * 32
+
+
+def _bind_mgm(lib):
+    """Set the argument types of ``vw_mgm_scan`` on a loaded library."""
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.vw_mgm_scan.argtypes = [
+        i, p, p, p, p, p, p, p, p,     # bidir, cost/pd/guard/out per group
+        i, i, i, i, i, i,              # groups, B, N, sy, sx, L
+        ll, ll, ll, ll, ll, ll,        # strides
+        f, f, f, i, p]                 # p1, p2, bad, threads, stream
+    lib.vw_mgm_scan.restype = i
+    return lib
+
+
+def _mgm_library():
+    global _mgm_lib
+    if _mgm_lib is None:
+        _mgm_lib = _bind_mgm(_build.load("mgm_scan"))
+    return _mgm_lib
 
 
 def _library():
@@ -199,12 +244,8 @@ def _check(name, cost_t, side, shifts, n_shifts):
     return int(cost_t.shape[-3]), int(cost_t.shape[-2])
 
 
-def _launch(name, mode, groups, b, n, sy, sx, nl, cost, pd, guard, out,
-            strides, reverse, shifts, store, p1, p2, bad):
-    """Check device, type and contiguity, then launch one block per (group,
-    direction) of ``csrc/sgm_scan.cu``. The double-buffered carry is in
-    shared memory when it fits a block's opt-in limit, else in a global
-    scratch buffer, one slice per block."""
+def _check_tensors(name, cost, pd, guard, out):
+    """Every tensor on the cost's device, contiguous, of its dtype."""
     tensors = [("cost_t", cost[0], torch.float32), ("out", out[0], torch.float32)]
     tensors += [(f"pd[{g}]", t, torch.float32) for g, t in enumerate(pd)]
     tensors += [(f"guard[{g}]", t, torch.bool) for g, t in enumerate(guard)
@@ -214,6 +255,16 @@ def _launch(name, mode, groups, b, n, sy, sx, nl, cost, pd, guard, out,
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ArgumentErr(f"{name}: {what} must be a contiguous {dt} "
                               f"tensor on {dev}")
+    return dev
+
+
+def _launch(name, mode, groups, b, n, sy, sx, nl, cost, pd, guard, out,
+            strides, reverse, shifts, store, p1, p2, bad):
+    """Check device, type and contiguity, then launch one block per (group,
+    direction) of ``csrc/sgm_scan.cu``. The double-buffered carry is in
+    shared memory when it fits a block's opt-in limit, else in a global
+    scratch buffer, one slice per block."""
+    dev = _check_tensors(name, cost, pd, guard, out)
     threads = min(-(-nl // 32) * 32, _MAX_THREADS)
     smem = 2 * sy * sx * nl * 4                        # the carry, twice
     scratch = None
@@ -232,6 +283,26 @@ def _launch(name, mode, groups, b, n, sy, sx, nl, cost, pd, guard, out,
                                float(p2), float(bad), threads, smem, stream)
     _build.check(err, name)
     launches[name] += 1
+
+
+def _launch_mgm(name, threads, groups, b, n, sy, sx, nl, cost, pd, guard, out,
+                strides, p1, p2, bad):
+    """Check device, type and contiguity, then launch the register-carry
+    kernel of ``csrc/mgm_scan.cu`` with one block of ``threads`` per (group,
+    orientation) line: mgm_bidir as 2 groups (group 1 reverse) adding into
+    a zeroed ``out``, mgm_fwd as 1 group storing every step."""
+    dev = _check_tensors(name, cost, pd, guard, out)
+    lib = _mgm_library()
+    ptr = [t.data_ptr() for t in (cost[0], cost[-1], pd[0], pd[-1], guard[0],
+                                  guard[-1], out[0], out[-1])]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vw_mgm_scan(int(name == "mgm_bidir"), *ptr, groups, b, n, sy,
+                              sx, nl, *strides, float(p1), float(p2),
+                              float(bad), threads, stream)
+    _build.check(err, name)
+    launches[name] += 1
+    mgm_scan_launches[name] += 1
 
 
 def _plain_or_cuda(name, t):
@@ -293,12 +364,28 @@ def mgm_bidir(cost_t, pd_f, pd_r, g_f, g_r, shifts: Sequence[int], p1: float,
     if _plain_or_cuda("mgm_bidir", cost_t):
         return mgm_bidir_plain(cost_t, pd_f, pd_r, g_f, g_r, shifts, p1, p2,
                                bad)
+    threads = (_mgm_variant(sy, sx, nl)
+               if tuple(sorted(shifts)) == _MGM_SHIFTS["mgm_bidir"] else None)
+    return _mgm_bidir_cuda(cost_t, pd_f, pd_r, g_f, g_r, shifts, p1, p2, bad,
+                           threads)
+
+
+def _mgm_bidir_cuda(cost_t, pd_f, pd_r, g_f, g_r, shifts, p1, p2, bad,
+                    threads):
+    """The card's :func:`mgm_bidir`: the register-carry kernel with
+    ``threads`` per block, or ``line_scan_kernel<1>`` where ``threads`` is
+    None."""
+    n, sy, sx, nl = (int(d) for d in cost_t.shape)
     out = torch.zeros_like(cost_t)
     cells = sy * sx * nl
     strides = (cells, 0, nl, 0, cells, 0)
-    _launch("mgm_bidir", 1, 2, 1, n, sy, sx, nl, (cost_t, cost_t),
-            (pd_f, pd_r), (g_f, g_r), (out, out), strides, True,
-            shifts + (0,), False, p1, p2, bad)
+    if threads is not None:
+        _launch_mgm("mgm_bidir", threads, 2, 1, n, sy, sx, nl, (cost_t, cost_t),
+                    (pd_f, pd_r), (g_f, g_r), (out, out), strides, p1, p2, bad)
+    else:
+        _launch("mgm_bidir", 1, 2, 1, n, sy, sx, nl, (cost_t, cost_t),
+                (pd_f, pd_r), (g_f, g_r), (out, out), strides, True,
+                shifts + (0,), False, p1, p2, bad)
     return out
 
 
@@ -318,9 +405,23 @@ def mgm_fwd(cost_t, pd_t, g_t, shifts: Sequence[int], p1: float, p2: float,
                                         ("g_t", g_t, (n, b, nl))], shifts, 2)
     if _plain_or_cuda("mgm_fwd", cost_t):
         return mgm_fwd_plain(cost_t, pd_t, g_t, shifts, p1, p2, bad)
+    threads = (_mgm_variant(sy, sx, nl)
+               if tuple(sorted(shifts)) == _MGM_SHIFTS["mgm_fwd"] else None)
+    return _mgm_fwd_cuda(cost_t, pd_t, g_t, shifts, p1, p2, bad, threads)
+
+
+def _mgm_fwd_cuda(cost_t, pd_t, g_t, shifts, p1, p2, bad, threads):
+    """The card's :func:`mgm_fwd`: the register-carry kernel with
+    ``threads`` per block, or ``line_scan_kernel<1>`` where ``threads`` is
+    None."""
+    n, b, sy, sx, nl = (int(d) for d in cost_t.shape)
     out = torch.empty_like(cost_t)
     cells = sy * sx * nl
     strides = (b * cells, cells, b * nl, nl, b * cells, cells)
-    _launch("mgm_fwd", 1, 1, b, n, sy, sx, nl, (cost_t,), (pd_t,), (g_t,),
-            (out,), strides, False, shifts + (0,), True, p1, p2, bad)
+    if threads is not None:
+        _launch_mgm("mgm_fwd", threads, 1, b, n, sy, sx, nl, (cost_t,), (pd_t,),
+                    (g_t,), (out,), strides, p1, p2, bad)
+    else:
+        _launch("mgm_fwd", 1, 1, b, n, sy, sx, nl, (cost_t,), (pd_t,), (g_t,),
+                (out,), strides, False, shifts + (0,), True, p1, p2, bad)
     return out
