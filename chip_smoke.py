@@ -6,8 +6,8 @@ Phases (each raises on a mismatch; none catches its own failure):
 
 1. Build the CUDA kernels from ``visionworkbench_torch/csrc/`` (one nvcc per
    source, started together), print each build's registers and spills (and
-   fail if an instance of the register-carry MGM kernel that the wrappers
-   can select spills), and print the card's name and power limit.
+   fail if an instance of the register-carry SGM/MGM kernel that the
+   wrappers can select spills), and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
    to the 1/256 grid (integer disparities, validity, cost patches and keep
@@ -18,11 +18,12 @@ Phases (each raises on a mismatch; none catches its own failure):
    the first-generation sweeps (``ops/cost_volume.py``) -- and the three
    SGM/MGM scans on integer-valued inputs (exact), with the scan carry in
    shared memory and, for ``calc_disparity_sgm``'s 64x8 search, in global
-   scratch. The MGM scans run the register-carry kernel
+   scratch. The three scans run the register-carry kernel
    (``csrc/mgm_scan.cu``) at every shape of config 6's pyramid, held
-   against the plain version and against ``line_scan_kernel<1>`` on the
-   same inputs, and ``line_scan_kernel<1>`` at the 64x8 search (the launch
-   counts show which kernel ran).
+   against the plain version and against ``line_scan_kernel<0>``
+   (``scan_bidir``) or ``<1>`` (MGM) on the same inputs, and
+   ``line_scan_kernel`` at the 64x8 search (the launch counts show which
+   kernel ran).
 3. Run the main paths, each with the launch counts set to 0 just before it
    and read just after: ``pyramid_correlate`` at the configuration of
    ``bench.py`` (1024^2 pair, 64x8 search, 15x15 kernel, 4 levels, tile 64,
@@ -30,7 +31,9 @@ Phases (each raises on a mismatch; none catches its own failure):
    (``tools_bench_configs.py`` config 6: 512^2 pair, 64x2 search, census
    5x5, 4 levels, tile 64, parabola) with ``stereo_algorithm="sgm"`` and
    ``"mgm"``, and ``calc_disparity_sgm`` as ``docs/stereo.md`` calls it
-   (64x8 search, census 5x5, parabola) on a 256^2 frame; config 4 (the
+   (64x8 search, census 5x5, parabola) on a 256^2 frame (the SGM frame's
+   10 ``scan_bidir`` launches all on the register-carry kernel, those of
+   ``calc_disparity_sgm`` on ``line_scan_kernel<0>``); config 4 (the
    bench frame with census 5x5 costs, ``tools_bench_configs.py:166-182``)
    without and with the L<->R check, and with ternary census 7x7;
    ``calc_disparity`` at config 3 (``tools_bench_configs.py:150-164``:
@@ -39,16 +42,19 @@ Phases (each raises on a mismatch; none catches its own failure):
    6 and 7 on config 3's frames; apply ``bench.py``'s sanity check to each.
 4. Run the slices small on the card and on the CPU (plain versions) on
    quantized inputs: BM at 256^2 with 2 levels (integer disparities and
-   validity equal, the parabola output allclose at atol 1e-4), SGM and MGM
-   at 128^2 with 2 levels and subpixel none (equal), ``calc_disparity_sgm``
+   validity equal, the parabola output allclose at atol 1e-4), the same BM
+   run with left and right masks (integer disparities and validity equal;
+   the mean fill of the masked pixels allclose at rtol 1e-6: its sum runs
+   in another order on the card), SGM and MGM at 128^2 with 2 levels and
+   subpixel none, SGM also masked (equal), ``calc_disparity_sgm``
    at 128^2 with the 64x8 search (validity equal, parabola allclose at
    atol 2e-5), config 4 at 256^2 with 2 levels (integer disparities and
    validity equal, parabola allclose at atol 1e-4), ``calc_disparity`` with
    ncc and ternary census 7x7 at 128^2 (equal).
-5. Time the frames and each kernel with CUDA events (the MGM scans in
-   turns with ``line_scan_kernel<1>`` at the same shapes, with us per
-   step), and profile one frame of each path for the device's idle share
-   and its device time by kernel name.
+5. Time the frames and each kernel with CUDA events (the scans on the
+   register-carry kernel in turns with ``line_scan_kernel<0>`` / ``<1>`` at
+   the same shapes, with us per step), and profile one frame of each path
+   for the device's idle share and its device time by kernel name.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -183,13 +189,17 @@ def _ptxas_table(text):
     return table
 
 
+# csrc/mgm_scan.cu's modes, as its template argument numbers them
+MGM_MODES = ("fwd", "bidir", "sgm")
+
+
 def _mgm_instances(table):
-    """{(sy, sx, bidir): ptxas entry} of csrc/mgm_scan.cu."""
+    """{(sy, sx, mode): ptxas entry} of csrc/mgm_scan.cu."""
     out = {}
     for name, v in table.items():
-        m = re.search(r"mgm_scan_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+        m = re.search(r"mgm_scan_kernelILi(\d+)ELi(\d+)ELi([012])E", name)
         if m:
-            out[(int(m[1]), int(m[2]), m[3] == "1")] = v
+            out[(int(m[1]), int(m[2]), MGM_MODES[int(m[3])])] = v
     return out
 
 
@@ -217,9 +227,10 @@ def phase_build():
         regs = [v["regs"] for v in inst.values()]
         print(f"[build] mgm_scan: {len(inst)} instances, {min(regs)}-{max(regs)} "
               f"registers, instances that spill or are past the limits: {bad or 'none'}")
-        for key in ((2, 5, False), (2, 5, True), (1, 5, False), (1, 5, True),
-                    (1, 4, False), (1, 4, True), (4, 4, True)):
-            print(f"[build] mgm_scan (sy, sx, bidir) {key}: {inst.get(key)}")
+        for grid in ((2, 5), (1, 5), (1, 4), (4, 4)):
+            for mode in MGM_MODES:
+                print(f"[build] mgm_scan (sy, sx, mode) {(*grid, mode)}: "
+                      f"{inst.get((*grid, mode))}")
         if bad:
             raise SystemExit(f"mgm_scan: instances spill or are past the limits: {bad}")
 
@@ -363,21 +374,26 @@ def _speckle_input(case, dev, seed):
 def scan_cases():
     """The SGM/MGM scans' shapes on config 6's main path: the level-0
     (512^2, window 5x2) x-scan (3 directions), y-scan and MGM scans, the
-    level-4 x-scan (64^2 padded, window 4x1), and the MGM scans of levels
-    4-1 (window 4x1, then 5x1 over 64-256 lanes); and
+    level-4 x- and y-scans (64^2 padded, window 4x1), and the SGM and MGM
+    scans of levels 4-1 (window 4x1, then 5x1 over 64-256 lanes); and
     ``calc_disparity_sgm``'s x-scan at the 64x8 search on 256^2, whose
     carry (1 MB per line) is in global scratch."""
     n = SGM_HW
     levels = []
     for lv in (1, 2, 3):
         nl = n >> lv
-        levels += [dict(kernel="mgm_fwd", name=f"level{lv}_sheared",
+        levels += [dict(kernel="scan_bidir", name=f"level{lv}_x", shape=(nl, 1, 5, nl),
+                        shifts=(0, 1, -1)),
+                   dict(kernel="scan_bidir", name=f"level{lv}_y", shape=(nl, 1, 5, nl),
+                        shifts=(0,)),
+                   dict(kernel="mgm_fwd", name=f"level{lv}_sheared",
                         shape=(2 * nl, 4, 1, 5, nl), shifts=(0, 1)),
                    dict(kernel="mgm_bidir", name=f"level{lv}", shape=(nl, 1, 5, nl),
                         shifts=(1, -1))]
     return [dict(kernel="scan_bidir", name="level0_x", shape=(n, 2, 5, n), shifts=(0, 1, -1)),
             dict(kernel="scan_bidir", name="level0_y", shape=(n, 2, 5, n), shifts=(0,)),
             dict(kernel="scan_bidir", name="level4_x", shape=(64, 1, 4, 64), shifts=(0, 1, -1)),
+            dict(kernel="scan_bidir", name="level4_y", shape=(64, 1, 4, 64), shifts=(0,)),
             dict(kernel="mgm_fwd", name="level0_sheared", shape=(2 * n, 4, 2, 5, n),
                  shifts=(0, 1)),
             dict(kernel="mgm_bidir", name="level0", shape=(n, 2, 5, n), shifts=(1, -1)),
@@ -424,17 +440,24 @@ def _scan_call(case, inputs, plain=False):
     return fn(*inputs, case["shifts"], SGM_P1, SGM_P2, SGM_BAD)
 
 
-def _mgm_threads(case):
-    """Threads of the register-carry instance the MGM wrapper picks for the
-    case, or None where it runs line_scan_kernel<1>."""
+def _reg_threads(case):
+    """Threads of the register-carry instance the wrapper picks for the
+    case, or None where it runs line_scan_kernel."""
     from visionworkbench_torch.ops import sgm_scan
-    shape = case["shape"]
-    return sgm_scan._mgm_variant(shape[-3], shape[-2], shape[-1])
+    sy, sx, nl = case["shape"][-3:]
+    if case["kernel"] == "scan_bidir":
+        return sgm_scan._scan_variant(sy, sx, nl, len(case["shifts"]))
+    return sgm_scan._mgm_variant(sy, sx, nl)
+
+
+def _old_kernel(case):
+    """The csrc/sgm_scan.cu kernel that computes the case's function."""
+    return f"line_scan_kernel<{int(case['kernel'] != 'scan_bidir')}>"
 
 
 def _line_scan_call(case, inputs):
-    """An MGM case on line_scan_kernel<1> (csrc/sgm_scan.cu), whatever the
-    wrapper would pick."""
+    """A scan case on line_scan_kernel<0> (scan_bidir) or <1> (MGM) of
+    csrc/sgm_scan.cu, whatever the wrapper would pick."""
     from visionworkbench_torch.ops import sgm_scan
     fn = getattr(sgm_scan, f"_{case['kernel']}_cuda")
     return fn(*inputs, case["shifts"], SGM_P1, SGM_P2, SGM_BAD, None)
@@ -462,8 +485,8 @@ def phase_kernels(dev):
     from visionworkbench_torch.ops import cost_volume
     err = {k: 0.0 for k in ("sweep", "sweep_census", "sweep_ternary_census",
                             "sweep_ncc", "sweep_census_codes", "best_of_search",
-                            "tiled_search", "speckle", "scan_bidir", "mgm_bidir",
-                            "mgm_fwd")}
+                            "tiled_search", "speckle", "scan_bidir",
+                            "scan_bidir_line_scan", "mgm_bidir", "mgm_fwd")}
 
     def check(key, what, got, ref):
         torch.cuda.synchronize()
@@ -519,34 +542,37 @@ def phase_kernels(dev):
     from visionworkbench_torch.ops import sgm_scan
     for i, c in enumerate(scan_cases()):
         inputs = _scan_inputs(c, dev, 300 + i)
-        mgm = c["kernel"] != "scan_bidir"
-        before = sgm_scan.mgm_scan_launches.get(c["kernel"], 0)
+        before = sgm_scan.mgm_scan_launches[c["kernel"]]
         got = _scan_call(c, inputs)
-        on_reg = sgm_scan.mgm_scan_launches.get(c["kernel"], 0) - before
+        on_reg = sgm_scan.mgm_scan_launches[c["kernel"]] - before
         ref = _scan_call(c, inputs, plain=True)
         torch.cuda.synchronize()
         e = float((got - ref).abs().max())
-        err[c["kernel"]] = max(err[c["kernel"]], e)
-        which = ""
-        if mgm:
-            which = "mgm_scan" if on_reg else "line_scan_kernel<1>"
-            if on_reg != int(_mgm_threads(c) is not None):
-                raise SystemExit(f"{c['kernel']} {c['name']}: ran {which}, expected "
-                                 f"threads {_mgm_threads(c)}")
+        # scan_bidir's rows: the register-carry kernel, and line_scan_kernel<0>
+        key = c["kernel"] + ("_line_scan" if c["kernel"] == "scan_bidir" and not on_reg
+                             else "")
+        err[key] = max(err[key], e)
+        which = "mgm_scan" if on_reg else _old_kernel(c)
+        if on_reg != int(_reg_threads(c) is not None):
+            raise SystemExit(f"{c['kernel']} {c['name']}: ran {which}, expected "
+                             f"threads {_reg_threads(c)}")
         print(f"[kernels] {c['kernel']} {c['name']} {c['shape']} shifts {c['shifts']} "
               f"{which}: mean {float(got.mean()):.4f}, max_abs_err {e}")
         if e != 0.0:
             raise SystemExit(f"{c['kernel']} kernel disagrees with its plain version "
                              f"at {c['name']}")
-        if mgm and on_reg:
+        if on_reg:
             old = _line_scan_call(c, inputs)
             torch.cuda.synchronize()
             e = float((got - old).abs().max())
-            print(f"[kernels] {c['kernel']} {c['name']}: mgm_scan vs line_scan_kernel<1> "
+            if c["kernel"] == "scan_bidir":
+                err["scan_bidir_line_scan"] = max(err["scan_bidir_line_scan"],
+                                                  float((old - ref).abs().max()))
+            print(f"[kernels] {c['kernel']} {c['name']}: mgm_scan vs {_old_kernel(c)} "
                   f"max_abs_err {e}")
             if e != 0.0:
                 raise SystemExit(f"{c['kernel']} {c['name']}: mgm_scan disagrees with "
-                                 "line_scan_kernel<1>")
+                                 f"{_old_kernel(c)}")
     return err
 
 
@@ -623,7 +649,7 @@ def _reset_counts():
 
 
 def _read_counts():
-    """Launches per wrapper; ``<wrapper>/mgm_scan``: of those, the MGM
+    """Launches per wrapper; ``<wrapper>/mgm_scan``: of those, the
     launches of the register-carry kernel."""
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
     return {"sweep": sweep.launches, "speckle": speckle.launches, **sgm_scan.launches,
@@ -637,16 +663,17 @@ def phase_main(dev):
     calc_left, calc_right = _make_calc_pair(CALC_HW, CALC_HW)
     c3_left, c3_right = (torch.as_tensor(a, device=dev) for a in _calc3_pair())
     none = {"sweep": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0,
-            "mgm_bidir/mgm_scan": 0, "mgm_fwd/mgm_scan": 0}
+            "scan_bidir/mgm_scan": 0, "mgm_bidir/mgm_scan": 0, "mgm_fwd/mgm_scan": 0}
     c3 = {"sweep": 1, "speckle": 0}
     runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5}, H),
             ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
              {"sweep": 6}, H),
             ("sgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "sgm"),
-             {"scan_bidir": 10}, SGM_HW),
+             {"scan_bidir": 10, "scan_bidir/mgm_scan": 10}, SGM_HW),
             ("mgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "mgm"),
              {"mgm_fwd": 5, "mgm_bidir": 10, "mgm_fwd/mgm_scan": 5,
               "mgm_bidir/mgm_scan": 10}, SGM_HW),
+            # 512 cells a lane: line_scan_kernel<0> (no scan_bidir/mgm_scan)
             ("calc_sgm", lambda: _calc_run(calc_left, calc_right, dev),
              {"scan_bidir": 2, "speckle": 0}, CALC_HW),
             ("config4", lambda: _bench_run(left, right, dev, cost_type="census",
@@ -679,6 +706,31 @@ def phase_main(dev):
 
 # ---- phase 4 ----------------------------------------------------------------
 
+def _masks(h, w, seed):
+    """A left mask with one masked block and a right mask with 3 % of its
+    pixels masked (as the CPU tests' masked cases)."""
+    rng = np.random.default_rng(seed)
+    lm = np.ones((h, w), bool)
+    lm[h // 5:h // 3, w // 10:w // 2] = False
+    return lm, rng.random((h, w)) < 0.97
+
+
+def _check_mean_fill(img, mask, dev):
+    """The masked pixels' fill (the mean of the even-index valid pixels) on
+    the card and on the CPU: allclose at rtol 1e-6, since its sum runs in
+    another order on each device."""
+    import torch
+    from visionworkbench_torch.stereo.pyramid_correlation import _mean_fill
+    h, w = img.shape
+    y, x = np.argwhere(~mask)[0]            # a masked pixel
+    fills = [float(_mean_fill(torch.as_tensor(img, device=d),
+                              torch.as_tensor(mask, device=d), h, w)[y, x])
+             for d in (dev, "cpu")]
+    print(f"[slice] mean fill {h}x{w}: card {fills[0]!r}, cpu {fills[1]!r}")
+    if not np.isclose(fills[0], fills[1], rtol=1e-6, atol=0):
+        raise SystemExit(f"slice: mean fill differs GPU vs CPU: {fills}")
+
+
 def phase_slice_vs_cpu(dev):
     import torch
     from visionworkbench_torch.math.bbox import BBox2i
@@ -686,8 +738,12 @@ def phase_slice_vs_cpu(dev):
     left, right = _make_pair(256, 256)
     left = np.round(left * 256) / 256
     right = np.round(right * 256) / 256
+    lm, rm = _masks(256, 256, 70)
+    _check_mean_fill(left, lm, dev)
     for what, kw in (("integer+lr", dict(consistency_threshold=2.0)),
-                     ("parabola", dict(subpixel="parabola"))):
+                     ("parabola", dict(subpixel="parabola")),
+                     ("masked integer+lr", dict(consistency_threshold=2.0, left_mask=lm,
+                                                right_mask=rm))):
         outs = [pyramid_correlate(left, right, BBox2i(*SEARCH), kernel_size=KERNEL,
                                   max_pyramid_levels=2, tile_size=TILE,
                                   device=d, **kw).to_numpy()
@@ -708,10 +764,12 @@ def phase_slice_vs_cpu(dev):
     left, right = _make_pair(128, 128)
     left = np.round(left * 256) / 256
     right = np.round(right * 256) / 256
-    for algo in ("sgm", "mgm"):
+    lm, rm = _masks(128, 128, 71)
+    for algo, kw in (("sgm", {}), ("mgm", {}),
+                     ("sgm masked", dict(left_mask=lm, right_mask=rm))):
         outs = [pyramid_correlate(left, right, BBox2i(*SGM_SEARCH), max_pyramid_levels=2,
-                                  tile_size=TILE, stereo_algorithm=algo, subpixel="none",
-                                  device=d).to_numpy()
+                                  tile_size=TILE, stereo_algorithm=algo.split()[0],
+                                  subpixel="none", device=d, **kw).to_numpy()
                 for d in (dev, "cpu")]
         (dg, vg), (dc, vc) = outs
         e = float(np.abs(dg - dc).max())
@@ -859,17 +917,17 @@ def phase_timings(dev):
     for i, c in enumerate(scan_cases()):
         inputs = _scan_inputs(c, dev, 300 + i)
         n = c["shape"][0]
-        if c["kernel"] != "scan_bidir" and _mgm_threads(c) is not None:
-            # in turns with line_scan_kernel<1> at the same shape:
+        if _reg_threads(c) is not None:
+            # in turns with line_scan_kernel<0> / <1> at the same shape:
             # old, new, new, old
             old = lambda: _line_scan_call(c, inputs)  # noqa: E731
             new = lambda: _scan_call(c, inputs)       # noqa: E731
             ts = [_time_ms(f, reps=20) for f in (old, new, new, old)]
             old_ms = statistics.median([ts[0], ts[3]])
             ms = statistics.median([ts[1], ts[2]])
-            print(f"[time] {c['kernel']} {c['name']} in turns (line_scan_kernel<1>, "
-                  f"mgm_scan, mgm_scan, line_scan_kernel<1>): "
-                  + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+            k = _old_kernel(c)
+            print(f"[time] {c['kernel']} {c['name']} in turns ({k}, mgm_scan, mgm_scan, "
+                  f"{k}): " + ", ".join(f"{t:.4f}" for t in ts) + " ms")
         else:
             ms, old_ms = _time_ms(lambda: _scan_call(c, inputs), reps=20), None
         plain_ms = _time_ms(lambda: _scan_call(c, inputs, plain=True), reps=3, warmup=1)
@@ -883,7 +941,8 @@ def phase_timings(dev):
         if "us_per_step" in r:
             extra = f", {r['us_per_step']:.4f} us per step"
         if "line_scan_ms" in r:
-            extra += (f"; line_scan_kernel<1> {r['line_scan_ms']:.4f} ms, "
+            extra += (f"; line_scan_kernel<{int(k != 'scan_bidir')}> "
+                      f"{r['line_scan_ms']:.4f} ms, "
                       f"{r['line_scan_us_per_step']:.4f} us per step")
         print(f"[time] {k} {name}: {r['ms']:.4f} ms per launch, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
@@ -987,8 +1046,11 @@ def main() -> int:
                          "visionworkbench_tpu/ops/cost_volume.py:332"),
         "speckle": ("1024x1024_11x11", "plain", "visionworkbench_torch/csrc/speckle.cu",
                     "visionworkbench_tpu/ops/speckle.py:93"),
-        "scan_bidir": ("level0_x", "sgm", "visionworkbench_torch/csrc/sgm_scan.cu",
+        "scan_bidir": ("level0_x", "sgm", "visionworkbench_torch/csrc/mgm_scan.cu",
                        "visionworkbench_tpu/ops/sgm_scan.py:149"),
+        "scan_bidir_line_scan": ("calc_x_scratch", "calc_sgm",
+                                 "visionworkbench_torch/csrc/sgm_scan.cu",
+                                 "visionworkbench_tpu/ops/sgm_scan.py:149"),
         "mgm_bidir": ("level0", "mgm", "visionworkbench_torch/csrc/mgm_scan.cu",
                       "visionworkbench_tpu/ops/sgm_scan.py:222"),
         "mgm_fwd": ("level0_sheared", "mgm", "visionworkbench_torch/csrc/mgm_scan.cu",
@@ -996,12 +1058,18 @@ def main() -> int:
     }
     kernels = []
     for k, (shape, run, source, replaces) in table.items():
-        r = rows[(k, shape)]
-        # the MGM rows: launches of the register-carry kernel on the path
-        key = f"{k}/mgm_scan" if k.startswith("mgm") else k if k in counts[run] else "sweep"
+        c = counts[run]
+        if k == "scan_bidir_line_scan":     # the launches not on mgm_scan
+            r = rows[("scan_bidir", shape)]
+            launches = c["scan_bidir"] - c["scan_bidir/mgm_scan"]
+        else:
+            r = rows[(k, shape)]
+            # the scans: launches of the register-carry kernel on the path
+            launches = (c[f"{k}/mgm_scan"] if f"{k}/mgm_scan" in c
+                        else c[k if k in c else "sweep"])
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[run][key],
+            "launches": launches,
             "max_abs_err": err[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,

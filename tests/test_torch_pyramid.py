@@ -208,14 +208,36 @@ def test_default_device_is_the_card():
         tpyr.pyramid_correlate(left, right, BBox2i(0, 0, 4, 2))
 
 
+def _card_masks(seed, shape):
+    """A left mask with one masked block, a right mask with 3 % of its
+    pixels masked."""
+    rng = np.random.default_rng(seed)
+    lm = np.ones(shape, bool)
+    lm[20:44, 10:70] = False
+    return lm, rng.random(shape) < 0.97
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [dict(consistency_threshold=2.0),
-                                dict(subpixel="parabola")])
+                                dict(subpixel="parabola"),
+                                dict(consistency_threshold=2.0, masks=True),
+                                dict(subpixel="parabola", masks=True)])
 def test_card_matches_cpu(cuda, kw):
     """Whole slice on the card (CUDA kernels) against the CPU (plain
-    versions): integer disparities and validity exact, parabola atol 1e-4."""
+    versions): integer disparities and validity exact, parabola atol 1e-4,
+    also with left and right masks. The masked pixels' fill value is
+    allclose at rtol 1e-6 between the devices: ``_mean_fill``'s sum runs
+    in another order on each."""
     left, right = _pair(66, 128, 128, shift=(11, 1))
     args = (left, right, BBox2i(0, -2, 32, 4))
+    kw = dict(kw)
+    if kw.pop("masks", False):
+        lm, rm = _card_masks(67, left.shape)
+        kw.update(left_mask=lm, right_mask=rm)
+        fill = [float(tpyr._mean_fill(torch.as_tensor(left, device=d),
+                                      torch.as_tensor(lm, device=d), 128, 128)[20, 10])
+                for d in (cuda, "cpu")]
+        np.testing.assert_allclose(fill[0], fill[1], rtol=1e-6, atol=0)
     opts = dict(kernel_size=(7, 7), tile_size=16, max_pyramid_levels=2, **kw)
     gd, gv = tpyr.pyramid_correlate(*args, device=cuda, **opts).to_numpy()
     cd, cv = tpyr.pyramid_correlate(*args, device="cpu", **opts).to_numpy()

@@ -241,15 +241,38 @@ def test_pyramid_two_levels_agree_with_jax(algo):
     assert tv.mean() > 0.5
 
 
+def test_pyramid_three_levels_agree_with_jax():
+    """SGM at the depth of 3 pyramid levels (4 levels run, 96^2 down to
+    12^2), at the tolerances of the 2-level case."""
+    left, right = _pair(104, 96, 96, (13, 1))
+    td, tv, jd, jv = _run_both(left, right, (0, -1, 32, 3), stereo_algorithm="sgm",
+                               max_pyramid_levels=3, tile_size=16,
+                               consistency_threshold=2.0, subpixel="linear")
+    both = tv & jv
+    agree = (np.round(td[both]) == np.round(jd[both])).all(-1).mean()
+    assert agree >= 0.995, agree
+    assert (tv != jv).mean() <= 0.005
+    assert tv.mean() > 0.5
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("algo", ["sgm", "mgm"])
-def test_card_matches_cpu(cuda, algo):
+@pytest.mark.parametrize("algo,masks", [("sgm", False), ("mgm", False),
+                                        ("sgm", True), ("mgm", True)])
+def test_card_matches_cpu(cuda, algo, masks):
     """The SGM/MGM slice on the card (CUDA scans and speckle) against the
-    CPU (plain versions): integer disparities and validity exact."""
+    CPU (plain versions): integer disparities and validity exact, also with
+    left and right masks (the census costs compare pixels, so the masked
+    pixels' fill value, whose sum runs in another order on each device,
+    moves no cost unless it lands on a pixel's value)."""
     left, right = _pair(100, 128, 128, (11, 1))
     args = (left, right, BBox2i(0, -1, 24, 3))
     opts = dict(stereo_algorithm=algo, max_pyramid_levels=2, tile_size=32,
                 subpixel="none", consistency_threshold=2.0)
+    if masks:
+        rng = np.random.default_rng(103)
+        lm = np.ones(left.shape, bool)
+        lm[30:60, 20:90] = False
+        opts.update(left_mask=lm, right_mask=rng.random(right.shape) < 0.97)
     gd, gv = tpyr.pyramid_correlate(*args, device=cuda, **opts).to_numpy()
     cd, cv = tpyr.pyramid_correlate(*args, device="cpu", **opts).to_numpy()
     np.testing.assert_array_equal(gv, cv)

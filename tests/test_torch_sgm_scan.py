@@ -8,10 +8,11 @@ Tolerance: exact. Every value is an integer-valued fp32 below 2^24, so the
 recurrences are exact in any order. The CUDA kernels are held against the
 plain versions on the card (skipped without one), also exactly, with the
 carry in shared memory and, for wide search windows, in global scratch; the
-MGM scans' register-carry kernel (``csrc/mgm_scan.cu``) also against
-``line_scan_kernel<1>`` on the same inputs, with the launch counts showing
-which kernel ran. On the CPU, the choice between the two MGM kernels
-(``_mgm_variant``) is held against the shapes config 6's MGM pyramid gives.
+register-carry kernel (``csrc/mgm_scan.cu``) also against
+``line_scan_kernel<0>`` (``scan_bidir``) and ``line_scan_kernel<1>`` (MGM)
+on the same inputs, with the launch counts showing which kernel ran. On the
+CPU, the choice between the kernels (``_scan_variant``, ``_mgm_variant``) is
+held against the shapes config 6's SGM and MGM pyramids give.
 Pixel differences are drawn from [0, 256), the range of |dI| on 8-bit
 images, so the P2' = max(floor(P2 / |dI|), P1) clamp and every IEEE
 quotient of the penalty are reached.
@@ -45,9 +46,9 @@ def _ints(rng, shape, hi, bad_frac=0.0):
     return a
 
 
-def _scan_inputs(seed, n, sy, sx, nl, b):
+def _scan_inputs(seed, n, sy, sx, nl, b, bad_frac=0.05):
     rng = np.random.default_rng(seed)
-    return (_ints(rng, (n, sy, sx, nl), 30, 0.05), _ints(rng, (n, b, nl), PD_HI),
+    return (_ints(rng, (n, sy, sx, nl), 30, bad_frac), _ints(rng, (n, b, nl), PD_HI),
             _ints(rng, (n, b, nl), PD_HI))
 
 
@@ -203,6 +204,76 @@ def test_mgm_instance_limits_are_built_from_the_variant_limits(monkeypatch):
     assert _build.library_path("mgm_scan") != name
 
 
+# config 6's SGM pyramid: (scan shape, lane shifts) -> launches per frame;
+# level 0 (2, 5) over 512 lanes, levels 1-3 (1, 5) over 256-64, level 4
+# (1, 4) over 64; an x-scan (3 directions) and a y-scan per level
+_CONFIG6_SGM = {
+    ((512, 2, 5, 512), (0, 1, -1)): 1, ((512, 2, 5, 512), (0,)): 1,
+    ((256, 1, 5, 256), (0, 1, -1)): 1, ((256, 1, 5, 256), (0,)): 1,
+    ((128, 1, 5, 128), (0, 1, -1)): 1, ((128, 1, 5, 128), (0,)): 1,
+    ((64, 1, 5, 64), (0, 1, -1)): 1, ((64, 1, 5, 64), (0,)): 1,
+    ((64, 1, 4, 64), (0, 1, -1)): 1, ((64, 1, 4, 64), (0,)): 1}
+
+
+@pytest.mark.parametrize("shape,b,want", [
+    ((2, 5, 512), 3, 512), ((2, 5, 512), 1, 512), ((1, 5, 65), 2, 96),
+    ((1, 4, 64), 3, 64), ((4, 4, 512), 3, 512), ((1, 1, 1), 1, 32),
+    # line_scan_kernel<0>: more than 16 cells (calc_disparity_sgm's 64x8
+    # search), more than 512 lanes, more than 3 directions
+    ((8, 64, 256), 3, None), ((1, 17, 64), 1, None), ((2, 5, 513), 3, None),
+    ((1, 4, 1100), 1, None), ((2, 5, 512), 4, None)])
+def test_scan_variant_picks_by_grid_line_and_directions(shape, b, want):
+    """Threads of the register-carry instance for scan_bidir, or None for
+    ``line_scan_kernel<0>``: up to 16 cells over up to 512 lanes, up to 3
+    path directions."""
+    assert tscan._scan_variant(*shape, b) == want
+
+
+def test_scan_variant_covers_config6_sgm_pyramid(monkeypatch):
+    """Every scan_bidir launch of config 6's SGM pyramid (10 a frame) has a
+    register-carry instance. The scans are replaced by a recorder (no scan
+    runs; the shapes do not depend on the data)."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo import sgm as tsgm
+    from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    seen = {}
+
+    def recorder(cost_t, pd_f, pd_r, shifts, *args):
+        key = (tuple(cost_t.shape), tuple(shifts))
+        seen[key] = seen.get(key, 0) + 1
+        return torch.zeros_like(cost_t)
+
+    monkeypatch.setattr(tsgm, "scan_bidir", recorder)
+    img = np.random.default_rng(32).random((512, 512)).astype(np.float32)
+    pyramid_correlate(img, img, BBox2i(0, -1, 64, 2), kernel_size=(5, 5),
+                      max_pyramid_levels=4, tile_size=64, stereo_algorithm="sgm",
+                      subpixel="none", device="cpu")
+    assert seen == _CONFIG6_SGM
+    for shape, shifts in seen:
+        assert tscan._scan_variant(*shape[-3:], len(shifts)) == shape[-1]
+
+
+def test_scan_variant_limits_are_the_kernel_source_limits():
+    """``_scan_variant`` reads the limits nvcc builds the instances with, and
+    the wrapper's modes and direction limit are those of
+    ``csrc/mgm_scan.cu``."""
+    import re
+
+    from visionworkbench_torch.ops import _build
+    flags = _build.flags("mgm_scan")
+    cells, lanes = _build.MGM_MAX_CELLS, _build.MGM_MAX_LANES
+    assert f"-DVW_MGM_MAX_CELLS={cells}" in flags
+    assert f"-DVW_MGM_MAX_LANES={lanes}" in flags
+    assert tscan._scan_variant(1, cells, lanes, 3) == lanes
+    assert tscan._scan_variant(1, cells + 1, lanes, 3) is None
+    assert tscan._scan_variant(1, cells, lanes + 1, 3) is None
+    src = (_build.CSRC / "mgm_scan.cu").read_text()
+    enum = re.search(r"enum Mode \{ kFwd = (\d), kBidir = (\d), kSgm = (\d) \}", src)
+    assert tuple(int(x) for x in enum.groups()) == (
+        tscan._MODES["mgm_fwd"], tscan._MODES["mgm_bidir"], tscan._MODES["scan_bidir"])
+    assert f"if (B > {tscan._MAX_DIRECTIONS}) return cudaErrorInvalidValue;" in src
+
+
 def test_ablation_variants_edit_the_kernel_source(tmp_path):
     """Each variant of ``tools/mgm_scan_ablation.py`` is a text edit of
     ``csrc/mgm_scan.cu`` whose text occurs there exactly once."""
@@ -235,13 +306,58 @@ def test_wrappers_reject_bad_arguments():
                                   # a 64x8 search: the carry is in global scratch
                                   (24, 8, 64, 256, (0, 1, -1))])
 def test_scan_bidir_kernel_matches_plain(cuda, case):
+    """The wrapper's pick: the register-carry kernel, or
+    ``line_scan_kernel<0>`` for lines past 512 lanes (1100) and the 64x8
+    search, as the counts show."""
     n, sy, sx, nl, shifts = case
     args = _t(_scan_inputs(24, n, sy, sx, nl, len(shifts)), cuda)
     before = tscan.launches["scan_bidir"]
+    reg = tscan.mgm_scan_launches["scan_bidir"]
     got = tscan.scan_bidir(*args, shifts, P1, P2, BAD)
     assert tscan.launches["scan_bidir"] == before + 1
+    on_reg = int(tscan._scan_variant(sy, sx, nl, len(shifts)) is not None)
+    assert on_reg == int(nl <= 512 and sy * sx <= 16)
+    assert tscan.mgm_scan_launches["scan_bidir"] == reg + on_reg
     ref = tscan.scan_bidir_plain(*args, shifts, P1, P2, BAD)
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+def _scan_both_kernels(args, shifts):
+    """scan_bidir through its wrapper on the register-carry kernel, held bit
+    for bit against its plain version and against line_scan_kernel<0> on
+    the same inputs; the counts show which kernel ran each time."""
+    before = tscan.launches["scan_bidir"]
+    reg = tscan.mgm_scan_launches["scan_bidir"]
+    got = tscan.scan_bidir(*args, shifts, P1, P2, BAD)
+    assert tscan.mgm_scan_launches["scan_bidir"] == reg + 1
+    old = tscan._scan_bidir_cuda(*args, shifts, P1, P2, BAD, None)
+    assert tscan.launches["scan_bidir"] == before + 2
+    assert tscan.mgm_scan_launches["scan_bidir"] == reg + 1
+    ref = tscan.scan_bidir_plain(*args, shifts, P1, P2, BAD)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), old.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifts", [(0,), (0, 1, -1), (1, -1)])
+@pytest.mark.parametrize("grid", [(2, 5), (1, 5), (1, 4)])
+def test_scan_bidir_register_kernel_matches_plain(cuda, shifts, grid):
+    """Config 6's grids over two whole warps and more, each shift set."""
+    args = _t(_scan_inputs(33, 20, *grid, 128, len(shifts)), cuda)
+    _scan_both_kernels(args, shifts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (24, 1, 5, 65, (0, 1, -1), 0.05),     # a ragged line (partial warp)
+    (24, 2, 5, 96, (1, -1), 0.03),        # a 3 % share of absent costs
+    (24, 2, 5, 64, (0, 1, -1), 0.9),      # a cost plane that is mostly bad
+    (512, 2, 5, 512, (0, 1, -1), 0.03),   # config 6's level-0 x-scan
+    (512, 2, 5, 512, (0,), 0.03)])        # and y-scan
+def test_scan_bidir_register_kernel_edges_and_level0(cuda, case):
+    n, sy, sx, nl, shifts, bad_frac = case
+    args = _t(_scan_inputs(34, n, sy, sx, nl, len(shifts), bad_frac), cuda)
+    _scan_both_kernels(args, shifts)
 
 
 def _mgm_both_kernels(args, fargs):
@@ -250,7 +366,7 @@ def _mgm_both_kernels(args, fargs):
     kernel, against line_scan_kernel<1> on the same inputs. Returns the
     register-carry launches of each."""
     before = dict(tscan.launches)
-    reg = dict(tscan.mgm_scan_launches)
+    reg = {k: tscan.mgm_scan_launches[k] for k in ("mgm_bidir", "mgm_fwd")}
     for name, a, shifts, plain in (("mgm_bidir", args, (1, -1), tscan.mgm_bidir_plain),
                                    ("mgm_fwd", fargs, (0, 1), tscan.mgm_fwd_plain)):
         got = getattr(tscan, name)(*a, shifts, P1, P2, BAD)

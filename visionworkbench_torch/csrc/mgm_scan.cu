@@ -1,35 +1,43 @@
-// MGM line scans for Hopper (sm_90a) with each lane's carry in registers,
-// with a plain C interface loaded through ctypes
+// SGM and MGM line scans for Hopper (sm_90a) with each lane's carry in
+// registers, with a plain C interface loaded through ctypes
 // (visionworkbench_torch/ops/sgm_scan.py).
 //
-// Replaces two TPU kernels of visionworkbench_tpu/ops/sgm_scan.py on the
-// shapes the MGM main path gives them (up to VW_MGM_MAX_CELLS disparity
-// cells a lane, up to VW_MGM_MAX_LANES lanes a line, both set by
-// ops/_build.py):
-//   * pallas_mgm_bidir (pl.pallas_call at :222): the forward and reverse
+// Replaces three TPU kernels of visionworkbench_tpu/ops/sgm_scan.py on the
+// shapes the SGM and MGM main paths give them (up to VW_MGM_MAX_CELLS
+// disparity cells a lane, up to VW_MGM_MAX_LANES lanes a line, both set by
+// ops/_build.py), one mode each:
+//   * kSgm, pallas_scan_bidir (pl.pallas_call at :149): B <= 3 path
+//     directions, each with one prior lane shift s of {0, +1, -1}, forward
+//     and reverse, all 2 * B lines summed;
+//   * kBidir, pallas_mgm_bidir (:222): the forward and reverse
 //     diagonal-pair tasks, prior lane shifts (+1, -1), summed;
-//   * pallas_mgm_fwd (:272): the sheared forward scan over B orientations,
-//     prior lane shifts (0, +1), every step stored.
-// Each step is floor((L(prior shifted by s0) + L(prior shifted by s1)) / 2)
-// with  L = C + min(prior, min3x3(prior) + P1, min_prior + P2') - min_prior
-// and  P2' = max(floor(P2 / max(|dI|, 1)), P1), reset to C where the guard is
-// false, and forced to bad where C >= bad; a prior lane shifted in from
-// outside the line, and an out-of-grid 3x3 neighbour, read bad. Other grids,
-// longer lines and other shift pairs run line_scan_kernel<1> of
-// csrc/sgm_scan.cu, which computes the same function.
+//   * kFwd, pallas_mgm_fwd (:272): the sheared forward scan over B
+//     orientations, prior lane shifts (0, +1), every step stored.
+// The path update is
+//   L(prior) = C + min(prior, min3x3(prior) + P1, min_prior + P2') - min_prior
+// with  P2' = max(floor(P2 / max(|dI|, 1)), P1). An SGM step is L of the
+// prior shifted by s; an MGM step is floor((L(shift s0) + L(shift s1)) / 2),
+// reset to C where the guard is false. Every step is forced to bad where
+// C >= bad; a prior lane shifted in from outside the line, and an
+// out-of-grid 3x3 neighbour, read bad. Other grids and longer lines (and
+// other MGM shift pairs) run line_scan_kernel<0> / <1> of csrc/sgm_scan.cu,
+// which computes the same functions.
 //
 // What bounds it on the H100: the time of one step times the N steps. The
-// work is tiny and sequential; only B (fwd) or 2 (bidir) blocks run, one per
-// SM. The earlier kernel (line_scan_kernel<1>) kept the carry in shared
-// memory and re-read, for every cell of every lane, the source lane's priors
-// and its 3x3 neighbours, once per shift: ~140 dependent shared loads and
-// mins per lane and step, ~9 us per step at config 6's level 0. Here a step
-// takes ~1.6 us (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W). Taken out one
-// at a time (visionworkbench_torch/tools/mgm_scan_ablation.py), the next
-// step's loads cost ~0.45-0.6 us of it, the barrier ~0.4, the stores or
-// atomics ~0.2-0.27; the rest is issue: the (2, 5) instances are 632 (fwd)
-// and 704 (bidir) SASS instructions, most of them the step's, for 16 warps
-// on one SM's four schedulers. Here:
+// work is tiny and sequential; only 2 * B (SGM), B (fwd) or 2 (bidir) blocks
+// run, one per SM. The earlier kernels (line_scan_kernel<0>, <1>) kept the
+// carry in shared memory and re-read, for every cell of every lane, the
+// source lane's priors and its 3x3 neighbours, once per shift: ~70 (SGM) or
+// ~140 (MGM) dependent shared loads and mins per lane and step, ~5.4 / ~9 us
+// per step at config 6's level 0. Here an MGM step takes ~1.6 us and an
+// SGM step ~1.08 us (x-scan; ~0.77 us for the shift-0 y-scan)
+// (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W). Taken out one at a time
+// (visionworkbench_torch/tools/mgm_scan_ablation.py), the next step's loads
+// cost ~0.45-0.6 us of an MGM step (~0.33 of an SGM x-scan step), the
+// barrier ~0.4 (~0.28), the stores or atomics ~0.2-0.27 (~0.26); the rest
+// is issue: the (2, 5) instances are 632 (fwd), 704 (bidir) and 568 (SGM)
+// SASS instructions, most of them the step's, for 16 warps on one SM's
+// four schedulers. Here:
 //   * The grid (SY, SX) is a template argument, so every per-lane loop
 //     unrolls and the lane's carry P[SY * SX] lives in registers.
 //   * One thread per lane. Each lane computes once per step, from its own
@@ -38,24 +46,31 @@
 //     the plain version). The reader takes best = min(m1, mp + P2'), where
 //     P2' comes from its own |dI|, and L = C + (best - mp): the plain
 //     version's operations in its order, so the result is bit for bit.
-//   * The neighbour lane's m1 and mp arrive by warp shuffles (shfl_up for
-//     lane l - 1, shfl_down for lane l + 1). Only a warp's edge lane crosses
-//     warps: lane 31 (and lane 0, bidir) posts its CELLS + 1 values as
-//     float4s to a double-buffered shared array, so a step costs one
-//     __syncthreads. Two extra rows hold what a lane outside the line
-//     gives (bad priors), so no lane tests whether its source is inside.
+//   * The source lane's m1 and mp arrive by warp shuffles (shfl_up for
+//     lane l - 1, shfl_down for lane l + 1; SGM: one shfl_idx from lane
+//     l - s, the block's shift s being uniform). Only a warp's edge lane
+//     crosses warps: lane 31 (and lane 0, bidir; SGM: lane 31 for s = +1,
+//     lane 0 for s = -1) posts its CELLS + 1 values as float4s to a
+//     double-buffered shared array, so a step costs one __syncthreads (SGM
+//     with s = 0 exchanges nothing and needs none). Two extra rows hold
+//     what a lane outside the line gives (bad priors), so no lane tests
+//     whether its source is inside.
 //   * Step t + 1's costs, |dI| and guard are loaded (read-only path) into
 //     registers before step t computes; fwd stores each step with
-//     streaming stores, bidir adds both groups into a zeroed output with
-//     fire-and-forget atomics (two integer-valued terms onto 0: exact in
-//     either order, and one launch instead of two outputs and a sum). The
-//     lane's pointers advance by one step each and one branch per step
-//     skips lanes past L: no 64-bit product and no per-cell branch in the
-//     step (mgm_fwd took 19 % longer with them).
+//     streaming stores, bidir and SGM add their lines into a zeroed output
+//     with fire-and-forget atomics (integer-valued terms below 2^24 onto
+//     0: exact in any order, and one launch instead of 2 * B outputs and a
+//     sum). The lane's pointers advance by one step each and one branch per
+//     step skips lanes past L: no 64-bit product and no per-cell branch in
+//     the step (mgm_fwd took 19 % longer with them).
 // Lanes past L (the partial last warp) run the loop with the block, so the
 // shuffles and the barrier stay converged; they load and store nothing, and
 // their carry stays bad, so lane L - 1 reads from lane L what a lane outside
 // the line gives.
+//
+// SGM is a mode here, not a source of its own: it is the MGM step with one
+// path update and no guard, and shares the MGM kernel's loads, source terms,
+// edge rows, instance limits and dispatch (one build, 150 instances).
 
 #include <cuda_runtime.h>
 
@@ -69,26 +84,33 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxCells = VW_MGM_MAX_CELLS;  // grids with sy * sx <= this
 constexpr int kMaxLanes = VW_MGM_MAX_LANES;  // threads a block, 32 | this
 
+// The modes, numbered as vw_mgm_scan's mode argument.
+enum Mode { kFwd = 0, kBidir = 1, kSgm = 2 };
+
 struct MgmArgs {
   const float* cost[2];
   const float* pd[2];
-  const unsigned char* guard[2];
+  const unsigned char* guard[2];  // null for kSgm
   float* out[2];
   int N, L;
+  int shift[3];  // kSgm: the prior lane shift of direction b
   long long cost_n, cost_b, pd_n, pd_b, out_n, out_b;  // strides, elements
   float p1, p2, bad;
 };
 
-// BIDIR: sources lane l - 1 (shift +1) and l + 1 (shift -1), group 1 walks
-// n = N-1-t, atomicAdd into a zeroed output. Else: sources lane l (shift 0)
-// and l - 1 (shift +1), one group, each step stored.
-template <int SY, int SX, bool BIDIR>
+// kSgm: block (b, g) sources lane l - shift[b]; group 1 walks n = N-1-t,
+// atomicAdd into a zeroed output. kBidir: sources lane l - 1 (shift +1) and
+// l + 1 (shift -1), group 1 walks n = N-1-t, atomicAdd into a zeroed
+// output. kFwd: sources lane l (shift 0) and l - 1 (shift +1), one group,
+// each step stored.
+template <int SY, int SX, int MODE>
 __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
+  constexpr bool SGM = MODE == kSgm, BIDIR = MODE == kBidir;
   constexpr int CELLS = SY * SX;
   constexpr int SIDES = BIDIR ? 2 : 1;
   constexpr int ROW = (CELLS + 4) / 4 * 4;  // m1 of each cell, mp; float4s
-  // [buffer][warp + 1][0: lane 31's row, 1: lane 0's]; rows 0 and
-  // warps + 1 hold what the lanes outside the line give
+  // [buffer][warp + 1][0: lane 31's row (SGM: the posting lane's), 1: lane
+  // 0's]; rows 0 and warps + 1 hold what the lanes outside the line give
   __shared__ __align__(16) float edge[2][kMaxLanes / 32 + 2][SIDES][ROW];
 
   const int L = a.L, N = a.N;
@@ -96,15 +118,20 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
   const int warps = blockDim.x >> 5;
   const bool active = l < L;
   const int b = blockIdx.x, g = blockIdx.y;
+  // SGM: the block's shift (uniform), the lane it reads in the warp, and
+  // whether that lane is in the next or previous warp (read from its row).
+  const int s = SGM ? a.shift[b] : 0;
+  const int src_lane = (lane - s) & 31;
+  const bool src_row = lane - s != src_lane;
   // The lane's inputs and output at step 0, and their steps: group 1 of
-  // bidir walks n = N-1-t. Pointers advance by a step each; nothing is
-  // multiplied in the loop.
-  const bool rev = BIDIR && g == 1;
+  // bidir and SGM walks n = N-1-t. Pointers advance by a step each;
+  // nothing is multiplied in the loop.
+  const bool rev = MODE != kFwd && g == 1;
   const long long n0 = rev ? N - 1 : 0, dir = rev ? -1 : 1;
   const float* __restrict__ cost = a.cost[g] + b * a.cost_b + n0 * a.cost_n + l;
   const float* __restrict__ pd = a.pd[g] + b * a.pd_b + n0 * a.pd_n + l;
-  const unsigned char* __restrict__ guard =
-      a.guard[g] + b * a.pd_b + n0 * a.pd_n + l;
+  const unsigned char* __restrict__ guard = nullptr;
+  if constexpr (!SGM) guard = a.guard[g] + b * a.pd_b + n0 * a.pd_n + l;
   float* __restrict__ out = a.out[g] + b * a.out_b + n0 * a.out_n + l;
   const long long dcost = dir * a.cost_n, dpd = dir * a.pd_n,
                   dout = dir * a.out_n;
@@ -133,11 +160,11 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
 #pragma unroll
       for (int c = 0; c < CELLS; ++c, cn += L) Cn[c] = __ldg(cn);
       pdn = __ldg(pd);
-      gn = __ldg(guard) != 0;
+      if constexpr (!SGM) gn = __ldg(guard) != 0;
     }
     cost += dcost;
     pd += dpd;
-    guard += dpd;
+    if constexpr (!SGM) guard += dpd;
   };
   load();
 
@@ -190,17 +217,22 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
         *reinterpret_cast<float4*>(row + k) =
             make_float4(e[k], e[k + 1], e[k + 2], e[k + 3]);
     };
-    if (lane == 31) post(eb[warp + 1][0]);
+    if (SGM ? (s != 0 && lane == (s > 0 ? 31 : 0)) : lane == 31)
+      post(eb[warp + 1][0]);
     if (BIDIR && lane == 0) post(eb[warp + 1][SIDES - 1]);
-    __syncthreads();
+    if (!SGM || s != 0) __syncthreads();
     // Lane l - 1's value and lane l + 1's, by shuffles (every lane takes
     // part); lane 0 takes the row of the previous warp's lane 31, and lane
     // 31 that of the next warp's lane 0, read by the warp as float4
-    // broadcasts. k: the cell, or CELLS for mp.
+    // broadcasts. SGM: lane l - s's value; the lane whose source is in the
+    // neighbour warp reads that warp's row (row warp + 1 - s). k: the
+    // cell, or CELLS for mp.
     const float4* row_up = reinterpret_cast<const float4*>(eb[warp][0]);
     const float4* row_dn =
         reinterpret_cast<const float4*>(eb[warp + 2][SIDES - 1]);
-    float4 up4, dn4;
+    const float4* row_src =
+        reinterpret_cast<const float4*>(eb[warp + 1 - s][0]);
+    float4 up4, dn4, src4;
     auto pick = [](const float4& v, int k) {
       return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
     };
@@ -214,38 +246,54 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
       const float d = __shfl_down_sync(kFull, v, 1);
       return lane == 31 ? pick(dn4, k % 4) : d;
     };
+    auto from_src = [&](float v, int k) {
+      if (src_row && (k % 4 == 0 || k == CELLS)) src4 = row_src[k / 4];
+      const float u = __shfl_sync(kFull, v, src_lane);
+      return src_row ? pick(src4, k % 4) : u;
+    };
 
     const float p2m = fmaxf(floorf(p2 / fmaxf(pdv, 1.f)), p1);
-    float mp0, mp1;
-    if (BIDIR) {
-      mp0 = from_up(mp, CELLS);
-      mp1 = from_dn(mp, CELLS);
-    } else {
-      mp0 = mp;
-      mp1 = from_up(mp, CELLS);
-    }
-    const float lim0 = mp0 + p2m, lim1 = mp1 + p2m;
+    if constexpr (SGM) {
+      const float mps = from_src(mp, CELLS);
+      const float lim = mps + p2m;
 #pragma unroll
-    for (int c = 0; c < CELLS; ++c) {
-      float s0, s1;
-      if (BIDIR) {
-        s0 = from_up(m1[c], c);
-        s1 = from_dn(m1[c], c);
-      } else {
-        s0 = m1[c];
-        s1 = from_up(m1[c], c);
+      for (int c = 0; c < CELLS; ++c) {
+        float v = C[c] + (fminf(from_src(m1[c], c), lim) - mps);
+        if (C[c] >= bad) v = bad;
+        P[c] = v;
       }
-      const float va = C[c] + (fminf(s0, lim0) - mp0);
-      const float vb = C[c] + (fminf(s1, lim1) - mp1);
-      float v = keep ? floorf((va + vb) * 0.5f) : C[c];
-      if (C[c] >= bad) v = bad;
-      P[c] = v;
+    } else {
+      float mp0, mp1;
+      if (BIDIR) {
+        mp0 = from_up(mp, CELLS);
+        mp1 = from_dn(mp, CELLS);
+      } else {
+        mp0 = mp;
+        mp1 = from_up(mp, CELLS);
+      }
+      const float lim0 = mp0 + p2m, lim1 = mp1 + p2m;
+#pragma unroll
+      for (int c = 0; c < CELLS; ++c) {
+        float s0, s1;
+        if (BIDIR) {
+          s0 = from_up(m1[c], c);
+          s1 = from_dn(m1[c], c);
+        } else {
+          s0 = m1[c];
+          s1 = from_up(m1[c], c);
+        }
+        const float va = C[c] + (fminf(s0, lim0) - mp0);
+        const float vb = C[c] + (fminf(s1, lim1) - mp1);
+        float v = keep ? floorf((va + vb) * 0.5f) : C[c];
+        if (C[c] >= bad) v = bad;
+        P[c] = v;
+      }
     }
     if (active) {
       float* on = out;
 #pragma unroll
       for (int c = 0; c < CELLS; ++c, on += L) {
-        if (BIDIR)
+        if (MODE != kFwd)
           atomicAdd(on, P[c]);
         else
           __stcs(on, P[c]);
@@ -255,26 +303,30 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
   }
 }
 
-template <int SY, int SX, bool BIDIR>
+template <int SY, int SX, int MODE>
 cudaError_t launch(const MgmArgs& a, int B, int groups, int threads,
                    cudaStream_t s) {
-  mgm_scan_kernel<SY, SX, BIDIR><<<dim3(B, groups), threads, 0, s>>>(a);
+  mgm_scan_kernel<SY, SX, MODE><<<dim3(B, groups), threads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
 // The instance of grid (sy, sx): every SY * SX <= kMaxCells, in turn.
 template <int SY, int SX>
-cudaError_t dispatch(int sy, int sx, bool bidir, const MgmArgs& a, int B,
+cudaError_t dispatch(int sy, int sx, int mode, const MgmArgs& a, int B,
                      int groups, int threads, cudaStream_t s) {
   if constexpr (SY > kMaxCells) {
     return cudaErrorInvalidValue;
   } else if constexpr (SY * SX > kMaxCells) {
-    return dispatch<SY + 1, 1>(sy, sx, bidir, a, B, groups, threads, s);
+    return dispatch<SY + 1, 1>(sy, sx, mode, a, B, groups, threads, s);
   } else {
-    if (sy == SY && sx == SX)
-      return bidir ? launch<SY, SX, true>(a, B, groups, threads, s)
-                   : launch<SY, SX, false>(a, B, groups, threads, s);
-    return dispatch<SY, SX + 1>(sy, sx, bidir, a, B, groups, threads, s);
+    if (sy != SY || sx != SX)
+      return dispatch<SY, SX + 1>(sy, sx, mode, a, B, groups, threads, s);
+    switch (mode) {
+      case kFwd: return launch<SY, SX, kFwd>(a, B, groups, threads, s);
+      case kBidir: return launch<SY, SX, kBidir>(a, B, groups, threads, s);
+      case kSgm: return launch<SY, SX, kSgm>(a, B, groups, threads, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -282,21 +334,30 @@ cudaError_t dispatch(int sy, int sx, bool bidir, const MgmArgs& a, int B,
 
 // Returns a cudaError_t (0 on success). The caller checks shapes, types and
 // contiguity and passes threads = L rounded up to a warp (at most
-// kMaxLanes) and a grid of at most kMaxCells cells. bidir 1: mgm_bidir,
-// groups 2 (group 1 reverse); bidir 0: mgm_fwd, groups 1. Block (b, g)
-// reads cost_g / pd_g / guard_g at offset b * (cost_b, pd_b) and writes
-// out_g at b * out_b.
-extern "C" int vw_mgm_scan(int bidir, const float* cost0, const float* cost1,
+// kMaxLanes) and a grid of at most kMaxCells cells. mode 2: scan_bidir,
+// groups 2 (group 1 reverse), B <= 3 directions with lane shifts
+// shift0..2 (each of -1, 0, +1), no guards; mode 1: mgm_bidir, groups 2
+// (group 1 reverse); mode 0: mgm_fwd, groups 1. Block (b, g) reads cost_g /
+// pd_g / guard_g at offset b * (cost_b, pd_b) and writes out_g at
+// b * out_b.
+extern "C" int vw_mgm_scan(int mode, const float* cost0, const float* cost1,
                            const float* pd0, const float* pd1,
                            const unsigned char* guard0,
                            const unsigned char* guard1, float* out0,
                            float* out1, int groups, int B, int N, int sy,
                            int sx, int L, long long cost_n, long long cost_b,
                            long long pd_n, long long pd_b, long long out_n,
-                           long long out_b, float p1, float p2, float bad,
+                           long long out_b, int shift0, int shift1,
+                           int shift2, float p1, float p2, float bad,
                            int threads, void* stream) {
   if (threads < L || threads % 32 != 0 || threads > kMaxLanes)
     return cudaErrorInvalidValue;
+  const int shift[3] = {shift0, shift1, shift2};
+  if (mode == kSgm) {
+    if (B > 3) return cudaErrorInvalidValue;
+    for (int i = 0; i < B; ++i)
+      if (shift[i] < -1 || shift[i] > 1) return cudaErrorInvalidValue;
+  }
   MgmArgs a;
   a.cost[0] = cost0;
   a.cost[1] = cost1;
@@ -308,6 +369,7 @@ extern "C" int vw_mgm_scan(int bidir, const float* cost0, const float* cost1,
   a.out[1] = out1;
   a.N = N;
   a.L = L;
+  for (int i = 0; i < 3; ++i) a.shift[i] = shift[i];
   a.cost_n = cost_n;
   a.cost_b = cost_b;
   a.pd_n = pd_n;
@@ -317,6 +379,6 @@ extern "C" int vw_mgm_scan(int bidir, const float* cost0, const float* cost1,
   a.p1 = p1;
   a.p2 = p2;
   a.bad = bad;
-  return dispatch<1, 1>(sy, sx, bidir != 0, a, B, groups, threads,
+  return dispatch<1, 1>(sy, sx, mode, a, B, groups, threads,
                         static_cast<cudaStream_t>(stream));
 }

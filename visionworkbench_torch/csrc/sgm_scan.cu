@@ -6,7 +6,11 @@
 //     recurrence  L = C + min(prior, min3x3(prior) + P1, min_prior + P2')
 //     - min_prior  with  P2' = max(floor(P2 / max(|dI|, 1)), P1), over B
 //     directions whose carry is lane-shifted by {0, +-1}, forward and
-//     reverse, summed over directions and both groups;
+//     reverse, summed over directions and both groups. Mode 0 runs the
+//     shapes that the register-carry kernel of csrc/mgm_scan.cu (mode
+//     kSgm) does not take (more than 16 disparity cells, such as
+//     calc_disparity_sgm's 64x8 search, or longer lines); that kernel runs
+//     every scan_bidir of the SGM main path;
 //   * pallas_mgm_bidir (:222) and pallas_mgm_fwd (:272): mode 1, the MGM
 //     step floor((L(shift0) + L(shift1)) / 2), reset to the local cost where
 //     the guard is false; summed over the two groups (bidir) or stored per
@@ -48,7 +52,8 @@
 // staging the next step's inputs with cp.async did not make it faster: the
 // time is most likely each lane's chain of dependent shared loads and mins
 // at 16 warps per SM.
-// Keeping each lane's priors in registers, or spreading a line over a
+// csrc/mgm_scan.cu keeps each lane's priors in registers for grids of up to
+// 16 cells; spreading a wide grid over a warp, or a line over a
 // thread-block cluster with distributed shared memory, is later work. The
 // TPU kernel's pltpu.roll lane shifts, (N, 1, L) guard layout and VMEM
 // scratch are not carried over.

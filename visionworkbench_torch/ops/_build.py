@@ -24,9 +24,10 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("sweep", "speckle", "sgm_scan", "mgm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
-# The limits of csrc/mgm_scan.cu's register-carry instances, given to nvcc
-# as macros and read by ops/sgm_scan.py:_mgm_variant: disparity cells a lane
-# (sy * sx) and lanes a line (threads a block).
+# The limits of csrc/mgm_scan.cu's register-carry instances (SGM and MGM),
+# given to nvcc as macros and read by ops/sgm_scan.py:_mgm_variant and
+# _scan_variant: disparity cells a lane (sy * sx) and lanes a line (threads
+# a block).
 MGM_MAX_CELLS = 16
 MGM_MAX_LANES = 512
 DEFINES = {"mgm_scan": (f"-DVW_MGM_MAX_CELLS={MGM_MAX_CELLS}",

@@ -25,14 +25,15 @@ Every value is an integer-valued fp32 below 2^24 (census costs <= 64, the
 absent-candidate value ``bad = 255 + P2``, sums of 8 paths), so sums are
 exact in any order and each kernel equals its plain version bit for bit.
 
-On the card, the two MGM wrappers take the register-carry kernel of
-``csrc/mgm_scan.cu`` where :func:`_mgm_variant` has an instance for the
-grid and line (up to ``_build.MGM_MAX_CELLS`` disparity cells over up to
-``_build.MGM_MAX_LANES`` lanes) and the wrapper's own pair of lane shifts;
-every other shape runs ``line_scan_kernel<1>`` of ``csrc/sgm_scan.cu``,
-which computes the same function. Any search window runs on the card: a
-line's carry that does not fit a block's shared memory goes to a global
-scratch buffer. What bounds the kernels on the H100, and what their design
+On the card, the three wrappers take the register-carry kernel of
+``csrc/mgm_scan.cu`` where it has an instance for the grid and line (up to
+``_build.MGM_MAX_CELLS`` disparity cells over up to ``_build.MGM_MAX_LANES``
+lanes; :func:`_mgm_variant`, :func:`_scan_variant`), with the MGM wrapper's
+own pair of lane shifts or, for ``scan_bidir``, up to 3 path directions;
+every other shape runs ``line_scan_kernel<0>`` (``scan_bidir``) or
+``line_scan_kernel<1>`` (MGM) of ``csrc/sgm_scan.cu``, which compute the
+same functions. Any search window runs on the card: a line's carry that
+does not fit a block's shared memory goes to a global scratch buffer. What bounds the kernels on the H100, and what their design
 does about it: see the notes at the top of the two sources.
 """
 
@@ -48,14 +49,18 @@ from visionworkbench_torch.ops import _build
 
 # Kernel launches since the count was last set to 0, one count per wrapper
 # (each wrapper adds one per launch of a CUDA kernel, and nowhere else), and
-# of those the MGM launches that went to the register-carry kernel.
+# of those the launches that went to the register-carry kernel of
+# csrc/mgm_scan.cu (the rest ran line_scan_kernel of csrc/sgm_scan.cu).
 launches = {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
-mgm_scan_launches = {"mgm_bidir": 0, "mgm_fwd": 0}
+mgm_scan_launches = {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
 
 _MAX_THREADS = 1024
 _MAX_SMEM = 232448        # bytes of shared memory one H100 block may opt into
 # Each MGM wrapper's lane shifts on the main path, the pair its instances take.
 _MGM_SHIFTS = {"mgm_bidir": (-1, 1), "mgm_fwd": (0, 1)}
+# csrc/mgm_scan.cu's modes (its vw_mgm_scan mode argument).
+_MODES = {"mgm_fwd": 0, "mgm_bidir": 1, "scan_bidir": 2}
+_MAX_DIRECTIONS = 3       # path directions a scan_bidir launch takes
 _lib = None
 _mgm_lib = None
 
@@ -73,13 +78,24 @@ def _mgm_variant(sy: int, sx: int, nl: int):
     return -(-nl // 32) * 32
 
 
+def _scan_variant(sy: int, sx: int, nl: int, b: int):
+    """Threads per block of the register-carry kernel's SGM mode for
+    ``b`` path directions over a (``sy``, ``sx``) grid of ``nl`` lanes, or
+    None where ``line_scan_kernel<0>`` runs the shape: the limits of
+    :func:`_mgm_variant` (the same instances), and more than 3 directions."""
+    if b > _MAX_DIRECTIONS:
+        return None
+    return _mgm_variant(sy, sx, nl)
+
+
 def _bind_mgm(lib):
     """Set the argument types of ``vw_mgm_scan`` on a loaded library."""
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.vw_mgm_scan.argtypes = [
-        i, p, p, p, p, p, p, p, p,     # bidir, cost/pd/guard/out per group
+        i, p, p, p, p, p, p, p, p,     # mode, cost/pd/guard/out per group
         i, i, i, i, i, i,              # groups, B, N, sy, sx, L
         ll, ll, ll, ll, ll, ll,        # strides
+        i, i, i,                       # lane shifts (SGM)
         f, f, f, i, p]                 # p1, p2, bad, threads, stream
     lib.vw_mgm_scan.restype = i
     return lib
@@ -286,19 +302,22 @@ def _launch(name, mode, groups, b, n, sy, sx, nl, cost, pd, guard, out,
 
 
 def _launch_mgm(name, threads, groups, b, n, sy, sx, nl, cost, pd, guard, out,
-                strides, p1, p2, bad):
+                strides, p1, p2, bad, shifts=(0, 0, 0)):
     """Check device, type and contiguity, then launch the register-carry
     kernel of ``csrc/mgm_scan.cu`` with one block of ``threads`` per (group,
-    orientation) line: mgm_bidir as 2 groups (group 1 reverse) adding into
-    a zeroed ``out``, mgm_fwd as 1 group storing every step."""
+    direction or orientation) line: scan_bidir and mgm_bidir as 2 groups
+    (group 1 reverse) adding into a zeroed ``out``, mgm_fwd as 1 group
+    storing every step. ``shifts``: scan_bidir's lane shift per direction;
+    ``guard``: None for scan_bidir."""
     dev = _check_tensors(name, cost, pd, guard, out)
     lib = _mgm_library()
-    ptr = [t.data_ptr() for t in (cost[0], cost[-1], pd[0], pd[-1], guard[0],
-                                  guard[-1], out[0], out[-1])]
+    ptr = [t.data_ptr() if t is not None else None
+           for t in (cost[0], cost[-1], pd[0], pd[-1], guard[0], guard[-1],
+                     out[0], out[-1])]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vw_mgm_scan(int(name == "mgm_bidir"), *ptr, groups, b, n, sy,
-                              sx, nl, *strides, float(p1), float(p2),
+        err = lib.vw_mgm_scan(_MODES[name], *ptr, groups, b, n, sy, sx, nl,
+                              *strides, *shifts, float(p1), float(p2),
                               float(bad), threads, stream)
     _build.check(err, name)
     launches[name] += 1
@@ -322,7 +341,8 @@ def scan_bidir(cost_t, pdiffs_f, pdiffs_r, shifts: Sequence[int], p1: float,
     sum over the B directions of both groups, (N, sy, sx, L).
 
     CPU tensors run :func:`scan_bidir_plain`; CUDA tensors launch the
-    kernel or raise."""
+    kernel (the register-carry one where :func:`_scan_variant` has an
+    instance, else ``line_scan_kernel<0>``) or raise."""
     shifts = tuple(int(s) for s in shifts)
     if cost_t.dim() != 4 or not shifts:
         raise ArgumentErr("scan_bidir: cost_t must be (N, sy, sx, L) and "
@@ -333,16 +353,33 @@ def scan_bidir(cost_t, pdiffs_f, pdiffs_r, shifts: Sequence[int], p1: float,
                      ("pdiffs_r", pdiffs_r, (n, b, nl))], shifts, b)
     if _plain_or_cuda("scan_bidir", cost_t):
         return scan_bidir_plain(cost_t, pdiffs_f, pdiffs_r, shifts, p1, p2, bad)
-    if b > 3:
-        raise ArgumentErr(f"scan_bidir: the CUDA scan takes at most 3 path "
-                          f"directions, got {b}")
+    if b > _MAX_DIRECTIONS:
+        raise ArgumentErr(f"scan_bidir: the CUDA scan takes at most "
+                          f"{_MAX_DIRECTIONS} path directions, got {b}")
+    return _scan_bidir_cuda(cost_t, pdiffs_f, pdiffs_r, shifts, p1, p2, bad,
+                            _scan_variant(sy, sx, nl, b))
+
+
+def _scan_bidir_cuda(cost_t, pdiffs_f, pdiffs_r, shifts, p1, p2, bad,
+                     threads):
+    """The card's :func:`scan_bidir`: the register-carry kernel with
+    ``threads`` per block, or ``line_scan_kernel<0>`` where ``threads`` is
+    None."""
+    n, sy, sx, nl = (int(d) for d in cost_t.shape)
+    b = len(shifts)
     out = torch.zeros_like(cost_t)
     cells = sy * sx * nl
     # (cost n, cost b, pd n, pd b, out n, out b) strides in elements
     strides = (cells, 0, b * nl, nl, cells, 0)
-    _launch("scan_bidir", 0, 2, b, n, sy, sx, nl, (cost_t, cost_t),
-            (pdiffs_f, pdiffs_r), (None, None), (out, out), strides, True,
-            shifts + (0,) * (3 - b), False, p1, p2, bad)
+    shifts = tuple(shifts) + (0,) * (_MAX_DIRECTIONS - b)
+    if threads is not None:
+        _launch_mgm("scan_bidir", threads, 2, b, n, sy, sx, nl,
+                    (cost_t, cost_t), (pdiffs_f, pdiffs_r), (None, None),
+                    (out, out), strides, p1, p2, bad, shifts)
+    else:
+        _launch("scan_bidir", 0, 2, b, n, sy, sx, nl, (cost_t, cost_t),
+                (pdiffs_f, pdiffs_r), (None, None), (out, out), strides, True,
+                shifts, False, p1, p2, bad)
     return out
 
 

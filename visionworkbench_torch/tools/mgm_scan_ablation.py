@@ -1,4 +1,4 @@
-"""What each part of the register-carry MGM kernel costs on the card.
+"""What each part of the register-carry SGM/MGM kernel costs on the card.
 
     python3 -m visionworkbench_torch.tools.mgm_scan_ablation \
         [--also NAME=FILE.cu ...] [--reps 20]
@@ -7,18 +7,19 @@ Builds ``visionworkbench_torch/csrc/mgm_scan.cu`` as it is and with one part
 taken out at a time, and times each variant with CUDA events, in turns
 (v0, v1, ..., vk, vk, ..., v0), at config 6's level-0 and level-4 shapes
 as ``chip_smoke.py`` makes them: ``mgm_fwd`` (1024, 4, 2, 5, 512) and
-(128, 4, 1, 4, 64), ``mgm_bidir`` (512, 2, 5, 512) and (64, 1, 4, 64). A
-variant with a part taken out computes wrong values; only its time counts,
-and the difference to ``as_is`` is what that part costs:
+(128, 4, 1, 4, 64), ``mgm_bidir`` (512, 2, 5, 512) and (64, 1, 4, 64),
+``scan_bidir`` (512, 2, 5, 512) with shifts (0, 1, -1) and (0,). A variant
+with a part taken out computes wrong values; only its time counts, and the
+difference to ``as_is`` is what that part costs:
 
   no_loads    each lane loads its costs, |dI| and guard at step 0 only
-  no_stores   no step is stored (fwd) or added (bidir)
+  no_stores   no step is stored (fwd) or added (bidir, SGM)
   no_barrier  the per-step __syncthreads is dropped (warp-edge lanes race)
 
 ``--also NAME=FILE`` adds another source with the same C interface (an
 earlier version of the kernel) as one more variant. Prints the card's name
 and power limit, the SASS instruction mix of the level-0 instances
-(``cuobjdump``, where the toolkit has it), and per variant and shape the ms
+(``cuobjdump``, where the toolkit has it; modes 0 fwd, 1 bidir, 2 SGM), and per variant and shape the ms
 per launch and the us per step. Needs one CUDA card and nvcc, and the
 repository root as the working directory (shapes and inputs are those of
 ``chip_smoke.py``). The variants are text edits of the source, each of
@@ -43,9 +44,10 @@ ABLATIONS = {
     "no_loads": [("    if (t + 1 < N) load();\n", "")],
     "no_stores": [("    if (active) {\n      float* on = out;",
                    "    if (false) {\n      float* on = out;")],
-    "no_barrier": [("    __syncthreads();\n", "")],
+    "no_barrier": [("    if (!SGM || s != 0) __syncthreads();\n", "")],
 }
-SHAPES = ("level0_sheared", "level0", "level4_sheared", "level4")
+SHAPES = ("level0_sheared", "level0", "level4_sheared", "level4", "level0_x",
+          "level0_y")
 
 
 def _variant_sources(out_dir: Path, also):
@@ -97,12 +99,12 @@ def _sass_mix(so: Path):
     text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
     for func in re.split(r"\n\s*Function : ", text)[1:]:
-        m = re.search(r"mgm_scan_kernelILi(\d+)ELi(\d+)ELb([01])E", func)
+        m = re.search(r"mgm_scan_kernelILi(\d+)ELi(\d+)ELi([012])E", func)
         if not m or (m[1], m[2]) != ("2", "5"):
             continue
         ops = Counter(re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
                                  func))
-        kind = "bidir" if m[3] == "1" else "fwd"
+        kind = ("fwd", "bidir", "sgm")[int(m[3])]
         print(f"[ablation] SASS mgm_scan_kernel<2, 5, {kind}>: "
               f"{sum(ops.values())} instructions; "
               + ", ".join(f"{k} {v}" for k, v in ops.most_common(16)))
@@ -127,11 +129,11 @@ def main() -> int:
     _sass_mix(out_dir / "as_is.so")
     names = list(libs)
     for i, case in enumerate(cs.scan_cases()):
-        if case["kernel"] == "scan_bidir" or case["name"] not in SHAPES:
+        if case["name"] not in SHAPES:
             continue
         inputs = cs._scan_inputs(case, "cuda", 300 + i)
         shape = case["shape"]
-        threads = sgm_scan._mgm_variant(*shape[-3:])
+        threads = cs._reg_threads(case)
         fn = getattr(sgm_scan, f"_{case['kernel']}_cuda")
         times = {n: [] for n in names}
         try:        # the wrappers launch whichever library is loaded
@@ -144,7 +146,7 @@ def main() -> int:
             sgm_scan._mgm_lib = None
         for name in names:
             ms = statistics.median(times[name])
-            print(f"[ablation] {case['kernel']} {shape} {name}: {ms:.4f} ms "
+            print(f"[ablation] {case['kernel']} {case['name']} {shape} {name}: {ms:.4f} ms "
                   f"({', '.join(f'{t:.4f}' for t in times[name])}), "
                   f"{ms * 1e3 / shape[0]:.4f} us per step")
     return 0
