@@ -7,15 +7,20 @@ Phases (each raises on a mismatch; none catches its own failure):
 1. Build the CUDA kernels from ``visionworkbench_torch/csrc/`` (one nvcc per
    source, started together), print each build's registers and spills (and
    fail if an instance of the register-carry SGM/MGM kernel that the
-   wrappers can select spills), and print the card's name and power limit.
+   wrappers can select, or of the abs/sq sweep's band kernel, spills), and
+   print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
    to the 1/256 grid (integer disparities, validity, cost patches and keep
    masks exact) -- the sweep with abs and census 5x5 costs at the bench and
-   config-4 shapes, ternary census 7x7 at level 0, NCC and the full-frame
+   config-4 shapes (levels 4 to 0 and the level-0 R->L pass; the abs cases,
+   and one sq case, on ``band_sweep_kernel``, each also against
+   ``sweep_kernel<0,1>`` and also on off-grid inputs, the bench texture,
+   where the summation order shows), ternary census 7x7 at level 0, NCC and the full-frame
    census 7x7 codes at config 3's shape (NCC with black blocks in both
    frames, so zero-energy windows give NaN metrics), and the entry points of
-   the first-generation sweeps (``ops/cost_volume.py``) -- and the three
+   the first-generation sweeps (``ops/cost_volume.py``, on the band
+   kernel) -- and the three
    SGM/MGM scans on integer-valued inputs (exact), with the scan carry in
    shared memory and, for ``calc_disparity_sgm``'s 64x8 search, in global
    scratch. The three scans run the register-carry kernel
@@ -39,7 +44,9 @@ Phases (each raises on a mismatch; none catches its own failure):
    ``calc_disparity`` at config 3 (``tools_bench_configs.py:150-164``:
    1024^2, 32x1 search, 15x15, the right frame edge-padded by 31 columns)
    with abs, ncc and census 7x7 costs; and the entry points of TPU kernels
-   6 and 7 on config 3's frames; apply ``bench.py``'s sanity check to each.
+   6 and 7 on config 3's frames; apply ``bench.py``'s sanity check to each
+   (every abs sweep launch on ``band_sweep_kernel``, the others on
+   ``sweep_kernel``).
 4. Run the slices small on the card and on the CPU (plain versions) on
    quantized inputs: BM at 256^2 with 2 levels (integer disparities and
    validity equal, the parabola output allclose at atol 1e-4), the same BM
@@ -53,7 +60,8 @@ Phases (each raises on a mismatch; none catches its own failure):
    ncc and ternary census 7x7 at 128^2 (equal).
 5. Time the frames and each kernel with CUDA events (the scans on the
    register-carry kernel in turns with ``line_scan_kernel<0>`` / ``<1>`` at
-   the same shapes, with us per step), and profile one frame of each path
+   the same shapes, with us per step; the abs sweep on ``band_sweep_kernel``
+   in turns with ``sweep_kernel<0,1>``), and profile one frame of each path
    for the device's idle share and its device time by kernel name.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
@@ -203,6 +211,16 @@ def _mgm_instances(table):
     return out
 
 
+def _band_instances(table):
+    """{(cost, K): ptxas entry} of csrc/sweep.cu's band_sweep_kernel."""
+    out = {}
+    for name, v in table.items():
+        m = re.search(r"band_sweep_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            out[(("abs", "sq")[int(m[1])], int(m[2]))] = v
+    return out
+
+
 def phase_build():
     from visionworkbench_torch.ops import _build, sgm_scan
     t0 = time.perf_counter()
@@ -215,6 +233,16 @@ def phase_build():
             for fn, v in table.items():
                 print(f"[build] {name}: {fn[:70]}: {v['regs']} registers, "
                       f"{v['spill']} B spilled, {v['stack']} B stack")
+            if name == "sweep":
+                band = _band_instances(table)
+                bad = [key for key, v in band.items() if v["spill"] or v["stack"]]
+                want = {(c, k) for c in ("abs", "sq") for k in _build.SWEEP_BAND_K}
+                print(f"[build] sweep: band_sweep_kernel (cost, K): "
+                      f"{ {key: band[key]['regs'] for key in sorted(band)} } registers; "
+                      f"instances that spill: {bad or 'none'}")
+                if set(band) != want or bad:
+                    raise SystemExit(f"sweep: band_sweep_kernel instances {sorted(band)} "
+                                     f"(want {sorted(want)}), spilling: {bad}")
             continue
         inst = _mgm_instances(table)
         if not inst:
@@ -238,13 +266,15 @@ def phase_build():
 # ---- phase 2 ----------------------------------------------------------------
 
 def sweep_cases():
-    """The sweep's shapes on the main path: level 0 with the patch ring,
-    the level-0 R->L pass, and level 2."""
+    """The sweep's shapes on the main path, one per launch of the bench
+    frame: levels 4 to 1, level 0 with the patch ring, and the level-0 R->L
+    pass (the L<->R check)."""
     kw, kh = KERNEL
     cases = []
-    for name, level, ring, rl in (("level0_patches", 0, 1, False),
-                                  ("level0_rl", 0, 0, True),
-                                  ("level2", 2, 0, False)):
+    for name, level, ring, rl in (("level4", 4, 0, False), ("level3", 3, 0, False),
+                                  ("level2", 2, 0, False), ("level1", 1, 0, False),
+                                  ("level0_patches", 0, 1, False),
+                                  ("level0_rl", 0, 0, True)):
         s = 1 << level
         s_w, s_h = max(SEARCH[2] // s, 1), max(SEARCH[3] // s, 1)
         sx, sy = min(11, s_w), min(11, s_h)
@@ -264,13 +294,21 @@ def sweep_cases():
     return cases
 
 
-def _sweep_inputs(case, dev, seed):
+def _sweep_inputs(case, dev, seed, texture=False):
+    """Quantized frames, the left one embedded in the right so the search
+    has true winners; with ``texture``, the bench pair's texture instead
+    (off the 1/256 grid, where the summation order shows). Random per-tile
+    offsets in the level's range."""
     import torch
     rng = np.random.default_rng(seed)
-    base = _quantized(rng, (case["lb"], case["lb"]))
-    match = _quantized(rng, (case["mh"], case["mw"]))
-    # embed the left frame so the search has true winners
-    match[2:2 + case["lb"], 3:3 + case["lb"]] = base[:case["mh"] - 2, :case["mw"] - 3]
+    lb, mh, mw = case["lb"], case["mh"], case["mw"]
+    if texture:
+        left, right = _make_pair(max(lb, mh), max(lb, mw))
+        base, match = left[:lb, :lb].copy(), right[:mh, :mw].copy()
+    else:
+        base = _quantized(rng, (lb, lb))
+        match = _quantized(rng, (mh, mw))
+        match[2:2 + lb, 3:3 + lb] = base[:mh - 2, :mw - 3]
     nt = case["nt"]
     offs = np.stack([rng.integers(0, case["max_off"][0] + 1, (nt, nt)),
                      rng.integers(0, case["max_off"][1] + 1, (nt, nt))], -1)
@@ -280,14 +318,24 @@ def _sweep_inputs(case, dev, seed):
 
 def sweep_mode_cases():
     """Each sweep mode and the main-path shapes it runs at: (row key,
-    shape name, cost, census window)."""
+    shape name, cost, census window). The sq cost (band_sweep_kernel's
+    other instance) runs at level 0 with the ring."""
     rows = []
     for c in sweep_cases():
         rows.append(("sweep", c, "abs", 5))
         rows.append(("sweep_census", c, "census", CENSUS_WINDOW))
         if c["name"] == "level0_patches":
+            rows.append(("sweep_sq", c, "sq", 5))
             rows.append(("sweep_ternary_census", c, "ternary_census", 7))
     return rows
+
+
+def _band(case, cost):
+    """K of the band_sweep_kernel instance the wrapper picks for a sweep
+    case, or None where sweep_kernel runs it."""
+    from visionworkbench_torch.ops import sweep
+    kw, kh = KERNEL
+    return sweep._sweep_variant(cost, TILE, case["sx"], case["sy"], kw, kh, case["ring"])
 
 
 def _calc3_pair(h=None, w=None):
@@ -498,11 +546,27 @@ def phase_kernels(dev):
             raise SystemExit(f"{key} disagrees with its plain version at {what}")
 
     for i, (key, c, cost, cw) in enumerate(sweep_mode_cases()):
-        base, match, offs = _sweep_inputs(c, dev, 100 + i)
-        args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, cost,
-                bool(c["ring"]), cw)
-        check(key, f"{c['name']} ({cost} {cw}, tiles {c['nt']}x{c['nt']}, window "
-              f"{c['sx']}x{c['sy']})", sweep.sweep(*args), sweep.sweep_plain(*args))
+        k = _band(c, cost)
+        n = c["nt"] * TILE
+        for texture in ((False, True) if k is not None else (False,)):
+            base, match, offs = _sweep_inputs(c, dev, 100 + i, texture)
+            args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, cost,
+                    bool(c["ring"]), cw)
+            best = [torch.empty(n, n, device=dev) for _ in range(3)]
+            before = sweep.band_launches
+            got = (*sweep.sweep(*args, best_out=best[0]), best[0])
+            on_band = sweep.band_launches - before
+            ran = f"band_sweep_kernel K {k}" if on_band else "sweep_kernel"
+            if on_band != int(k is not None):
+                raise SystemExit(f"sweep {c['name']} {cost}: ran {ran}, expected K {k}")
+            what = (f"{c['name']} ({cost} {cw}, {'texture' if texture else 'quantized'}, "
+                    f"tiles {c['nt']}x{c['nt']}, window {c['sx']}x{c['sy']}, {ran})")
+            # sq is band_sweep_kernel's other instance: its row is abs's
+            row = "sweep" if key == "sweep_sq" else key
+            check(row, what, got, (*sweep.sweep_plain(*args, best_out=best[1]), best[1]))
+            if k is not None:
+                old = (*sweep._sweep_cuda(*args, best[2], None), best[2])
+                check(row, f"{what} vs sweep_kernel<{('abs', 'sq').index(cost)},1>", got, old)
     left, right = _frame_inputs(dev, 150)
     sx, sy = CALC3_SEARCH
     for key, cost, cw in (("sweep_ncc", "ncc", 5), ("sweep_census_codes", "census", 7)):
@@ -642,6 +706,7 @@ def _k7_run(left, right, dev):
 def _reset_counts():
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
     sweep.launches = 0
+    sweep.band_launches = 0
     speckle.launches = 0
     for counts in (sgm_scan.launches, sgm_scan.mgm_scan_launches):
         for k in counts:
@@ -650,9 +715,11 @@ def _reset_counts():
 
 def _read_counts():
     """Launches per wrapper; ``<wrapper>/mgm_scan``: of those, the
-    launches of the register-carry kernel."""
+    launches of the register-carry kernel; ``sweep/band``: the sweep's
+    launches of band_sweep_kernel."""
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
-    return {"sweep": sweep.launches, "speckle": speckle.launches, **sgm_scan.launches,
+    return {"sweep": sweep.launches, "sweep/band": sweep.band_launches,
+            "speckle": speckle.launches, **sgm_scan.launches,
             **{f"{k}/mgm_scan": v for k, v in sgm_scan.mgm_scan_launches.items()}}
 
 
@@ -662,12 +729,14 @@ def phase_main(dev):
     sgm_left, sgm_right = _make_pair(SGM_HW, SGM_HW)
     calc_left, calc_right = _make_calc_pair(CALC_HW, CALC_HW)
     c3_left, c3_right = (torch.as_tensor(a, device=dev) for a in _calc3_pair())
-    none = {"sweep": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0,
+    none = {"sweep": 0, "sweep/band": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0,
             "scan_bidir/mgm_scan": 0, "mgm_bidir/mgm_scan": 0, "mgm_fwd/mgm_scan": 0}
+    # abs sweeps all on band_sweep_kernel; NCC and census on sweep_kernel
     c3 = {"sweep": 1, "speckle": 0}
-    runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5}, H),
+    c3_abs = {**c3, "sweep/band": 1}
+    runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5, "sweep/band": 5}, H),
             ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
-             {"sweep": 6}, H),
+             {"sweep": 6, "sweep/band": 6}, H),
             ("sgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "sgm"),
              {"scan_bidir": 10, "scan_bidir/mgm_scan": 10}, SGM_HW),
             ("mgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "mgm"),
@@ -684,12 +753,13 @@ def phase_main(dev):
             ("config4_ternary7", lambda: _bench_run(left, right, dev,
                                                     cost_type="ternary_census",
                                                     census_window=7), {"sweep": 5}, H),
-            ("calc3_abs", lambda: _calc3_run(c3_left, c3_right, dev, "abs"), c3, CALC3_OUT),
+            ("calc3_abs", lambda: _calc3_run(c3_left, c3_right, dev, "abs"), c3_abs,
+             CALC3_OUT),
             ("calc3_ncc", lambda: _calc3_run(c3_left, c3_right, dev, "ncc"), c3, CALC3_OUT),
             ("calc3_census7", lambda: _calc3_run(c3_left, c3_right, dev, "census", 7), c3,
              CALC3_OUT),
-            ("k6_best_of_search", lambda: _k6_run(c3_left, c3_right, dev), c3, CALC3_OUT),
-            ("k7_tiled_search", lambda: _k7_run(c3_left, c3_right, dev), c3, CALC3_OUT))
+            ("k6_best_of_search", lambda: _k6_run(c3_left, c3_right, dev), c3_abs, CALC3_OUT),
+            ("k7_tiled_search", lambda: _k7_run(c3_left, c3_right, dev), c3_abs, CALC3_OUT))
     counts = {}
     for what, run, want, hw in runs:
         want = {**none, "speckle": 9, **want}
@@ -698,6 +768,9 @@ def phase_main(dev):
         torch.cuda.synchronize()
         counts[what] = _read_counts()
         print(f"[main] {what}: launches {counts[what]}")
+        if counts[what]["sweep"]:
+            print(f"[main] {what}: {counts[what]['sweep/band']} of {counts[what]['sweep']} "
+                  f"sweep launches on band_sweep_kernel")
         _sanity(dm, what, hw, hw)
         if counts[what] != want:
             raise SystemExit(f"{what}: expected launches {want}, got {counts[what]}")
@@ -878,15 +951,50 @@ def phase_timings(dev):
     print(f"[time] frame calc_disparity_sgm ({CALC_HW}^2, {CALC_SEARCH}): {ms:.4f} ms, "
           f"{frame['calc_sgm']['mps']:.3f} Mp/s")
     rows = {}
+
+    def band_in_turns(key, name, args, k):
+        """ms of band_sweep_kernel<., k> and of sweep_kernel at one shape,
+        in turns (old, new, new, old): between CUDA events, and device time
+        alone (the events also hold the wrapper's host time where a launch
+        is shorter)."""
+        old = lambda: sweep._sweep_cuda(*args, None, None)  # noqa: E731
+        new = lambda: sweep._sweep_cuda(*args, None, k)     # noqa: E731
+        turns = (old, new, new, old)
+        ts = [_time_ms(f, reps=20) for f in turns]
+        ds = [_device_ms(f) for f in turns]
+        print(f"[time] {key} {name} in turns (sweep_kernel, band_sweep_kernel, "
+              f"band_sweep_kernel, sweep_kernel): " + ", ".join(f"{t:.4f}" for t in ts)
+              + " ms; device " + ", ".join("not measured" if t is None else f"{t:.4f}"
+                                           for t in ds) + " ms")
+
+        def median(xs):
+            xs = [x for x in xs if x is not None]
+            return statistics.median(xs) if xs else None
+
+        return {"ms": median(ts[1:3]), "device_ms": median(ds[1:3]),
+                "sweep_kernel_ms": median([ts[0], ts[3]]),
+                "sweep_kernel_device_ms": median([ds[0], ds[3]])}
+
     for i, (key, c, cost, cw) in enumerate(sweep_mode_cases()):
         base, match, offs = _sweep_inputs(c, dev, 100 + i)
         args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, cost,
                 bool(c["ring"]), cw)
-        ms = _time_ms(lambda: sweep.sweep(*args), reps=20)
+        k = _band(c, cost)
+        turns = band_in_turns(key, c["name"], args, k) if k is not None else {}
+        ms = turns.get("ms") or _time_ms(lambda: sweep.sweep(*args), reps=20)
         plain_ms = _time_ms(lambda: sweep.sweep_plain(*args), reps=3, warmup=1)
-        rows[(key, c["name"])] = _row(ms, plain_ms, *_sweep_work(*args))
+        rows[(key, c["name"])] = {**_row(ms, plain_ms, *_sweep_work(*args)), **turns}
     fl, fr = _frame_inputs(dev, 150)
     sx, sy = CALC3_SEARCH
+    # the abs sweeps of config 3 (kernel 6's route) and kernel 7, in turns
+    base, match, offs, t = sweep.frame_sweep_args(fl, fr, sx, sy, kw, kh, "abs")
+    for name, args in (("config3", (base, match, offs, t, sx, sy, kw, kh, "abs", False, 5)),
+                       ("config3_tiles", (*_k7_args(fl, fr, dev), False, 5))):
+        k = sweep._sweep_variant("abs", args[3], args[4], args[5], kw, kh, 0)
+        turns = band_in_turns("sweep", name, args, k)
+        plain_ms = _time_ms(lambda: sweep.sweep_plain(*args), reps=3, warmup=1)
+        rows[("sweep", name)] = {**_row(turns["ms"], plain_ms, *_sweep_work(*args)),
+                                 **turns}
     for key, cost, cw in (("sweep_ncc", "ncc", 5), ("sweep_census_codes", "census", 7)):
         base, match, offs, t = sweep.frame_sweep_args(fl, fr, sx, sy, kw, kh, cost, cw)
         args = (base, match, offs, t, sx, sy, kw, kh, cost, False, cw)
@@ -944,6 +1052,12 @@ def phase_timings(dev):
             extra += (f"; line_scan_kernel<{int(k != 'scan_bidir')}> "
                       f"{r['line_scan_ms']:.4f} ms, "
                       f"{r['line_scan_us_per_step']:.4f} us per step")
+        if "sweep_kernel_ms" in r:
+            dev_new, dev_old = (("not measured" if r[x] is None else f"{r[x]:.4f} ms")
+                                for x in ("device_ms", "sweep_kernel_device_ms"))
+            extra += (f", device {dev_new} (band_sweep_kernel); "
+                      f"sweep_kernel<{int(k == 'sweep_sq')},1> {r['sweep_kernel_ms']:.4f} ms, "
+                      f"device {dev_old}")
         print(f"[time] {k} {name}: {r['ms']:.4f} ms per launch, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}){extra}")
@@ -977,6 +1091,29 @@ def _sweep_work(base, match, offs, tile, sx, sy, kw, kh, cost, want_patches,
     return nbytes, ops + npx * (per * n_ext + SWEEP_OPS_SELECT * n_int)
 
 
+def _device_ms(fn, reps=10, tries=3):
+    """Device time of one sweep launch of ``fn`` (a call launching one): the
+    mean over the launches the profiler recorded in ``reps`` calls. The
+    profiler may miss launches, or a whole session: tried ``tries`` times,
+    then None (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "sweep_kernel" in e.key]
+        n = sum(e.count for e in mine)
+        if n:
+            return sum(e.self_device_time_total for e in mine) / 1e3 / n
+    return None
+
+
 def _profile_frame(run, what, frame_ms, frames=3):
     """Device time per frame by kernel (torch.profiler, CUPTI) and the
     device's busy share of the frame time measured without the profiler."""
@@ -1001,13 +1138,27 @@ def _profile_frame(run, what, frame_ms, frames=3):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile] {what} {e.self_device_time_total / 1e3 / frames:9.4f} ms/frame "
               f"{e.count / frames:6.1f} calls/frame  {e.key[:90]}")
-    for name in ("sweep_kernel", "speckle", "line_scan_kernel", "mgm_scan_kernel"):
-        mine = [e for e in events if name in e.key]
+    kinds = {"sweep (both kernels)": lambda k: "sweep_kernel" in k,
+             "band_sweep_kernel": lambda k: "band_sweep_kernel" in k,
+             "sweep_kernel": lambda k: "sweep_kernel" in k and "band_sweep" not in k,
+             **{n: (lambda k, n=n: n in k)
+                for n in ("speckle", "line_scan_kernel", "mgm_scan_kernel")}}
+    for name, match in kinds.items():
+        mine = [e for e in events if match(e.key)]
         if mine:
             ms = sum(e.self_device_time_total for e in mine) / 1e3 / frames
             print(f"[profile] {what} by kernel: {name} {ms:.4f} ms/frame "
                   f"({ms / busy_ms:.4f} of device time), "
                   f"{sum(e.count for e in mine) / frames:.1f} calls/frame")
+    # each sweep launch of the last frame, in launch order (a pyramid's
+    # levels, coarsest first)
+    launches = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and "sweep_kernel" in e.name), key=lambda e: e.time_range.start)
+    per_frame = len(launches) // frames
+    if per_frame:
+        print(f"[profile] {what} sweep launches of a frame, in order: "
+              + ", ".join(f"{e.time_range.elapsed_us() / 1e3:.4f}"
+                          for e in launches[-per_frame:]) + " ms")
 
 
 def _row(ms, plain_ms, nbytes, ops):
@@ -1073,7 +1224,8 @@ def main() -> int:
             "max_abs_err": err[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
-            **{x: r[x] for x in ("us_per_step", "line_scan_ms") if x in r}})
+            **{x: r[x] for x in ("us_per_step", "line_scan_ms", "device_ms",
+                                 "sweep_kernel_ms", "sweep_kernel_device_ms") if x in r}})
     print(json.dumps({"frame_ms": frame["plain"]["ms"],
                       "frame_mps": frame["plain"]["mps"],
                       "frame_lr_ms": frame["consistency"]["ms"],

@@ -20,6 +20,7 @@ from visionworkbench_tpu.stereo.pyramid_correlation import (
     _tiled_search, _tiled_search_patches,
 )
 from visionworkbench_torch.core.exceptions import ArgumentErr
+from visionworkbench_torch.ops import _build
 from visionworkbench_torch.ops import sweep as tsweep
 from visionworkbench_torch.stereo import correlation as tcorr
 
@@ -192,3 +193,139 @@ def test_launch_error_code_raises():
     _build.check(0, "sweep")
     with pytest.raises(RuntimeError, match="cudaError_t 1"):
         _build.check(1, "sweep")
+
+
+# ---- band_sweep_kernel (the abs/sq instances on the card) -------------------
+
+# (tile, s_x, s_y, ring) of every abs sweep of the bench frame (bench.py:
+# 1024^2, 64x8 search, 15x15 kernel, 4 levels, tile 64): levels 4 to 1, level
+# 0 with the patch ring, the level-0 R->L pass; config 3's calc_disparity
+# (1010^2 output, 32x1 search; kernel 6's route) and kernel 7 (11x1 window)
+MAIN_PATH_SHAPES = {
+    "level4": (64, 4, 1, 0), "level3": (64, 8, 1, 0), "level2": (64, 11, 2, 0),
+    "level1": (64, 11, 4, 0), "level0_patches": (64, 11, 8, 1),
+    "level0_rl": (64, 11, 8, 0),
+    "config3": (tsweep.frame_tile(1010, 1010, 32, 1, 15, 15, "abs"), 32, 1, 0),
+    "kernel7": (64, 11, 1, 0),
+}
+
+
+@pytest.mark.parametrize("cost", ["abs", "sq"])
+@pytest.mark.parametrize("shape", sorted(MAIN_PATH_SHAPES))
+def test_band_kernel_runs_every_main_path_shape(shape, cost):
+    tile, sx, sy, ring = MAIN_PATH_SHAPES[shape]
+    assert tsweep._sweep_variant(cost, tile, sx, sy, 15, 15, ring) == 16
+    # pyramid_correlate's default 21x21 kernel takes the larger instance
+    assert tsweep._sweep_variant(cost, tile, sx, sy, 21, 21, ring) == 24
+
+
+@pytest.mark.parametrize("cost, tile, sx, sy, kw, kh, ring", [
+    ("ncc", 64, 32, 1, 15, 15, 0),            # NCC and census keep sweep_kernel
+    ("census", 64, 11, 8, 15, 15, 1),
+    ("ternary_census", 64, 11, 8, 15, 15, 1),
+    ("abs", 64, 11, 8, 25, 15, 1),            # kernel past the largest bound
+    ("sq", 64, 11, 8, 15, 31, 0),
+    ("abs", 12, 4, 2, 5, 5, 0),               # tile not a multiple of 8
+    ("abs", 256, 4, 2, 5, 5, 0),              # 512 threads a block
+    ("sq", 64, 2000, 4, 15, 15, 0),           # right rows past shared memory
+])
+def test_sweep_kernel_runs_shapes_past_the_band_kernel(cost, tile, sx, sy, kw, kh, ring):
+    assert tsweep._sweep_variant(cost, tile, sx, sy, kw, kh, ring) is None
+
+
+def _row_thread(tid, tile):
+    """csrc/sweep.cu's row-thread map: band row and first pixel of thread
+    ``tid`` (a warp spans 8 rows x 4 segments)."""
+    nseg = tile // _build.SWEEP_SEG
+    return ((tid & 7) + 8 * ((tid >> 3) // nseg),
+            ((tid >> 3) % nseg) * _build.SWEEP_SEG)
+
+
+@pytest.mark.parametrize("kw", [3, 15, 24])
+@pytest.mark.parametrize("tile", [8, 16, 24, 32, 64, 128])
+def test_band_grid_covers_every_output_row_once(tile, kw):
+    """Bands of SWEEP_BAND_ROWS rows (the last cut at the tile's edge, here
+    also where the band height does not divide the tile) and the row
+    threads of each band cover every output pixel of a tile exactly once;
+    there are threads for every column of the column pass."""
+    rows, seg = _build.SWEEP_BAND_ROWS, _build.SWEEP_SEG
+    bands, threads, _ = tsweep._band_geometry(tile, 11, 8, kw, 1, 24)
+    assert threads % 32 == 0 and tile + kw - 1 <= threads <= _build.SWEEP_BAND_MAX_THREADS
+    covered = np.zeros((tile, tile), int)
+    for band in range(bands):
+        for tid in range(rows * (tile // seg)):
+            o, x0 = _row_thread(tid, tile)
+            assert 0 <= o < rows
+            if band * rows + o < tile:
+                covered[band * rows + o, x0:x0 + seg] += 1
+    np.testing.assert_array_equal(covered, 1)
+
+
+def _band_inputs(seed, case, ring, grid):
+    """_inputs, or with ``grid`` False the same frames off the 1/256 grid
+    (uniform noise), where a change of summation order shows."""
+    base, match, offsets = _inputs(seed, case, ring)
+    if not grid:
+        rng = np.random.default_rng(seed + 1)
+        base = base + rng.random(base.shape, np.float32) / 7
+        match = match + rng.random(match.shape, np.float32) / 7
+        match[2:2 + base.shape[0], 3:3 + base.shape[1]] = base[:match.shape[0] - 2,
+                                                               :match.shape[1] - 3]
+    return base, match, offsets
+
+
+# (cost, tile, kw, kh, s_x, s_y, nty, ntx): odd kernels, tiles 8 to 128
+# (24: the band height does not divide it; 128: 256 threads), the larger
+# instance (21x17)
+BAND_CASES = [
+    ("abs", 8, 5, 3, 6, 4, 2, 3),
+    ("sq", 16, 7, 7, 11, 2, 2, 2),
+    ("abs", 24, 9, 5, 4, 3, 2, 1),
+    ("abs", 32, 11, 9, 7, 3, 2, 2),
+    ("abs", 64, 15, 15, 11, 8, 2, 2),
+    ("sq", 64, 21, 17, 5, 3, 1, 2),
+    ("sq", 128, 15, 13, 4, 2, 1, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [True, False], ids=["quantized", "off_grid"])
+@pytest.mark.parametrize("want_patches", [False, True])
+@pytest.mark.parametrize("case", BAND_CASES)
+def test_band_kernel_matches_plain_and_sweep_kernel(cuda, case, want_patches, grid):
+    """band_sweep_kernel equals the plain version and sweep_kernel bit for
+    bit (disp, valid, patches, best), quantized or not. sweep_kernel does
+    not take a tile of 128 (1024 threads, past an SM's registers): that
+    case is held against the plain version alone."""
+    cost, tile, kw, kh, sx, sy, nty, ntx = case
+    k = tsweep._sweep_variant(cost, tile, sx, sy, kw, kh, int(want_patches))
+    assert k is not None
+    t = [torch.as_tensor(a, device=cuda)
+         for a in _band_inputs(17, case, int(want_patches), grid)]
+    args = (*t, tile, sx, sy, kw, kh, cost, want_patches, 5)
+    best = [torch.empty(nty * tile, ntx * tile, device=cuda) for _ in range(3)]
+    before = (tsweep.launches, tsweep.band_launches)
+    got = (*tsweep.sweep(*args, best_out=best[0]), best[0])
+    assert (tsweep.launches, tsweep.band_launches) == (before[0] + 1, before[1] + 1)
+    refs = [(*tsweep.sweep_plain(*args, best_out=best[1]), best[1])]
+    if tile <= 64:
+        refs.append((*tsweep._sweep_cuda(*args, best[2], None), best[2]))
+        assert tsweep.band_launches == before[1] + 1     # it ran sweep_kernel
+    for ref in refs:
+        for a, b in zip(got, ref):
+            if b is not None:
+                np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_band_limits_reach_nvcc(monkeypatch):
+    """The band kernel's layout and bounds are set once, in ops/_build.py:
+    nvcc gets them as macros, and another value builds another library."""
+    flags = _build.flags("sweep")
+    for macro, value in (("ROWS", _build.SWEEP_BAND_ROWS), ("K0", _build.SWEEP_BAND_K[0]),
+                         ("K1", _build.SWEEP_BAND_K[1]), ("SEG", _build.SWEEP_SEG),
+                         ("MAX_THREADS", _build.SWEEP_BAND_MAX_THREADS)):
+        name = "SEG" if macro == "SEG" else f"BAND_{macro}"
+        assert f"-DVW_SWEEP_{name}={value}" in flags
+    path = _build.library_path("sweep")
+    monkeypatch.setitem(_build.DEFINES, "sweep", flags[len(_build.NVCC_FLAGS):-1])
+    assert _build.library_path("sweep") != path

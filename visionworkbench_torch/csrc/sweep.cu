@@ -1,5 +1,6 @@
 // Per-tile block-matching sweep for Hopper (sm_90a), with a plain C
 // interface loaded through ctypes (visionworkbench_torch/ops/sweep.py).
+// ops/_build.py sets the band kernel's limits (VW_SWEEP_*).
 //
 // Replaces the TPU kernel visionworkbench_tpu/ops/sweep.py:_pallas_sweep
 // (pl.pallas_call at :603, body _make_sweep_kernel :193) for all five
@@ -37,14 +38,35 @@
 //     recomputes the nine costs at each winner +-1 (in the same order, so
 //     the patch holds exactly the sweep's costs) for the parabola fit.
 //
-// What bounds it on the H100: shared-memory loads. The left tile and the
-// right window (floats, or 1-2 code words a pixel) are staged once per
-// block in dynamic shared memory (opt-in above 48 KB; 2-word codes at the
-// 1024^2 census frame's level 0 take ~111 KB + the column buffer), so
-// device memory sees each input about once; every candidate then re-reads
-// the staged planes (about 2*kh + kw shared loads per pixel and
-// candidate). Sliding running sums would cut that to O(1) per pixel but
-// change the fp32 summation order; this kernel keeps the order exact. The
+// Two kernels. band_sweep_kernel runs the abs and sq costs (the main
+// path's instance, ops/sweep.py:_sweep_variant picks it); sweep_kernel runs
+// NCC and census, and any abs/sq shape past the band kernel's limits.
+//
+// band_sweep_kernel: one block per (tile, band of kBand output rows), so
+// even a pyramid's coarse levels launch enough blocks (level 2 of the bench
+// frame: 64 instead of 16). Only the band's right rows are staged in shared
+// memory; each thread of the column pass owns one of the T + kw - 1
+// columns, holds that column's left values in registers for the whole
+// sweep, and per candidate loads its right column once (consecutive lanes,
+// consecutive words) to form the band's kBand column sums, each over kh
+// terms top to bottom. Each thread of the row pass owns kSeg consecutive
+// output pixels of one row, reads the kSeg + kw - 1 column sums once and
+// forms each window sum over kw left to right: the plain order, so the
+// outputs equal sweep_kernel's and the plain version's bit for bit on any
+// input. The column sums are double-buffered (one barrier a candidate); the
+// row threads' lanes span 8 rows x 4 segments and the buffer's row stride
+// is odd, so their loads do not conflict. The patch pass marks, in a
+// bit set, the candidates that some pixel of the band needs (its winner
+// +-1) and runs the same two passes over those only, each pixel keeping
+// the sums of its own nine: a smooth disparity field needs few of the
+// ring window's candidates, a noisy one up to all of them. What bounds
+// it: the issue of the exact-order adds (kh per column sum, kw per window
+// sum; ~60 instructions per pixel and candidate in all, at about half the
+// card's issue rate on the H100), not loads or bytes.
+//
+// sweep_kernel: one block per T x T tile with the whole left block and
+// right window staged; every candidate re-reads the staged planes (about
+// 2*kh + kw shared loads per pixel and candidate), which bounds it. The
 // TPU kernel's bf16 hi/lo split matmuls, (8, 128) alignment, pltpu.roll
 // and SMEM (2, N) offset layout are TPU workarounds and are not carried
 // over.
@@ -344,6 +366,218 @@ cudaError_t launch(const Args& a, int nty, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+
+// ---- band_sweep_kernel: the abs and sq costs --------------------------------
+
+constexpr int kBand = VW_SWEEP_BAND_ROWS;     // output rows a block
+constexpr int kSeg = VW_SWEEP_SEG;            // output pixels a row thread
+constexpr int kBandMaxThreads = VW_SWEEP_BAND_MAX_THREADS;
+static_assert(kBand % 8 == 0, "row threads span 8 rows a warp");
+
+struct BandArgs {
+  const float* base;         // (>= nty*T + kh - 1, wb)
+  int wb;
+  const float* match;        // (hm, wm)
+  int hm, wm;
+  const int* offsets;        // (nty, ntx, 2) per-tile (dx, dy)
+  int ntx, T, sx, sy, kw, kh, ring;
+  int* disp;                 // (nty*T, ntx*T, 2)
+  unsigned char* valid;      // (nty*T, ntx*T)
+  float* patches;            // (9, nty*T, ntx*T) with ring, else null
+  float* best;               // (nty*T, ntx*T) or null
+};
+
+// Column pass of one candidate for one column: lv holds the column's left
+// values (band rows 0 .. kBand + K - 2), Rc points at the staged right value
+// of band row 0 at the candidate, rw apart a row; writes the kBand column
+// sums over kh rows, each top to bottom, cs apart.
+template <int COST, int K>
+__device__ __forceinline__ void band_columns(const float (&lv)[kBand + K - 1],
+                                             const float* Rc, int rw, int kh,
+                                             float* Cc, int cs) {
+  constexpr int NR = kBand + K - 1;
+  float d[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const float v = lv[r] - Rc[r * rw];
+    d[r] = COST == kSq ? v * v : v;
+  }
+  float acc[kBand];
+#pragma unroll
+  for (int o = 0; o < kBand; ++o) acc[o] = 0.f;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < kh) {
+#pragma unroll
+      for (int o = 0; o < kBand; ++o) acc[o] += COST == kAbs ? fabsf(d[o + i]) : d[o + i];
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < kBand; ++o) Cc[o * cs] = acc[o];
+}
+
+// Row pass: the kSeg window sums starting at Cr, each over kw column sums
+// left to right.
+template <int K>
+__device__ __forceinline__ void band_windows(const float* Cr, int kw, float (&s)[kSeg]) {
+  constexpr int NC = kSeg + K - 1;
+  float cw[NC];
+#pragma unroll
+  for (int m = 0; m < NC; ++m) cw[m] = Cr[m];
+#pragma unroll
+  for (int q = 0; q < kSeg; ++q) s[q] = 0.f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (j < kw) {
+#pragma unroll
+      for (int q = 0; q < kSeg; ++q) s[q] += cw[q + j];
+    }
+  }
+}
+
+// Shared memory, in order: the band's right rows ((kBand + K - 1 + sy_e - 1)
+// x rw, zero past the window), two buffers of kBand x cs column sums, then
+// the patch pass's bit set over the ring window's candidates. ops/sweep.py
+// (_band_geometry) sizes it and picks the threads: at least T + kw - 1
+// (column threads) and kBand * T / kSeg (row threads). K bounds kw and kh.
+template <int COST, int K>
+__global__ void __launch_bounds__(kBandMaxThreads) band_sweep_kernel(const BandArgs a) {
+  constexpr int NR = kBand + K - 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = a.T, kw = a.kw, kh = a.kh, sx = a.sx, sy = a.sy, ring = a.ring;
+  const int sx_e = sx + 2 * ring, sy_e = sy + 2 * ring;
+  const int lh = T + kh - 1, lw = T + kw - 1;
+  const int rh = lh + sy_e - 1, rw = lw + sx_e - 1;
+  const int rrows = NR + sy_e - 1;
+  const int cs = (T + K - 1) | 1;            // odd: row threads' loads do not conflict
+  float* R = reinterpret_cast<float*>(smem);
+  float* C = R + rrows * rw;
+  unsigned* need = reinterpret_cast<unsigned*>(C + 2 * kBand * cs);
+
+  const int tx = blockIdx.x, ty = blockIdx.y, y0 = blockIdx.z * kBand;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int t = ty * a.ntx + tx;
+  const int off_x = a.offsets[2 * t], off_y = a.offsets[2 * t + 1];
+  const int by0 = ty * T, bx0 = tx * T;
+  const int ry0 = min(max(by0 + off_y, 0), a.hm - rh);
+  const int rx0 = min(max(bx0 + off_x, 0), a.wm - rw);
+
+  for (int i = tid; i < rrows * rw; i += nt) {
+    const int r = i / rw, c = i - r * rw;
+    R[i] = y0 + r < rh ? a.match[(size_t)(ry0 + y0 + r) * a.wm + rx0 + c] : 0.f;
+  }
+  const int n_ext = sx_e * sy_e;
+  for (int i = tid; i < (n_ext + 31) / 32; i += nt) need[i] = 0u;
+  // column thread tid: its left column, in registers for the whole sweep
+  const bool colt = tid < lw;
+  float lv[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    lv[r] = colt && y0 + r < lh ? a.base[(size_t)(by0 + y0 + r) * a.wb + bx0 + tid] : 0.f;
+  // row thread tid: band row o, pixels x0 .. x0 + kSeg - 1; a warp spans
+  // 8 rows x 4 segments
+  const int nseg = T / kSeg;
+  const int o = (tid & 7) + 8 * ((tid >> 3) / nseg);
+  const int x0 = ((tid >> 3) % nseg) * kSeg;
+  const bool rowt = tid < kBand * nseg;
+  const bool outp = rowt && y0 + o < T;
+  __syncthreads();
+
+  const float inf = __int_as_float(0x7f800000);
+  float best[kSeg], worst[kSeg];
+  int arg[kSeg];
+#pragma unroll
+  for (int q = 0; q < kSeg; ++q) {
+    best[q] = inf;
+    worst[q] = -inf;
+    arg[q] = 0;
+  }
+  int k = 0;                                  // candidates run: buffer k & 1
+  for (int ey = ring; ey < ring + sy; ++ey) {
+    for (int ex = ring; ex < ring + sx; ++ex, ++k) {
+      float* Cb = C + (k & 1) * kBand * cs;
+      if (colt) band_columns<COST, K>(lv, R + ey * rw + ex + tid, rw, kh, Cb + tid, cs);
+      __syncthreads();
+      if (rowt) {
+        float s[kSeg];
+        band_windows<K>(Cb + o * cs + x0, kw, s);
+        const int cand = (ey - ring) * sx + (ex - ring);
+#pragma unroll
+        for (int q = 0; q < kSeg; ++q) {
+          if (s[q] < best[q]) {
+            best[q] = s[q];
+            arg[q] = cand;
+          }
+          if (s[q] > worst[q]) worst[q] = s[q];
+        }
+      }
+    }
+  }
+
+  const int w_out = gridDim.x * T;
+  const size_t row0 = (size_t)(by0 + y0 + o) * w_out + bx0 + x0;
+  if (outp) {
+#pragma unroll
+    for (int q = 0; q < kSeg; ++q) {
+      const size_t p = row0 + q;
+      const bool v = best[q] != worst[q];    // true for NaN
+      const int ax = arg[q] % sx, ay = arg[q] / sx;
+      a.disp[2 * p] = (v ? ax : 0) + off_x;
+      a.disp[2 * p + 1] = (v ? ay : 0) + off_y;
+      a.valid[p] = v ? 1 : 0;
+      if (a.best) a.best[p] = best[q];
+    }
+  }
+  if (!ring) return;                          // uniform over the block
+  // Patch pass. The winner's window index (ax, ay) is the ring window's
+  // index of its patch's top-left candidate.
+  int px[kSeg], py[kSeg];
+#pragma unroll
+  for (int q = 0; q < kSeg; ++q) {
+    py[q] = arg[q] / sx;
+    px[q] = arg[q] - py[q] * sx;
+    if (outp) {
+      for (int dy = 0; dy < 3; ++dy)
+        for (int dx = 0; dx < 3; ++dx) {
+          const int c = (py[q] + dy) * sx_e + px[q] + dx;
+          atomicOr(&need[c >> 5], 1u << (c & 31));
+        }
+    }
+  }
+  __syncthreads();
+  const size_t plane = (size_t)gridDim.y * T * w_out;
+  for (int ey = 0; ey < sy_e; ++ey) {
+    for (int ex = 0; ex < sx_e; ++ex) {
+      const int c = ey * sx_e + ex;
+      if (!((need[c >> 5] >> (c & 31)) & 1u)) continue;   // uniform
+      float* Cb = C + (k & 1) * kBand * cs;
+      ++k;
+      if (colt) band_columns<COST, K>(lv, R + ey * rw + ex + tid, rw, kh, Cb + tid, cs);
+      __syncthreads();
+      if (outp) {
+        float s[kSeg];
+        band_windows<K>(Cb + o * cs + x0, kw, s);
+#pragma unroll
+        for (int q = 0; q < kSeg; ++q) {
+          const unsigned ky = ey - py[q], kx = ex - px[q];
+          if (ky < 3u && kx < 3u) a.patches[(size_t)(ky * 3 + kx) * plane + row0 + q] = s[q];
+        }
+      }
+    }
+  }
+}
+
+template <int COST, int K>
+cudaError_t launch_band(const BandArgs& a, int nty, int bands, int threads,
+                        size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      band_sweep_kernel<COST, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  band_sweep_kernel<COST, K><<<dim3(a.ntx, nty, bands), threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int vw_sweep_pixels_per_thread() { return kPer; }
@@ -385,4 +619,33 @@ extern "C" int vw_sweep(const void* base, int hb, int wb, const void* match,
       return -1;
     default: return -1;
   }
+}
+
+// The abs (cost 0) and sq (cost 1) sweep on band_sweep_kernel<cost, k>, k
+// one of VW_SWEEP_BAND_K (bounds kw and kh): bands blocks a tile of
+// threads, smem bytes (ops/sweep.py:_band_geometry). Arguments and return
+// as vw_sweep's.
+extern "C" int vw_band_sweep(const float* base, int hb, int wb, const float* match,
+                             int hm, int wm, const int* offsets, int nty, int ntx,
+                             int T, int sx, int sy, int kw, int kh, int cost,
+                             int ring, int k, int* disp, unsigned char* valid,
+                             float* patches, float* best, int bands, int threads,
+                             long long smem, void* stream) {
+  if (T % kSeg || kw > k || kh > k || threads > kBandMaxThreads) return -1;
+  BandArgs a{};
+  a.base = base; a.wb = wb;
+  a.match = match; a.hm = hm; a.wm = wm;
+  a.offsets = offsets; a.ntx = ntx; a.T = T; a.sx = sx; a.sy = sy;
+  a.kw = kw; a.kh = kh; a.ring = ring;
+  a.disp = disp; a.valid = valid; a.patches = patches; a.best = best;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = (size_t)smem;
+  if (k == VW_SWEEP_BAND_K0) {
+    if (cost == kAbs) return launch_band<kAbs, VW_SWEEP_BAND_K0>(a, nty, bands, threads, sm, s);
+    if (cost == kSq) return launch_band<kSq, VW_SWEEP_BAND_K0>(a, nty, bands, threads, sm, s);
+  } else if (k == VW_SWEEP_BAND_K1) {
+    if (cost == kAbs) return launch_band<kAbs, VW_SWEEP_BAND_K1>(a, nty, bands, threads, sm, s);
+    if (cost == kSq) return launch_band<kSq, VW_SWEEP_BAND_K1>(a, nty, bands, threads, sm, s);
+  }
+  return -1;
 }

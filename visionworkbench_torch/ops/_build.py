@@ -30,8 +30,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # a block).
 MGM_MAX_CELLS = 16
 MGM_MAX_LANES = 512
+# The layout and limits of csrc/sweep.cu's band kernel (the abs/sq sweep),
+# read by ops/sweep.py:_sweep_variant and _band_geometry: output rows a
+# block, output pixels a row thread, the instances' bounds on kw and kh (one
+# instance each), threads a block.
+SWEEP_BAND_ROWS = 16
+SWEEP_SEG = 8
+SWEEP_BAND_K = (16, 24)
+SWEEP_BAND_MAX_THREADS = 256
 DEFINES = {"mgm_scan": (f"-DVW_MGM_MAX_CELLS={MGM_MAX_CELLS}",
-                        f"-DVW_MGM_MAX_LANES={MGM_MAX_LANES}")}
+                        f"-DVW_MGM_MAX_LANES={MGM_MAX_LANES}"),
+           "sweep": (f"-DVW_SWEEP_BAND_ROWS={SWEEP_BAND_ROWS}",
+                     f"-DVW_SWEEP_SEG={SWEEP_SEG}",
+                     f"-DVW_SWEEP_BAND_K0={SWEEP_BAND_K[0]}",
+                     f"-DVW_SWEEP_BAND_K1={SWEEP_BAND_K[1]}",
+                     f"-DVW_SWEEP_BAND_MAX_THREADS={SWEEP_BAND_MAX_THREADS}")}
 
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -18,10 +18,14 @@ each tile's crop as the XLA engine does (the pyramid path), or int32 code
 planes (H, W, n_words) computed beforehand over whole frames
 (:func:`search_frame`, the path of ``best_of_search_convolution``).
 
-What bounds the kernel on the H100, and what its design does about it: see
-the note at the top of ``csrc/sweep.cu`` (shared-memory loads; the tile and
-its window are staged once per block, window sums are exact in a fixed
-order, and the patches are recomputed at each winner in a second pass).
+On the card the abs and sq costs run ``band_sweep_kernel`` (one block per
+band of output rows of a tile; :func:`_sweep_variant` picks its instance),
+the other costs, and abs/sq shapes past its limits, ``sweep_kernel``. Both
+sum every window in the plain version's order, so they agree with it and
+with each other bit for bit on any input. What bounds each on the H100,
+and what its design does about it: see the note at the top of
+``csrc/sweep.cu`` (the band kernel: the issue of the exact-order adds;
+``sweep_kernel``: shared-memory loads).
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ from visionworkbench_torch.stereo.correlation import (
 )
 
 # Kernel launches since the count was last set to 0 (the wrapper adds one
-# per launch of the CUDA kernel, and nowhere else).
+# per launch of a CUDA kernel, and nowhere else), and of those the launches
+# of band_sweep_kernel (the rest ran sweep_kernel).
 launches = 0
+band_launches = 0
 
 _MAX_THREADS = 1024
 _MAX_SMEM = 232448        # bytes of shared memory one H100 block may opt into
@@ -63,6 +69,10 @@ def _library():
         lib.vw_sweep.restype = i
         lib.vw_sweep_pixels_per_thread.argtypes = []
         lib.vw_sweep_pixels_per_thread.restype = i
+        lib.vw_band_sweep.argtypes = [p, i, i, p, i, i, p, i, i, i, i, i, i,
+                                      i, i, i, i, p, p, p, p, i, i,
+                                      ctypes.c_longlong, p]
+        lib.vw_band_sweep.restype = i
         _lib = lib
     return _lib
 
@@ -160,6 +170,43 @@ def sweep_plain(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
     return untile(disp), untile(valid), patch
 
 
+def _band_geometry(tile: int, s_x: int, s_y: int, kw: int, ring: int,
+                   k: int):
+    """``(bands, threads, smem bytes)`` of one tile of
+    ``band_sweep_kernel<., k>``: bands of ``_build.SWEEP_BAND_ROWS`` output
+    rows (the last one cut at the tile's edge); threads for the tile + kw - 1
+    columns of the column pass and the rows x segments of the row pass;
+    shared memory laid out as in ``csrc/sweep.cu``: the band's right rows,
+    two buffers of column sums (an odd row stride), the patch pass's bit set
+    over the ring window."""
+    rows, seg = _build.SWEEP_BAND_ROWS, _build.SWEEP_SEG
+    bands = -(-tile // rows)
+    threads = -(-max(rows * (tile // seg), tile + kw - 1) // 32) * 32
+    sx_e, sy_e = s_x + 2 * ring, s_y + 2 * ring
+    right = (rows + k - 1 + sy_e - 1) * (tile + kw - 1 + sx_e - 1)
+    cs = (tile + k - 1) | 1
+    return bands, threads, 4 * (right + 2 * rows * cs + -(-sx_e * sy_e // 32))
+
+
+def _sweep_variant(cost_type: str, tile: int, s_x: int, s_y: int, kw: int,
+                   kh: int, ring: int):
+    """The bound K of the ``band_sweep_kernel`` instance that runs the
+    shape (the smallest of ``_build.SWEEP_BAND_K`` that holds kw and kh), or
+    None where ``sweep_kernel`` runs it: NCC and census costs, tiles not a
+    multiple of ``_build.SWEEP_SEG``, kernels past the largest bound, and
+    shapes that would need more than ``_build.SWEEP_BAND_MAX_THREADS``
+    threads or more shared memory than a block may have."""
+    if cost_type not in (ABSOLUTE_DIFFERENCE, SQUARED_DIFFERENCE) or tile % _build.SWEEP_SEG:
+        return None
+    k = next((b for b in _build.SWEEP_BAND_K if max(kw, kh) <= b), None)
+    if k is None:
+        return None
+    _, threads, smem = _band_geometry(tile, s_x, s_y, kw, ring, k)
+    if threads > _build.SWEEP_BAND_MAX_THREADS or smem > _MAX_SMEM:
+        return None
+    return k
+
+
 def sweep(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
           kh: int, cost_type: str = ABSOLUTE_DIFFERENCE,
           want_patches: bool = True, census_window: int = 5, best_out=None):
@@ -172,9 +219,9 @@ def sweep(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
     an optional (nty*tile, ntx*tile) float32 tensor, receives the best
     metric.
 
-    CPU tensors run :func:`sweep_plain`; CUDA tensors launch the kernel or
-    raise."""
-    global launches
+    CPU tensors run :func:`sweep_plain`; CUDA tensors launch the kernel
+    (``band_sweep_kernel`` where :func:`_sweep_variant` has an instance,
+    else ``sweep_kernel``) or raise."""
     tile, s_x, s_y, kw, kh = int(tile), int(s_x), int(s_y), int(kw), int(kh)
     census_window = int(census_window)
     if base.device.type == "cpu":
@@ -182,6 +229,16 @@ def sweep(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
                            cost_type, want_patches, census_window, best_out)
     if base.device.type != "cuda":
         raise ArgumentErr(f"sweep: unsupported device {base.device}")
+    k = _sweep_variant(cost_type, tile, s_x, s_y, kw, kh, int(want_patches))
+    return _sweep_cuda(base, match, offsets, tile, s_x, s_y, kw, kh,
+                       cost_type, want_patches, census_window, best_out, k)
+
+
+def _sweep_cuda(base, match, offsets, tile, s_x, s_y, kw, kh, cost_type,
+                want_patches, census_window, best_out, k):
+    """The card's :func:`sweep`: ``band_sweep_kernel<cost, k>``, or
+    ``sweep_kernel`` where ``k`` is None."""
+    global launches, band_launches
     census, codes_in, n_words = _check_cost(cost_type, want_patches,
                                             census_window, base)
     ring = 1 if want_patches else 0
@@ -200,37 +257,49 @@ def sweep(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
     if best_out is not None and tuple(best_out.shape) != (h, w):
         raise ArgumentErr(f"sweep: best_out must be {(h, w)}")
     lib = _library()
-    per = lib.vw_sweep_pixels_per_thread()
-    threads = -(-tile * tile // per)
-    threads = -(-threads // 32) * 32
-    smem = smem_bytes(tile, s_x, s_y, kw, kh, ring, cost_type, n_words, codes_in)
-    if threads > _MAX_THREADS or smem > _MAX_SMEM:
-        raise ArgumentErr(
-            f"sweep: tile {tile} with kernel {kw}x{kh} and window "
-            f"{s_x}x{s_y} ({cost_type}) needs {threads} threads and {smem} B "
-            f"of shared memory per block; the CUDA sweep takes at most "
-            f"{_MAX_THREADS} and {_MAX_SMEM}")
-    pos = (census_positions(census_window, cost_type == TERNARY_CENSUS_TRANSFORM)
-           if census else [])
-    pos_arr = (ctypes.c_int * max(2 * len(pos), 1))(*[v for p in pos for v in p])
+    if k is not None:
+        bands, threads, smem = _band_geometry(tile, s_x, s_y, kw, ring, k)
+    else:
+        per = lib.vw_sweep_pixels_per_thread()
+        threads = -(-tile * tile // per)
+        threads = -(-threads // 32) * 32
+        smem = smem_bytes(tile, s_x, s_y, kw, kh, ring, cost_type, n_words,
+                          codes_in)
+        if threads > _MAX_THREADS or smem > _MAX_SMEM:
+            raise ArgumentErr(
+                f"sweep: tile {tile} with kernel {kw}x{kh} and window "
+                f"{s_x}x{s_y} ({cost_type}) needs {threads} threads and {smem} B "
+                f"of shared memory per block; the CUDA sweep takes at most "
+                f"{_MAX_THREADS} and {_MAX_SMEM}")
     dev = base.device
     disp = torch.empty((h, w, 2), dtype=torch.int32, device=dev)
     valid = torch.empty((h, w), dtype=torch.bool, device=dev)
     patches = (torch.empty((9, h, w), dtype=torch.float32, device=dev)
                if want_patches else None)
+    outs = (disp.data_ptr(), valid.data_ptr(),
+            patches.data_ptr() if want_patches else None,
+            best_out.data_ptr() if best_out is not None else None)
+    frames = (base.data_ptr(), base.shape[0], base.shape[1], match.data_ptr(),
+              match.shape[0], match.shape[1], offsets.data_ptr(), nty, ntx,
+              tile, s_x, s_y, kw, kh, _COST_CODE[cost_type], ring)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vw_sweep(
-            base.data_ptr(), base.shape[0], base.shape[1], match.data_ptr(),
-            match.shape[0], match.shape[1], offsets.data_ptr(), nty, ntx,
-            tile, s_x, s_y, kw, kh, _COST_CODE[cost_type], ring, n_words,
-            int(codes_in), pos_arr, len(pos),
-            int(cost_type == TERNARY_CENSUS_TRANSFORM), disp.data_ptr(),
-            valid.data_ptr(), patches.data_ptr() if want_patches else None,
-            best_out.data_ptr() if best_out is not None else None, threads,
-            smem, stream)
+        if k is not None:
+            err = lib.vw_band_sweep(*frames, k, *outs, bands, threads, smem,
+                                    stream)
+        else:
+            pos = (census_positions(census_window,
+                                    cost_type == TERNARY_CENSUS_TRANSFORM)
+                   if census else [])
+            pos_arr = (ctypes.c_int * max(2 * len(pos), 1))(
+                *[v for p in pos for v in p])
+            err = lib.vw_sweep(*frames, n_words, int(codes_in), pos_arr,
+                               len(pos), int(cost_type == TERNARY_CENSUS_TRANSFORM),
+                               *outs, threads, smem, stream)
     _build.check(err, "sweep")
     launches += 1
+    if k is not None:
+        band_launches += 1
     return disp, valid, patches
 
 
