@@ -7,20 +7,26 @@ Phases (each raises on a mismatch; none catches its own failure):
 1. Build the CUDA kernels from ``visionworkbench_torch/csrc/`` (one nvcc per
    source, started together), print each build's registers and spills (and
    fail if an instance of the register-carry SGM/MGM kernel that the
-   wrappers can select, or of the abs/sq sweep's band kernel, spills), and
-   print the card's name and power limit.
+   wrappers can select, or of the sweep's band kernels -- abs/sq and
+   census, 1 and 2 words, every K -- spills), and print the card's name and
+   power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
    to the 1/256 grid (integer disparities, validity, cost patches and keep
    masks exact) -- the sweep with abs and census 5x5 costs at the bench and
    config-4 shapes (levels 4 to 0 and the level-0 R->L pass; the abs cases,
-   and one sq case, on ``band_sweep_kernel``, each also against
-   ``sweep_kernel<0,1>`` and also on off-grid inputs, the bench texture,
-   where the summation order shows), ternary census 7x7 at level 0, NCC and the full-frame
-   census 7x7 codes at config 3's shape (NCC with black blocks in both
-   frames, so zero-energy windows give NaN metrics), and the entry points of
-   the first-generation sweeps (``ops/cost_volume.py``, on the band
-   kernel) -- and the three
+   and one sq case, on ``band_sweep_kernel``, the census ones on
+   ``band_census_kernel``, each also against ``sweep_kernel<cost, words>``
+   and also on off-grid inputs, the bench texture, where the summation
+   order shows and the codes have structure across band boundaries),
+   ternary census 7x7 at level 0 (the census band kernel), NCC and the
+   full-frame census 7x7 codes at config 3's shape (NCC with black blocks in
+   both frames, so zero-energy windows give NaN metrics; the code planes'
+   sweep also against ``sweep_kernel<3,2>``), a tile of 128 at level 1's
+   shape (NCC on ``sweep_kernel``, its pixels in rounds; census on the band
+   kernel and against ``sweep_kernel``), and the entry points of the
+   first-generation sweeps (``ops/cost_volume.py``, on the band kernel) --
+   and the three
    SGM/MGM scans on integer-valued inputs (exact), with the scan carry in
    shared memory and, for ``calc_disparity_sgm``'s 64x8 search, in global
    scratch. The three scans run the register-carry kernel
@@ -45,8 +51,8 @@ Phases (each raises on a mismatch; none catches its own failure):
    1024^2, 32x1 search, 15x15, the right frame edge-padded by 31 columns)
    with abs, ncc and census 7x7 costs; and the entry points of TPU kernels
    6 and 7 on config 3's frames; apply ``bench.py``'s sanity check to each
-   (every abs sweep launch on ``band_sweep_kernel``, the others on
-   ``sweep_kernel``).
+   (every abs sweep launch on ``band_sweep_kernel``, every census one on
+   ``band_census_kernel``, NCC on ``sweep_kernel``).
 4. Run the slices small on the card and on the CPU (plain versions) on
    quantized inputs: BM at 256^2 with 2 levels (integer disparities and
    validity equal, the parabola output allclose at atol 1e-4), the same BM
@@ -60,9 +66,10 @@ Phases (each raises on a mismatch; none catches its own failure):
    ncc and ternary census 7x7 at 128^2 (equal).
 5. Time the frames and each kernel with CUDA events (the scans on the
    register-carry kernel in turns with ``line_scan_kernel<0>`` / ``<1>`` at
-   the same shapes, with us per step; the abs sweep on ``band_sweep_kernel``
-   in turns with ``sweep_kernel<0,1>``), and profile one frame of each path
-   for the device's idle share and its device time by kernel name.
+   the same shapes, with us per step; each abs and census sweep shape on its
+   band kernel in turns with ``sweep_kernel<cost, words>``), and profile
+   one frame of each path for the device's idle share and its device time
+   by kernel name (the three sweep kernels apart).
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -212,12 +219,17 @@ def _mgm_instances(table):
 
 
 def _band_instances(table):
-    """{(cost, K): ptxas entry} of csrc/sweep.cu's band_sweep_kernel."""
+    """{(cost, K): ptxas entry} of csrc/sweep.cu's band kernels:
+    band_sweep_kernel<cost, K> (abs, sq) and band_census_kernel<n_words, K>
+    (census1, census2)."""
     out = {}
     for name, v in table.items():
         m = re.search(r"band_sweep_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             out[(("abs", "sq")[int(m[1])], int(m[2]))] = v
+        m = re.search(r"band_census_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            out[(f"census{m[1]}", int(m[2]))] = v
     return out
 
 
@@ -236,12 +248,13 @@ def phase_build():
             if name == "sweep":
                 band = _band_instances(table)
                 bad = [key for key, v in band.items() if v["spill"] or v["stack"]]
-                want = {(c, k) for c in ("abs", "sq") for k in _build.SWEEP_BAND_K}
-                print(f"[build] sweep: band_sweep_kernel (cost, K): "
+                want = {(c, k) for c in ("abs", "sq", "census1", "census2")
+                        for k in _build.SWEEP_BAND_K}
+                print(f"[build] sweep: band kernels (cost or census words, K): "
                       f"{ {key: band[key]['regs'] for key in sorted(band)} } registers; "
                       f"instances that spill: {bad or 'none'}")
                 if set(band) != want or bad:
-                    raise SystemExit(f"sweep: band_sweep_kernel instances {sorted(band)} "
+                    raise SystemExit(f"sweep: band kernel instances {sorted(band)} "
                                      f"(want {sorted(want)}), spilling: {bad}")
             continue
         inst = _mgm_instances(table)
@@ -327,15 +340,44 @@ def sweep_mode_cases():
         if c["name"] == "level0_patches":
             rows.append(("sweep_sq", c, "sq", 5))
             rows.append(("sweep_ternary_census", c, "ternary_census", 7))
+    # pyramid_correlate(tile_size=128) at level 1's shape: NCC on
+    # sweep_kernel (its pixels in rounds), census on band_census_kernel
+    level1 = next(c for c in sweep_cases() if c["name"] == "level1")
+    nt = -(-(H >> 1) // 128)
+    lb = nt * 128 + KERNEL[0] - 1
+    t128 = {**level1, "name": "level1_tile128", "tile": 128, "nt": nt, "lb": lb,
+            "mh": lb + level1["mh"] - level1["lb"], "mw": lb + level1["mw"] - level1["lb"]}
+    rows.append(("sweep_ncc", {**t128, "black": True}, "ncc", 5))
+    rows.append(("sweep_census", t128, "census", CENSUS_WINDOW))
     return rows
 
 
-def _band(case, cost):
-    """K of the band_sweep_kernel instance the wrapper picks for a sweep
-    case, or None where sweep_kernel runs it."""
+def _band(case, cost, cw=5):
+    """K of the band kernel instance the wrapper picks for a sweep case
+    (band_sweep_kernel for abs/sq, band_census_kernel for census), or None
+    where sweep_kernel runs it."""
     from visionworkbench_torch.ops import sweep
     kw, kh = KERNEL
-    return sweep._sweep_variant(cost, TILE, case["sx"], case["sy"], kw, kh, case["ring"])
+    return sweep._sweep_variant(cost, case.get("tile", TILE), case["sx"], case["sy"],
+                                kw, kh, case["ring"], cw)
+
+
+def _old_kernel_name(cost, cw):
+    """The sweep_kernel instance that computes a cost."""
+    from visionworkbench_torch.image.census import census_words
+    if cost in ("census", "ternary_census"):
+        return f"sweep_kernel<3,{census_words(cw, cost == 'ternary_census')}>"
+    return f"sweep_kernel<{('abs', 'sq', 'ncc').index(cost)},1>"
+
+
+def _band_counts():
+    """(band_sweep_kernel, band_census_kernel) launches so far."""
+    from visionworkbench_torch.ops import sweep
+    return sweep.band_launches, sweep.census_band_launches
+
+
+def _band_name(cost):
+    return "band_census_kernel" if cost in ("census", "ternary_census") else "band_sweep_kernel"
 
 
 def _calc3_pair(h=None, w=None):
@@ -545,28 +587,41 @@ def phase_kernels(dev):
         if e != 0.0:
             raise SystemExit(f"{key} disagrees with its plain version at {what}")
 
+    def held(row, what, args, k, n):
+        """One sweep through the wrapper (the counts show which kernel ran),
+        held against the plain version and, on a band kernel, against
+        sweep_kernel on the same inputs."""
+        cost, cw = args[8], args[10]
+        best = [torch.empty(n, n, device=dev) for _ in range(3)]
+        before = _band_counts()
+        got = (*sweep.sweep(*args, best_out=best[0]), best[0])
+        ran = tuple(a - b for a, b in zip(_band_counts(), before))
+        want = (0, 0) if k is None else (0, 1) if cost in ("census", "ternary_census") else (1, 0)
+        name = f"{_band_name(cost)} K {k}" if k is not None else _old_kernel_name(cost, cw)
+        if ran != want:
+            raise SystemExit(f"sweep {what}: band launches {ran}, expected {want} ({name})")
+        what = f"{what}, {name})"
+        check(row, what, got, (*sweep.sweep_plain(*args, best_out=best[1]), best[1]))
+        if k is not None:
+            old = (*sweep._sweep_cuda(*args, best[2], None), best[2])
+            check(row, f"{what} vs {_old_kernel_name(cost, cw)}", got, old)
+        return got
+
     for i, (key, c, cost, cw) in enumerate(sweep_mode_cases()):
-        k = _band(c, cost)
-        n = c["nt"] * TILE
+        k = _band(c, cost, cw)
+        tile = c.get("tile", TILE)
         for texture in ((False, True) if k is not None else (False,)):
             base, match, offs = _sweep_inputs(c, dev, 100 + i, texture)
-            args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, cost,
+            if c.get("black"):     # zero-energy NCC windows
+                base[40:90, 100:180] = 0.0
+                match[50:110, 90:200] = 0.0
+            args = (base, match, offs, tile, c["sx"], c["sy"], kw, kh, cost,
                     bool(c["ring"]), cw)
-            best = [torch.empty(n, n, device=dev) for _ in range(3)]
-            before = sweep.band_launches
-            got = (*sweep.sweep(*args, best_out=best[0]), best[0])
-            on_band = sweep.band_launches - before
-            ran = f"band_sweep_kernel K {k}" if on_band else "sweep_kernel"
-            if on_band != int(k is not None):
-                raise SystemExit(f"sweep {c['name']} {cost}: ran {ran}, expected K {k}")
-            what = (f"{c['name']} ({cost} {cw}, {'texture' if texture else 'quantized'}, "
-                    f"tiles {c['nt']}x{c['nt']}, window {c['sx']}x{c['sy']}, {ran})")
             # sq is band_sweep_kernel's other instance: its row is abs's
             row = "sweep" if key == "sweep_sq" else key
-            check(row, what, got, (*sweep.sweep_plain(*args, best_out=best[1]), best[1]))
-            if k is not None:
-                old = (*sweep._sweep_cuda(*args, best[2], None), best[2])
-                check(row, f"{what} vs sweep_kernel<{('abs', 'sq').index(cost)},1>", got, old)
+            held(row, f"{c['name']} ({cost} {cw}, {'texture' if texture else 'quantized'}, "
+                 f"tiles {c['nt']}x{c['nt']} of {tile}, window {c['sx']}x{c['sy']}",
+                 args, k, c["nt"] * tile)
     left, right = _frame_inputs(dev, 150)
     sx, sy = CALC3_SEARCH
     for key, cost, cw in (("sweep_ncc", "ncc", 5), ("sweep_census_codes", "census", 7)):
@@ -581,6 +636,13 @@ def phase_kernels(dev):
                 raise SystemExit("sweep_ncc: the zero-energy windows did not give "
                                  "valid NaN-metric pixels")
         check(key, f"config3 ({cost} {cw}, {H}x{W}, window {sx}x{sy})", got, ref)
+        if cost != "ncc":      # the code planes' sweep itself, on both kernels
+            base, match, offs, t = sweep.frame_sweep_args(left, right, sx, sy, kw, kh,
+                                                          cost, cw)
+            fargs = (base, match, offs, t, sx, sy, kw, kh, cost, False, cw)
+            k = sweep._sweep_variant(cost, t, sx, sy, kw, kh, 0, cw, True)
+            held(key, f"config3 code planes ({cost} {cw}, tiles of {t}", fargs, k,
+                 offs.shape[0] * t)
     args = (left, right, sx, sy, kw, kh, "abs")
     check("best_of_search", "config3 (abs)", cost_volume.best_of_search(*args),
           cost_volume.best_of_search_plain(*args))
@@ -707,6 +769,7 @@ def _reset_counts():
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
     sweep.launches = 0
     sweep.band_launches = 0
+    sweep.census_band_launches = 0
     speckle.launches = 0
     for counts in (sgm_scan.launches, sgm_scan.mgm_scan_launches):
         for k in counts:
@@ -715,10 +778,12 @@ def _reset_counts():
 
 def _read_counts():
     """Launches per wrapper; ``<wrapper>/mgm_scan``: of those, the
-    launches of the register-carry kernel; ``sweep/band``: the sweep's
-    launches of band_sweep_kernel."""
+    launches of the register-carry kernel; ``sweep/band`` and
+    ``sweep/census_band``: the sweep's launches of band_sweep_kernel and of
+    band_census_kernel."""
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
     return {"sweep": sweep.launches, "sweep/band": sweep.band_launches,
+            "sweep/census_band": sweep.census_band_launches,
             "speckle": speckle.launches, **sgm_scan.launches,
             **{f"{k}/mgm_scan": v for k, v in sgm_scan.mgm_scan_launches.items()}}
 
@@ -729,11 +794,13 @@ def phase_main(dev):
     sgm_left, sgm_right = _make_pair(SGM_HW, SGM_HW)
     calc_left, calc_right = _make_calc_pair(CALC_HW, CALC_HW)
     c3_left, c3_right = (torch.as_tensor(a, device=dev) for a in _calc3_pair())
-    none = {"sweep": 0, "sweep/band": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0,
+    none = {"sweep": 0, "sweep/band": 0, "sweep/census_band": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0,
             "scan_bidir/mgm_scan": 0, "mgm_bidir/mgm_scan": 0, "mgm_fwd/mgm_scan": 0}
-    # abs sweeps all on band_sweep_kernel; NCC and census on sweep_kernel
+    # abs sweeps all on band_sweep_kernel, census on band_census_kernel;
+    # NCC on sweep_kernel
     c3 = {"sweep": 1, "speckle": 0}
     c3_abs = {**c3, "sweep/band": 1}
+    c3_census = {**c3, "sweep/census_band": 1}
     runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5, "sweep/band": 5}, H),
             ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
              {"sweep": 6, "sweep/band": 6}, H),
@@ -746,18 +813,21 @@ def phase_main(dev):
             ("calc_sgm", lambda: _calc_run(calc_left, calc_right, dev),
              {"scan_bidir": 2, "speckle": 0}, CALC_HW),
             ("config4", lambda: _bench_run(left, right, dev, cost_type="census",
-                                           census_window=CENSUS_WINDOW), {"sweep": 5}, H),
+                                           census_window=CENSUS_WINDOW),
+             {"sweep": 5, "sweep/census_band": 5}, H),
             ("config4_lr", lambda: _bench_run(left, right, dev, cost_type="census",
                                               census_window=CENSUS_WINDOW,
-                                              consistency_threshold=2.0), {"sweep": 6}, H),
+                                              consistency_threshold=2.0),
+             {"sweep": 6, "sweep/census_band": 6}, H),
             ("config4_ternary7", lambda: _bench_run(left, right, dev,
                                                     cost_type="ternary_census",
-                                                    census_window=7), {"sweep": 5}, H),
+                                                    census_window=7),
+             {"sweep": 5, "sweep/census_band": 5}, H),
             ("calc3_abs", lambda: _calc3_run(c3_left, c3_right, dev, "abs"), c3_abs,
              CALC3_OUT),
             ("calc3_ncc", lambda: _calc3_run(c3_left, c3_right, dev, "ncc"), c3, CALC3_OUT),
-            ("calc3_census7", lambda: _calc3_run(c3_left, c3_right, dev, "census", 7), c3,
-             CALC3_OUT),
+            ("calc3_census7", lambda: _calc3_run(c3_left, c3_right, dev, "census", 7),
+             c3_census, CALC3_OUT),
             ("k6_best_of_search", lambda: _k6_run(c3_left, c3_right, dev), c3_abs, CALC3_OUT),
             ("k7_tiled_search", lambda: _k7_run(c3_left, c3_right, dev), c3_abs, CALC3_OUT))
     counts = {}
@@ -769,8 +839,9 @@ def phase_main(dev):
         counts[what] = _read_counts()
         print(f"[main] {what}: launches {counts[what]}")
         if counts[what]["sweep"]:
-            print(f"[main] {what}: {counts[what]['sweep/band']} of {counts[what]['sweep']} "
-                  f"sweep launches on band_sweep_kernel")
+            print(f"[main] {what}: of {counts[what]['sweep']} sweep launches "
+                  f"{counts[what]['sweep/band']} on band_sweep_kernel, "
+                  f"{counts[what]['sweep/census_band']} on band_census_kernel")
         _sanity(dm, what, hw, hw)
         if counts[what] != want:
             raise SystemExit(f"{what}: expected launches {want}, got {counts[what]}")
@@ -953,17 +1024,19 @@ def phase_timings(dev):
     rows = {}
 
     def band_in_turns(key, name, args, k):
-        """ms of band_sweep_kernel<., k> and of sweep_kernel at one shape,
-        in turns (old, new, new, old): between CUDA events, and device time
-        alone (the events also hold the wrapper's host time where a launch
-        is shorter)."""
+        """ms of a band kernel (band_sweep_kernel<., k> or
+        band_census_kernel<., k>) and of sweep_kernel at one shape, in turns
+        (old, new, new, old): between CUDA events, and device time alone
+        (the events also hold the wrapper's host time where a launch is
+        shorter)."""
         old = lambda: sweep._sweep_cuda(*args, None, None)  # noqa: E731
         new = lambda: sweep._sweep_cuda(*args, None, k)     # noqa: E731
         turns = (old, new, new, old)
         ts = [_time_ms(f, reps=20) for f in turns]
         ds = [_device_ms(f) for f in turns]
-        print(f"[time] {key} {name} in turns (sweep_kernel, band_sweep_kernel, "
-              f"band_sweep_kernel, sweep_kernel): " + ", ".join(f"{t:.4f}" for t in ts)
+        band, oldk = _band_name(args[8]), _old_kernel_name(args[8], args[10])
+        print(f"[time] {key} {name} in turns ({oldk}, {band}, {band}, {oldk}): "
+              + ", ".join(f"{t:.4f}" for t in ts)
               + " ms; device " + ", ".join("not measured" if t is None else f"{t:.4f}"
                                            for t in ds) + " ms")
 
@@ -971,15 +1044,16 @@ def phase_timings(dev):
             xs = [x for x in xs if x is not None]
             return statistics.median(xs) if xs else None
 
-        return {"ms": median(ts[1:3]), "device_ms": median(ds[1:3]),
+        return {"cost": args[8], "cw": args[10],
+                "ms": median(ts[1:3]), "device_ms": median(ds[1:3]),
                 "sweep_kernel_ms": median([ts[0], ts[3]]),
                 "sweep_kernel_device_ms": median([ds[0], ds[3]])}
 
     for i, (key, c, cost, cw) in enumerate(sweep_mode_cases()):
         base, match, offs = _sweep_inputs(c, dev, 100 + i)
-        args = (base, match, offs, TILE, c["sx"], c["sy"], kw, kh, cost,
+        args = (base, match, offs, c.get("tile", TILE), c["sx"], c["sy"], kw, kh, cost,
                 bool(c["ring"]), cw)
-        k = _band(c, cost)
+        k = _band(c, cost, cw)
         turns = band_in_turns(key, c["name"], args, k) if k is not None else {}
         ms = turns.get("ms") or _time_ms(lambda: sweep.sweep(*args), reps=20)
         plain_ms = _time_ms(lambda: sweep.sweep_plain(*args), reps=3, warmup=1)
@@ -998,9 +1072,11 @@ def phase_timings(dev):
     for key, cost, cw in (("sweep_ncc", "ncc", 5), ("sweep_census_codes", "census", 7)):
         base, match, offs, t = sweep.frame_sweep_args(fl, fr, sx, sy, kw, kh, cost, cw)
         args = (base, match, offs, t, sx, sy, kw, kh, cost, False, cw)
-        ms = _time_ms(lambda: sweep.sweep(*args), reps=20)
+        k = sweep._sweep_variant(cost, t, sx, sy, kw, kh, 0, cw, True)
+        turns = band_in_turns(key, "config3", args, k) if k is not None else {}
+        ms = turns.get("ms") or _time_ms(lambda: sweep.sweep(*args), reps=20)
         plain_ms = _time_ms(lambda: sweep.sweep_plain(*args), reps=3, warmup=1)
-        rows[(key, "config3")] = _row(ms, plain_ms, *_sweep_work(*args))
+        rows[(key, "config3")] = {**_row(ms, plain_ms, *_sweep_work(*args)), **turns}
     from visionworkbench_torch.ops import cost_volume
     args = (fl, fr, sx, sy, kw, kh, "abs")
     ms = _time_ms(lambda: cost_volume.best_of_search(*args), reps=20)
@@ -1055,8 +1131,8 @@ def phase_timings(dev):
         if "sweep_kernel_ms" in r:
             dev_new, dev_old = (("not measured" if r[x] is None else f"{r[x]:.4f} ms")
                                 for x in ("device_ms", "sweep_kernel_device_ms"))
-            extra += (f", device {dev_new} (band_sweep_kernel); "
-                      f"sweep_kernel<{int(k == 'sweep_sq')},1> {r['sweep_kernel_ms']:.4f} ms, "
+            extra += (f", device {dev_new} ({_band_name(r['cost'])}); "
+                      f"{_old_kernel_name(r['cost'], r['cw'])} {r['sweep_kernel_ms']:.4f} ms, "
                       f"device {dev_old}")
         print(f"[time] {k} {name}: {r['ms']:.4f} ms per launch, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
@@ -1107,7 +1183,7 @@ def _device_ms(fn, reps=10, tries=3):
                 fn()
             torch.cuda.synchronize()
         mine = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and "sweep_kernel" in e.key]
+                if e.device_type == DeviceType.CUDA and _is_sweep(e.key)]
         n = sum(e.count for e in mine)
         if n:
             return sum(e.self_device_time_total for e in mine) / 1e3 / n
@@ -1138,8 +1214,9 @@ def _profile_frame(run, what, frame_ms, frames=3):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile] {what} {e.self_device_time_total / 1e3 / frames:9.4f} ms/frame "
               f"{e.count / frames:6.1f} calls/frame  {e.key[:90]}")
-    kinds = {"sweep (both kernels)": lambda k: "sweep_kernel" in k,
+    kinds = {"sweep (all three kernels)": _is_sweep,
              "band_sweep_kernel": lambda k: "band_sweep_kernel" in k,
+             "band_census_kernel": lambda k: "band_census_kernel" in k,
              "sweep_kernel": lambda k: "sweep_kernel" in k and "band_sweep" not in k,
              **{n: (lambda k, n=n: n in k)
                 for n in ("speckle", "line_scan_kernel", "mgm_scan_kernel")}}
@@ -1153,12 +1230,17 @@ def _profile_frame(run, what, frame_ms, frames=3):
     # each sweep launch of the last frame, in launch order (a pyramid's
     # levels, coarsest first)
     launches = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                       and "sweep_kernel" in e.name), key=lambda e: e.time_range.start)
+                       and _is_sweep(e.name)), key=lambda e: e.time_range.start)
     per_frame = len(launches) // frames
     if per_frame:
         print(f"[profile] {what} sweep launches of a frame, in order: "
               + ", ".join(f"{e.time_range.elapsed_us() / 1e3:.4f}"
                           for e in launches[-per_frame:]) + " ms")
+
+
+def _is_sweep(name):
+    """A kernel of csrc/sweep.cu: sweep_kernel or a band kernel."""
+    return "sweep_kernel" in name or "band_census_kernel" in name
 
 
 def _row(ms, plain_ms, nbytes, ops):

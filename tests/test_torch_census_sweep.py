@@ -21,6 +21,8 @@ from torch_parity import _torch_threads, cuda, quantized  # noqa: F401
 from visionworkbench_tpu.stereo.pyramid_correlation import (
     _tiled_search, _tiled_search_patches,
 )
+from visionworkbench_torch.image.census import census_positions, census_words
+from visionworkbench_torch.ops import _build
 from visionworkbench_torch.ops import sweep as tsweep
 from visionworkbench_torch.stereo import correlation as tcorr
 
@@ -119,3 +121,136 @@ def test_sweep_census_ncc_kernel_matches_plain(cuda, cost, window, want_patches)
         for a, b in zip(got, ref):
             if b is not None:
                 np.testing.assert_array_equal(a, b)
+
+
+# ---- band_census_kernel (census and ternary census on the card) -------------
+
+def _staged_codes(crop, y0, rows, radius, cost, window):
+    """Codes of crop rows y0 .. y0 + rows - 1 (those inside the crop) made as
+    csrc/sweep.cu's band_census_kernel makes them: it stages the quantized
+    crop with ``radius`` more rows and columns on each side, staged row b
+    holding crop row clamp(y0 - radius + b) and staged column j crop column
+    clamp(j - radius), clamped to the crop and not to the band
+    (``stage_crop``); each code then reads its neighbours unclamped.
+    Returns (codes, crop rows)."""
+    h, w = crop.shape
+    q = torch.clamp(crop * 255.0, 0, 255).to(torch.int32)
+    b = (torch.arange(rows + 2 * radius) + y0 - radius).clamp(0, h - 1)
+    j = (torch.arange(w + 2 * radius) - radius).clamp(0, w - 1)
+    staged = q[b[:, None], j[None, :]]
+    r = torch.arange(min(rows, h - y0))            # band rows inside the crop
+    c = torch.arange(w)
+    center = staged[(r + radius)[:, None], (c + radius)[None, :]]
+    ternary = cost == "ternary_census"
+    words = [torch.zeros_like(center) for _ in range(census_words(window, ternary))]
+    for i, (dc, dr) in enumerate(census_positions(window, ternary)):
+        v = staged[(r + radius + dr)[:, None], (c + radius + dc)[None, :]]
+        bits = [(2 * i, v >= center - 2), (2 * i + 1, v > center + 2)] if ternary else [
+            (i, v > center)]
+        for bit, on in bits:
+            words[bit // 32] |= on.to(torch.int32) << (bit % 32)
+    return torch.stack(words, -1), y0 + r
+
+
+@pytest.mark.parametrize("cost", ["census", "ternary_census"])
+@pytest.mark.parametrize("window", [3, 5, 7, 9])
+@pytest.mark.parametrize("tile", [8, 64, 128])
+def test_band_code_rows_equal_the_tile_crops_codes(tile, window, cost):
+    """For every band of a tile, the codes a band makes from its staged rows
+    equal census_codes of the whole tile crop (left block and right window):
+    an interior band stages radius rows beyond its own on each side, and
+    only bands at the crop's top or bottom see replicated rows. The staged
+    bytes are those _census_band_geometry sizes."""
+    rows_a_band = _build.SWEEP_BAND_ROWS
+    kw, kh, sx, sy = 7, 15, 6, 4
+    lh, lw = tile + kh - 1, tile + kw - 1
+    rh, rw = lh + sy - 1, lw + sx - 1
+    radius = window // 2
+    assert radius == max(abs(dr) for _, dr in census_positions(window, cost != "census"))
+    rng = np.random.default_rng(tile + window)
+    ys, xs = np.mgrid[0:rh, 0:rw].astype(np.float32)
+    # smooth structure across band boundaries plus noise, on the 1/256 grid
+    img = 0.5 + 0.3 * np.sin(xs * 0.3 + ys * 0.45) + 0.1 * rng.random((rh, rw))
+    img = torch.as_tensor(np.round(img * 256) / 256, dtype=torch.float32)
+    lrows = rows_a_band + kh - 1
+    rrows = lrows + sy - 1
+    n_words = census_words(window, cost != "census")
+    n_pos = len(census_positions(window, cost != "census"))
+    bands, _, smem = tsweep._census_band_geometry(tile, sx, sy, kw, kh, 0, n_words,
+                                                  radius, n_pos, False)
+    pixels = ((lrows + 2 * radius) * (lw + 2 * radius)
+              + (rrows + 2 * radius) * (rw + 2 * radius))
+    offsets = 2 * 4 * n_pos          # the positions' offsets, 4-byte aligned
+    sums = 4 * (2 * rows_a_band * (lw | 1) + 1)
+    assert smem == (4 * n_words * (lrows * lw + rrows * rw)
+                    + max(-(-pixels // 4) * 4 + offsets, sums))
+    for crop, rows in ((img[:lh, :lw], lrows), (img, rrows)):
+        whole = tcorr.census_codes(crop, cost, window)
+        for band in range(bands):
+            codes, r = _staged_codes(crop, band * rows_a_band, rows, radius, cost, window)
+            assert torch.equal(codes, whole[r])
+
+
+def _band_census_inputs(seed, tile, kw, kh, sx, sy, nty, ntx, ring, source):
+    """Frames for the band tests: quantized noise (``noise``), or a smooth
+    texture with structure across band boundaries (``texture``, also off the
+    1/256 grid); the base embedded in the match frame."""
+    rng = np.random.default_rng(seed)
+    lh, lw = nty * tile + kh - 1, ntx * tile + kw - 1
+    mh, mw = lh + sy - 1 + 2 * ring + 3, lw + sx - 1 + 2 * ring + 3
+    if source == "noise":
+        match = quantized(rng, (mh, mw))
+    else:
+        ys, xs = np.mgrid[0:mh, 0:mw].astype(np.float32)
+        match = (0.5 + 0.3 * np.sin(xs * 0.21) * np.cos(ys * 0.17)
+                 + 0.1 * np.sin(xs * 0.047 + ys * 0.031)
+                 + 0.05 * rng.random((mh, mw))).astype(np.float32)
+    base = match[2:2 + lh, 1:1 + lw].copy()
+    offsets = rng.integers(0, 4, (nty, ntx, 2)).astype(np.int32)
+    return base, match, offsets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["noise", "texture", "codes"])
+@pytest.mark.parametrize("patches", [False, True])
+@pytest.mark.parametrize("cost,window", [v[:2] for v in VARIANTS if v[0] != "ncc"])
+def test_band_census_kernel_matches_plain_and_sweep_kernel(cuda, cost, window, patches,
+                                                           source):
+    """band_census_kernel equals the plain version and sweep_kernel<3, NW>
+    bit for bit (disp, valid, patches, best) for every census variant, with
+    and without patches, on codes made from the float crops (noise, and a
+    texture whose structure crosses the band boundaries of 2 x 2 tiles of
+    32 with a 7x5 kernel) and on code planes made beforehand."""
+    tile, kw, kh, sx, sy, nty, ntx = 32, 7, 5, 6, 3, 2, 2
+    ring = int(patches)
+    base, match, offsets = _band_census_inputs(26, tile, kw, kh, sx, sy, nty, ntx, ring,
+                                               "noise" if source == "noise" else "texture")
+    t = [torch.as_tensor(a, device=cuda) for a in (base, match, offsets)]
+    if source == "codes":
+        t[:2] = [tcorr.census_codes(a, cost, window).contiguous() for a in t[:2]]
+    args = (*t, tile, sx, sy, kw, kh, cost, patches, window)
+    assert tsweep._sweep_variant(cost, tile, sx, sy, kw, kh, ring, window,
+                                 source == "codes") == 16
+    best = [torch.empty(nty * tile, ntx * tile, device=cuda) for _ in range(3)]
+    before = (tsweep.launches, tsweep.census_band_launches)
+    got = (*tsweep.sweep(*args, best_out=best[0]), best[0])
+    assert (tsweep.launches, tsweep.census_band_launches) == (before[0] + 1, before[1] + 1)
+    refs = [(*tsweep.sweep_plain(*args, best_out=best[1]), best[1]),
+            (*tsweep._sweep_cuda(*args, best[2], None), best[2])]
+    assert tsweep.census_band_launches == before[1] + 1      # it ran sweep_kernel
+    for ref in refs:
+        for a, b in zip(got, ref):
+            if b is not None:
+                np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_census_ablation_variants_edit_the_kernel_source(tmp_path):
+    """Each variant of ``tools/sweep_census_ablation.py`` is a text edit of
+    band_census_kernel's body that still matches the source exactly once."""
+    from visionworkbench_torch.tools import sweep_census_ablation as ablation
+    paths = ablation._variant_sources(tmp_path)
+    assert set(paths) == set(ablation.ABLATIONS)
+    as_is = paths["as_is"].read_text()
+    assert as_is == (_build.CSRC / "sweep.cu").read_text()
+    for name, path in paths.items():
+        assert (path.read_text() != as_is) == bool(ablation.ABLATIONS[name])

@@ -219,18 +219,42 @@ def test_band_kernel_runs_every_main_path_shape(shape, cost):
     assert tsweep._sweep_variant(cost, tile, sx, sy, 21, 21, ring) == 24
 
 
+# (cost, census window, tile, s_x, s_y, ring, codes_in) of every census
+# sweep of config 4 (bench frame, census 5x5: levels 4 to 1, level 0 with
+# the ring, the R->L pass), its ternary 7x7 variant (level 0 with the ring)
+# and config 3's census 7x7 calc_disparity (code planes, 32x1 search)
+CENSUS_MAIN_PATH_SHAPES = {
+    **{f"config4_{name}": ("census", 5, tile, sx, sy, ring, False)
+       for name, (tile, sx, sy, ring) in MAIN_PATH_SHAPES.items()
+       if name.startswith("level")},
+    "config4_ternary7_level0_patches": ("ternary_census", 7, 64, 11, 8, 1, False),
+    "config3_census7": ("census", 7, tsweep.frame_tile(1010, 1010, 32, 1, 15, 15, "census", 2),
+                        32, 1, 0, True),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(CENSUS_MAIN_PATH_SHAPES))
+def test_band_census_kernel_runs_every_census_main_path_shape(shape):
+    cost, window, tile, sx, sy, ring, codes_in = CENSUS_MAIN_PATH_SHAPES[shape]
+    assert tsweep._sweep_variant(cost, tile, sx, sy, 15, 15, ring, window, codes_in) == 16
+    assert tsweep._sweep_variant(cost, tile, sx, sy, 21, 21, ring, window, codes_in) == 24
+
+
 @pytest.mark.parametrize("cost, tile, sx, sy, kw, kh, ring", [
-    ("ncc", 64, 32, 1, 15, 15, 0),            # NCC and census keep sweep_kernel
-    ("census", 64, 11, 8, 15, 15, 1),
-    ("ternary_census", 64, 11, 8, 15, 15, 1),
+    ("ncc", 64, 32, 1, 15, 15, 0),            # NCC keeps sweep_kernel
+    ("ncc", 128, 11, 4, 15, 15, 0),
     ("abs", 64, 11, 8, 25, 15, 1),            # kernel past the largest bound
     ("sq", 64, 11, 8, 15, 31, 0),
+    ("census", 64, 11, 8, 15, 25, 1),
     ("abs", 12, 4, 2, 5, 5, 0),               # tile not a multiple of 8
+    ("ternary_census", 20, 4, 2, 5, 5, 0),
     ("abs", 256, 4, 2, 5, 5, 0),              # 512 threads a block
+    ("census", 256, 4, 2, 5, 5, 0),
     ("sq", 64, 2000, 4, 15, 15, 0),           # right rows past shared memory
+    ("ternary_census", 64, 1000, 4, 15, 15, 0),
 ])
 def test_sweep_kernel_runs_shapes_past_the_band_kernel(cost, tile, sx, sy, kw, kh, ring):
-    assert tsweep._sweep_variant(cost, tile, sx, sy, kw, kh, ring) is None
+    assert tsweep._sweep_variant(cost, tile, sx, sy, kw, kh, ring, 7) is None
 
 
 def _row_thread(tid, tile):
@@ -294,9 +318,8 @@ BAND_CASES = [
 @pytest.mark.parametrize("case", BAND_CASES)
 def test_band_kernel_matches_plain_and_sweep_kernel(cuda, case, want_patches, grid):
     """band_sweep_kernel equals the plain version and sweep_kernel bit for
-    bit (disp, valid, patches, best), quantized or not. sweep_kernel does
-    not take a tile of 128 (1024 threads, past an SM's registers): that
-    case is held against the plain version alone."""
+    bit (disp, valid, patches, best), quantized or not; at a tile of 128
+    sweep_kernel runs the tile's pixels in rounds."""
     cost, tile, kw, kh, sx, sy, nty, ntx = case
     k = tsweep._sweep_variant(cost, tile, sx, sy, kw, kh, int(want_patches))
     assert k is not None
@@ -307,10 +330,9 @@ def test_band_kernel_matches_plain_and_sweep_kernel(cuda, case, want_patches, gr
     before = (tsweep.launches, tsweep.band_launches)
     got = (*tsweep.sweep(*args, best_out=best[0]), best[0])
     assert (tsweep.launches, tsweep.band_launches) == (before[0] + 1, before[1] + 1)
-    refs = [(*tsweep.sweep_plain(*args, best_out=best[1]), best[1])]
-    if tile <= 64:
-        refs.append((*tsweep._sweep_cuda(*args, best[2], None), best[2]))
-        assert tsweep.band_launches == before[1] + 1     # it ran sweep_kernel
+    refs = [(*tsweep.sweep_plain(*args, best_out=best[1]), best[1]),
+            (*tsweep._sweep_cuda(*args, best[2], None), best[2])]
+    assert tsweep.band_launches == before[1] + 1     # it ran sweep_kernel
     for ref in refs:
         for a, b in zip(got, ref):
             if b is not None:
@@ -329,3 +351,84 @@ def test_band_limits_reach_nvcc(monkeypatch):
     path = _build.library_path("sweep")
     monkeypatch.setitem(_build.DEFINES, "sweep", flags[len(_build.NVCC_FLAGS):-1])
     assert _build.library_path("sweep") != path
+
+
+# ---- tile 128 (ROADMAP.md section 3: sweep_kernel failed to launch there) ----
+
+# (cost, tile, kw, kh, s_x, s_y, nty, ntx): one and two tiles of 128, small
+# kernels and windows
+TILE128_CASES = [
+    ("ncc", 128, 3, 3, 2, 2, 1, 1),
+    ("census", 128, 5, 3, 3, 2, 1, 2),
+]
+
+
+@pytest.mark.parametrize("case", TILE128_CASES, ids=[c[0] for c in TILE128_CASES])
+def test_tile128_matches_jax_tiled_search(case):
+    """The plain version at a tile of 128 (the card's reference) against the
+    JAX package: NCC with black blocks (zero-energy windows), census 5x5."""
+    cost, tile, kw, kh, sx, sy, _, _ = case
+    base, match, offsets = _inputs(18, case, 0)
+    if cost == "ncc":
+        base[20:40, 30:60] = 0.0
+        match[25:50, 10:50] = 0.0
+    d, v, p = _port(tsweep.sweep, base, match, offsets, case, False)
+    jd, jv = _tiled_search(jnp.asarray(base), jnp.asarray(match),
+                           jnp.asarray(offsets), tile, sx, sy, kw, kh, cost, 5)
+    assert p is None
+    np.testing.assert_array_equal(v, np.asarray(jv))
+    np.testing.assert_array_equal(d, np.asarray(jd))
+    assert v.mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TILE128_CASES, ids=[c[0] for c in TILE128_CASES])
+def test_tile128_card_matches_plain(cuda, case):
+    """sweep() at a tile of 128 runs on the card and equals the plain
+    version: NCC on sweep_kernel (its threads capped by its launch bound
+    and shared memory, the pixels in rounds), census on band_census_kernel and,
+    forced, on sweep_kernel."""
+    cost, tile, kw, kh, sx, sy, nty, ntx = case
+    base, match, offsets = _inputs(18, case, 0)
+    if cost == "ncc":
+        base[20:40, 30:60] = 0.0
+        match[25:50, 10:50] = 0.0
+    t = [torch.as_tensor(a, device=cuda) for a in (base, match, offsets)]
+    args = (*t, tile, sx, sy, kw, kh, cost, False, 5)
+    best = [torch.empty(nty * tile, ntx * tile, device=cuda) for _ in range(3)]
+    before = tsweep.census_band_launches
+    got = (*tsweep.sweep(*args, best_out=best[0]), best[0])
+    assert tsweep.census_band_launches == before + int(cost == "census")
+    refs = [(*tsweep.sweep_plain(*args, best_out=best[1]), best[1])]
+    if cost == "census":
+        refs.append((*tsweep._sweep_cuda(*args, best[2], None), best[2]))
+    for ref in refs:
+        for a, b in zip(got, ref):
+            if b is not None:
+                np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_sweep_kernel_rounds_fit_shared_memory(monkeypatch):
+    """Where a tile's column sums and NCC precisions do not fit a block, the
+    wrapper lowers sweep_kernel's threads until a round's rows fit; one
+    round covers the whole tile at the main path's tile of 64."""
+    class Lib:                     # the card's answers, as the wrapper reads them
+        def vw_sweep_max_threads(self, cost, n_words):
+            return 256             # kSweepMaxThreads
+
+        def vw_sweep_pixels_per_thread(self):
+            return 16
+
+    monkeypatch.setattr(tsweep, "_max_threads",
+                        {(c, n, "card"): 256 for c in range(4) for n in (1, 2)})
+    shape = (128, 32, 8, 21, 21, 0, "ncc")
+    threads, smem = tsweep._sweep_block(Lib(), *shape, 1, False, "card")
+    assert tsweep.smem_bytes(*shape) > tsweep._MAX_SMEM
+    assert threads % 32 == 0 and 32 <= threads < 256 and smem <= tsweep._MAX_SMEM
+    rows = tsweep._round_rows(128, threads, 16)
+    assert rows < 128 and smem == tsweep.smem_bytes(*shape, rows=rows)
+    assert tsweep.smem_bytes(*shape, rows=tsweep._round_rows(128, threads + 32, 16)) > (
+        tsweep._MAX_SMEM)
+    assert tsweep._sweep_block(Lib(), 64, 32, 1, 15, 15, 0, "ncc", 1, False, "card") == (
+        256, tsweep.smem_bytes(64, 32, 1, 15, 15, 0, "ncc"))
+    assert tsweep._round_rows(64, 256, 16) == 64

@@ -30,10 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # a block).
 MGM_MAX_CELLS = 16
 MGM_MAX_LANES = 512
-# The layout and limits of csrc/sweep.cu's band kernel (the abs/sq sweep),
-# read by ops/sweep.py:_sweep_variant and _band_geometry: output rows a
-# block, output pixels a row thread, the instances' bounds on kw and kh (one
-# instance each), threads a block.
+# The layout and limits of csrc/sweep.cu's band kernels (band_sweep_kernel:
+# abs/sq; band_census_kernel: census), read by ops/sweep.py:_sweep_variant,
+# _band_geometry and _census_band_geometry: output rows a block, output
+# pixels a row thread, the instances' bounds on kw and kh (one instance each
+# a cost or a census word count), threads a block.
 SWEEP_BAND_ROWS = 16
 SWEEP_SEG = 8
 SWEEP_BAND_K = (16, 24)

@@ -18,14 +18,18 @@ each tile's crop as the XLA engine does (the pyramid path), or int32 code
 planes (H, W, n_words) computed beforehand over whole frames
 (:func:`search_frame`, the path of ``best_of_search_convolution``).
 
-On the card the abs and sq costs run ``band_sweep_kernel`` (one block per
-band of output rows of a tile; :func:`_sweep_variant` picks its instance),
-the other costs, and abs/sq shapes past its limits, ``sweep_kernel``. Both
-sum every window in the plain version's order, so they agree with it and
-with each other bit for bit on any input. What bounds each on the H100,
-and what its design does about it: see the note at the top of
-``csrc/sweep.cu`` (the band kernel: the issue of the exact-order adds;
-``sweep_kernel``: shared-memory loads).
+On the card (:func:`_sweep_variant` picks the kernel and its instance):
+the abs and sq costs run ``band_sweep_kernel``, census and ternary census
+``band_census_kernel`` (both one block per band of output rows of a
+tile), NCC and the shapes past the band kernels' limits ``sweep_kernel``.
+The abs/sq kernels sum every window in the plain version's order; the
+census kernel takes running sums, exact since census sums are integers.
+So every kernel agrees with the plain version, and with the others, bit
+for bit on any input. What bounds each on the H100, and what its design
+does about it: see the note at the top of ``csrc/sweep.cu`` (the abs/sq
+band kernel: the issue of the exact-order adds; the census band kernel:
+its column pass's popcounts, then making the codes; ``sweep_kernel``:
+shared-memory loads).
 """
 
 from __future__ import annotations
@@ -46,11 +50,12 @@ from visionworkbench_torch.stereo.correlation import (
 
 # Kernel launches since the count was last set to 0 (the wrapper adds one
 # per launch of a CUDA kernel, and nowhere else), and of those the launches
-# of band_sweep_kernel (the rest ran sweep_kernel).
+# of band_sweep_kernel (abs, sq) and of band_census_kernel (census,
+# ternary census); the rest ran sweep_kernel.
 launches = 0
 band_launches = 0
+census_band_launches = 0
 
-_MAX_THREADS = 1024
 _MAX_SMEM = 232448        # bytes of shared memory one H100 block may opt into
 _COST_CODE = {ABSOLUTE_DIFFERENCE: 0, SQUARED_DIFFERENCE: 1,
               CROSS_CORRELATION: 2, CENSUS_TRANSFORM: 3,
@@ -73,23 +78,32 @@ def _library():
                                       i, i, i, i, p, p, p, p, i, i,
                                       ctypes.c_longlong, p]
         lib.vw_band_sweep.restype = i
+        lib.vw_band_census.argtypes = [p, i, p, i, i, p, i, i, i, i, i, i, i, i,
+                                       i, i, i, p, i, i, p, p, p, p, i, i,
+                                       ctypes.c_longlong, p]
+        lib.vw_band_census.restype = i
+        lib.vw_sweep_max_threads.argtypes = [i, i]
+        lib.vw_sweep_max_threads.restype = i
         _lib = lib
     return _lib
 
 
 def smem_bytes(tile: int, s_x: int, s_y: int, kw: int, kh: int, ring: int,
-               cost_type: str, n_words: int = 1, codes_in: bool = False) -> int:
-    """Shared memory of one block of the kernel, laid out as in
+               cost_type: str, n_words: int = 1, codes_in: bool = False,
+               rows: int = None) -> int:
+    """Shared memory of one block of ``sweep_kernel``, laid out as in
     ``csrc/sweep.cu``: the left block and right window (1-2 words a pixel),
-    the column sums, then NCC's right precisions or the census crops'
-    quantized pixels."""
+    the column sums of ``rows`` output rows (a round's; the whole tile by
+    default), then NCC's right precisions of those rows or the census
+    crops' quantized pixels."""
     lh, lw = tile + kh - 1, tile + kw - 1
     rh, rw = lh + s_y + 2 * ring - 1, lw + s_x + 2 * ring - 1
+    rows = tile if rows is None else rows
     census = cost_type in CENSUS_COSTS
     words = n_words if census else 1
-    total = 4 * (words * (lh * lw + rh * rw) + tile * lw)
+    total = 4 * (words * (lh * lw + rh * rw) + rows * lw)
     if cost_type == CROSS_CORRELATION:
-        total += 4 * (tile + s_y - 1) * (tile + s_x - 1)
+        total += 4 * (rows + s_y - 1) * (tile + s_x - 1)
     if census and not codes_in:
         total += lh * lw + rh * rw
     return total
@@ -170,38 +184,87 @@ def sweep_plain(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
     return untile(disp), untile(valid), patch
 
 
+def _band_grid(tile: int, kw: int):
+    """``(bands, threads)`` of one tile of either band kernel: bands of
+    ``_build.SWEEP_BAND_ROWS`` output rows (the last one cut at the tile's
+    edge); threads for the tile + kw - 1 columns of the column pass and the
+    rows x segments of the row pass."""
+    rows, seg = _build.SWEEP_BAND_ROWS, _build.SWEEP_SEG
+    return -(-tile // rows), -(-max(rows * (tile // seg), tile + kw - 1) // 32) * 32
+
+
 def _band_geometry(tile: int, s_x: int, s_y: int, kw: int, ring: int,
                    k: int):
     """``(bands, threads, smem bytes)`` of one tile of
-    ``band_sweep_kernel<., k>``: bands of ``_build.SWEEP_BAND_ROWS`` output
-    rows (the last one cut at the tile's edge); threads for the tile + kw - 1
-    columns of the column pass and the rows x segments of the row pass;
-    shared memory laid out as in ``csrc/sweep.cu``: the band's right rows,
-    two buffers of column sums (an odd row stride), the patch pass's bit set
-    over the ring window."""
-    rows, seg = _build.SWEEP_BAND_ROWS, _build.SWEEP_SEG
-    bands = -(-tile // rows)
-    threads = -(-max(rows * (tile // seg), tile + kw - 1) // 32) * 32
+    ``band_sweep_kernel<., k>`` (:func:`_band_grid`); shared memory laid out
+    as in ``csrc/sweep.cu``: the band's right rows, two buffers of column
+    sums (an odd row stride), the patch pass's bit set over the ring
+    window."""
+    rows = _build.SWEEP_BAND_ROWS
+    bands, threads = _band_grid(tile, kw)
     sx_e, sy_e = s_x + 2 * ring, s_y + 2 * ring
     right = (rows + k - 1 + sy_e - 1) * (tile + kw - 1 + sx_e - 1)
     cs = (tile + k - 1) | 1
     return bands, threads, 4 * (right + 2 * rows * cs + -(-sx_e * sy_e // 32))
 
 
+def _census_band_geometry(tile: int, s_x: int, s_y: int, kw: int, kh: int,
+                          ring: int, n_words: int, radius: int, n_pos: int,
+                          codes_in: bool):
+    """``(bands, threads, smem bytes)`` of one tile of
+    ``band_census_kernel`` (:func:`_band_grid`); shared memory laid out as
+    in ``csrc/sweep.cu``: the band's left and right codes (one word of
+    ``4 * n_words`` bytes a pixel), then the larger of what the codes are
+    made from (the quantized crop rows, ``radius`` more rows and columns
+    each side, edges replicated, and the ``n_pos`` sample positions'
+    offsets in each crop; nothing with ``codes_in``) and, reusing those
+    bytes, two buffers of column sums (an odd row stride) and the patch
+    pass's bit set."""
+    rows = _build.SWEEP_BAND_ROWS
+    bands, threads = _band_grid(tile, kw)
+    sx_e, sy_e = s_x + 2 * ring, s_y + 2 * ring
+    lw, rw = tile + kw - 1, tile + kw + sx_e - 2
+    lrows = rows + kh - 1
+    rrows = lrows + sy_e - 1
+    codes = 4 * n_words * (lrows * lw + rrows * rw)
+    pixels = ((lrows + 2 * radius) * (lw + 2 * radius)
+              + (rrows + 2 * radius) * (rw + 2 * radius))
+    pixels = 0 if codes_in else -(-pixels // 4) * 4 + 8 * n_pos
+    sums = 4 * (2 * rows * (lw | 1) + -(-sx_e * sy_e // 32))
+    return bands, threads, codes + max(pixels, sums)
+
+
+def _census_shape(cost_type: str, census_window: int):
+    """``(n_words, radius, sample positions)`` of a census variant."""
+    ternary = cost_type == TERNARY_CENSUS_TRANSFORM
+    return (census_words(census_window, ternary), census_window // 2,
+            len(census_positions(census_window, ternary)))
+
+
 def _sweep_variant(cost_type: str, tile: int, s_x: int, s_y: int, kw: int,
-                   kh: int, ring: int):
-    """The bound K of the ``band_sweep_kernel`` instance that runs the
-    shape (the smallest of ``_build.SWEEP_BAND_K`` that holds kw and kh), or
-    None where ``sweep_kernel`` runs it: NCC and census costs, tiles not a
-    multiple of ``_build.SWEEP_SEG``, kernels past the largest bound, and
-    shapes that would need more than ``_build.SWEEP_BAND_MAX_THREADS``
+                   kh: int, ring: int, census_window: int = 5,
+                   codes_in: bool = False):
+    """The bound K of the band kernel instance that runs the shape (the
+    smallest of ``_build.SWEEP_BAND_K`` that holds kw and kh):
+    ``band_sweep_kernel<cost, K>`` for abs and sq, ``band_census_kernel<
+    n_words, K>`` for census and ternary census (codes from the float crops,
+    or ``codes_in`` planes). None where ``sweep_kernel`` runs it: NCC, tiles
+    not a multiple of ``_build.SWEEP_SEG``, kernels past the largest bound,
+    and shapes that would need more than ``_build.SWEEP_BAND_MAX_THREADS``
     threads or more shared memory than a block may have."""
-    if cost_type not in (ABSOLUTE_DIFFERENCE, SQUARED_DIFFERENCE) or tile % _build.SWEEP_SEG:
+    census = cost_type in CENSUS_COSTS
+    if (cost_type not in (ABSOLUTE_DIFFERENCE, SQUARED_DIFFERENCE) and not census
+            or tile % _build.SWEEP_SEG):
         return None
     k = next((b for b in _build.SWEEP_BAND_K if max(kw, kh) <= b), None)
     if k is None:
         return None
-    _, threads, smem = _band_geometry(tile, s_x, s_y, kw, ring, k)
+    if census:
+        _, threads, smem = _census_band_geometry(
+            tile, s_x, s_y, kw, kh, ring, *_census_shape(cost_type, census_window),
+            codes_in)
+    else:
+        _, threads, smem = _band_geometry(tile, s_x, s_y, kw, ring, k)
     if threads > _build.SWEEP_BAND_MAX_THREADS or smem > _MAX_SMEM:
         return None
     return k
@@ -220,8 +283,8 @@ def sweep(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
     metric.
 
     CPU tensors run :func:`sweep_plain`; CUDA tensors launch the kernel
-    (``band_sweep_kernel`` where :func:`_sweep_variant` has an instance,
-    else ``sweep_kernel``) or raise."""
+    (a band kernel where :func:`_sweep_variant` has an instance, else
+    ``sweep_kernel``) or raise."""
     tile, s_x, s_y, kw, kh = int(tile), int(s_x), int(s_y), int(kw), int(kh)
     census_window = int(census_window)
     if base.device.type == "cpu":
@@ -229,16 +292,18 @@ def sweep(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
                            cost_type, want_patches, census_window, best_out)
     if base.device.type != "cuda":
         raise ArgumentErr(f"sweep: unsupported device {base.device}")
-    k = _sweep_variant(cost_type, tile, s_x, s_y, kw, kh, int(want_patches))
+    k = _sweep_variant(cost_type, tile, s_x, s_y, kw, kh, int(want_patches),
+                       census_window, base.dtype == torch.int32)
     return _sweep_cuda(base, match, offsets, tile, s_x, s_y, kw, kh,
                        cost_type, want_patches, census_window, best_out, k)
 
 
 def _sweep_cuda(base, match, offsets, tile, s_x, s_y, kw, kh, cost_type,
                 want_patches, census_window, best_out, k):
-    """The card's :func:`sweep`: ``band_sweep_kernel<cost, k>``, or
-    ``sweep_kernel`` where ``k`` is None."""
-    global launches, band_launches
+    """The card's :func:`sweep`: ``band_sweep_kernel<cost, k>`` (abs, sq) or
+    ``band_census_kernel<n_words, k>`` (census), or ``sweep_kernel`` where
+    ``k`` is None."""
+    global launches, band_launches, census_band_launches
     census, codes_in, n_words = _check_cost(cost_type, want_patches,
                                             census_window, base)
     ring = 1 if want_patches else 0
@@ -257,20 +322,15 @@ def _sweep_cuda(base, match, offsets, tile, s_x, s_y, kw, kh, cost_type,
     if best_out is not None and tuple(best_out.shape) != (h, w):
         raise ArgumentErr(f"sweep: best_out must be {(h, w)}")
     lib = _library()
-    if k is not None:
+    if k is not None and census:
+        bands, threads, smem = _census_band_geometry(
+            tile, s_x, s_y, kw, kh, ring, *_census_shape(cost_type, census_window),
+            codes_in)
+    elif k is not None:
         bands, threads, smem = _band_geometry(tile, s_x, s_y, kw, ring, k)
     else:
-        per = lib.vw_sweep_pixels_per_thread()
-        threads = -(-tile * tile // per)
-        threads = -(-threads // 32) * 32
-        smem = smem_bytes(tile, s_x, s_y, kw, kh, ring, cost_type, n_words,
-                          codes_in)
-        if threads > _MAX_THREADS or smem > _MAX_SMEM:
-            raise ArgumentErr(
-                f"sweep: tile {tile} with kernel {kw}x{kh} and window "
-                f"{s_x}x{s_y} ({cost_type}) needs {threads} threads and {smem} B "
-                f"of shared memory per block; the CUDA sweep takes at most "
-                f"{_MAX_THREADS} and {_MAX_SMEM}")
+        threads, smem = _sweep_block(lib, tile, s_x, s_y, kw, kh, ring, cost_type,
+                                     n_words, codes_in, base.device)
     dev = base.device
     disp = torch.empty((h, w, 2), dtype=torch.int32, device=dev)
     valid = torch.empty((h, w), dtype=torch.bool, device=dev)
@@ -282,25 +342,70 @@ def _sweep_cuda(base, match, offsets, tile, s_x, s_y, kw, kh, cost_type,
     frames = (base.data_ptr(), base.shape[0], base.shape[1], match.data_ptr(),
               match.shape[0], match.shape[1], offsets.data_ptr(), nty, ntx,
               tile, s_x, s_y, kw, kh, _COST_CODE[cost_type], ring)
+    ternary = cost_type == TERNARY_CENSUS_TRANSFORM
+    pos = census_positions(census_window, ternary) if census else []
+    pos_arr = (ctypes.c_int * max(2 * len(pos), 1))(*[v for p in pos for v in p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if k is not None:
+        if k is not None and census:
+            err = lib.vw_band_census(
+                base.data_ptr(), base.shape[1], match.data_ptr(), match.shape[0],
+                match.shape[1], offsets.data_ptr(), nty, ntx, tile, s_x, s_y, kw, kh,
+                ring, k, n_words, int(codes_in), pos_arr, len(pos), int(ternary),
+                *outs, bands, threads, smem, stream)
+        elif k is not None:
             err = lib.vw_band_sweep(*frames, k, *outs, bands, threads, smem,
                                     stream)
         else:
-            pos = (census_positions(census_window,
-                                    cost_type == TERNARY_CENSUS_TRANSFORM)
-                   if census else [])
-            pos_arr = (ctypes.c_int * max(2 * len(pos), 1))(
-                *[v for p in pos for v in p])
             err = lib.vw_sweep(*frames, n_words, int(codes_in), pos_arr,
-                               len(pos), int(cost_type == TERNARY_CENSUS_TRANSFORM),
-                               *outs, threads, smem, stream)
+                               len(pos), int(ternary), *outs, threads, smem, stream)
     _build.check(err, "sweep")
     launches += 1
-    if k is not None:
+    if k is not None and census:
+        census_band_launches += 1
+    elif k is not None:
         band_launches += 1
     return disp, valid, patches
+
+
+_max_threads = {}
+
+
+def _sweep_block(lib, tile, s_x, s_y, kw, kh, ring, cost_type, n_words, codes_in,
+                 dev):
+    """``(threads, smem bytes)`` of one ``sweep_kernel`` block: one thread per
+    ``kPer`` pixels of the tile, at most what the instance may launch
+    (``vw_sweep_max_threads``: its launch bound), and fewer while the rows of a round (:func:`_round_rows`)
+    need more shared memory than a block may have; the kernel runs the
+    tile's pixels in rounds of ``kPer`` x threads. Raises where 32 threads
+    do not fit either."""
+    cost = _COST_CODE[cost_type]
+    key = (cost, n_words, dev)
+    if key not in _max_threads:
+        with torch.cuda.device(dev):
+            cap = lib.vw_sweep_max_threads(cost, n_words)
+        _build.check(-cap if cap < 0 else 0, "sweep (attributes)")
+        _max_threads[key] = cap
+    per = lib.vw_sweep_pixels_per_thread()
+    threads = -(-tile * tile // per)
+    threads = min(-(-threads // 32) * 32, _max_threads[key])
+    while True:
+        smem = smem_bytes(tile, s_x, s_y, kw, kh, ring, cost_type, n_words,
+                          codes_in, _round_rows(tile, threads, per))
+        if smem <= _MAX_SMEM:
+            return threads, smem
+        if threads <= 32:
+            raise ArgumentErr(
+                f"sweep: tile {tile} with kernel {kw}x{kh} and window "
+                f"{s_x}x{s_y} ({cost_type}) needs {smem} B of shared memory "
+                f"per block; the CUDA sweep takes at most {_MAX_SMEM}")
+        threads -= 32
+
+
+def _round_rows(tile: int, threads: int, per: int) -> int:
+    """Output rows one round of ``sweep_kernel`` covers, at most: its
+    ``per`` x ``threads`` pixels, which may start inside a row."""
+    return min(tile, -(-per * threads // tile) + 1)
 
 
 def frame_tile(out_h: int, out_w: int, s_x: int, s_y: int, kw: int, kh: int,
