@@ -7,9 +7,9 @@ Phases (each raises on a mismatch; none catches its own failure):
 1. Build the CUDA kernels from ``visionworkbench_torch/csrc/`` (one nvcc per
    source, started together), print each build's registers and spills (and
    fail if an instance of the register-carry SGM/MGM kernel that the
-   wrappers can select, or of the sweep's band kernels -- abs/sq and
-   census, 1 and 2 words, every K -- spills), and print the card's name and
-   power limit.
+   wrappers can select, of the path-line SGM kernel, or of the sweep's band
+   kernels -- abs/sq and census, 1 and 2 words, every K -- spills), and
+   print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
    to the 1/256 grid (integer disparities, validity, cost patches and keep
@@ -27,14 +27,14 @@ Phases (each raises on a mismatch; none catches its own failure):
    kernel and against ``sweep_kernel``), and the entry points of the
    first-generation sweeps (``ops/cost_volume.py``, on the band kernel) --
    and the three
-   SGM/MGM scans on integer-valued inputs (exact), with the scan carry in
-   shared memory and, for ``calc_disparity_sgm``'s 64x8 search, in global
-   scratch. The three scans run the register-carry kernel
-   (``csrc/mgm_scan.cu``) at every shape of config 6's pyramid, held
-   against the plain version and against ``line_scan_kernel<0>``
-   (``scan_bidir``) or ``<1>`` (MGM) on the same inputs, and
-   ``line_scan_kernel`` at the 64x8 search (the launch counts show which
-   kernel ran).
+   SGM/MGM scans on integer-valued inputs (exact). The three scans run the
+   register-carry kernel (``csrc/mgm_scan.cu``) at every shape of config
+   6's pyramid; ``scan_bidir`` runs the path-line kernel
+   (``csrc/sgm_path_scan.cu``) at ``calc_disparity_sgm``'s 64x8 search (x-
+   and y-scan) and an odd 3x11 grid; each is held against the plain version
+   and against ``line_scan_kernel<0>`` (``scan_bidir``) or ``<1>`` (MGM) on
+   the same inputs; MGM at the 64x8 search runs ``line_scan_kernel<1>``,
+   its carry in global scratch (the launch counts show which kernel ran).
 3. Run the main paths, each with the launch counts set to 0 just before it
    and read just after: ``pyramid_correlate`` at the configuration of
    ``bench.py`` (1024^2 pair, 64x8 search, 15x15 kernel, 4 levels, tile 64,
@@ -43,8 +43,8 @@ Phases (each raises on a mismatch; none catches its own failure):
    5x5, 4 levels, tile 64, parabola) with ``stereo_algorithm="sgm"`` and
    ``"mgm"``, and ``calc_disparity_sgm`` as ``docs/stereo.md`` calls it
    (64x8 search, census 5x5, parabola) on a 256^2 frame (the SGM frame's
-   10 ``scan_bidir`` launches all on the register-carry kernel, those of
-   ``calc_disparity_sgm`` on ``line_scan_kernel<0>``); config 4 (the
+   10 ``scan_bidir`` launches all on the register-carry kernel, the 2 of
+   ``calc_disparity_sgm`` on the path-line kernel); config 4 (the
    bench frame with census 5x5 costs, ``tools_bench_configs.py:166-182``)
    without and with the L<->R check, and with ternary census 7x7;
    ``calc_disparity`` at config 3 (``tools_bench_configs.py:150-164``:
@@ -65,11 +65,13 @@ Phases (each raises on a mismatch; none catches its own failure):
    validity equal, parabola allclose at atol 1e-4), ``calc_disparity`` with
    ncc and ternary census 7x7 at 128^2 (equal).
 5. Time the frames and each kernel with CUDA events (the scans on the
-   register-carry kernel in turns with ``line_scan_kernel<0>`` / ``<1>`` at
-   the same shapes, with us per step; each abs and census sweep shape on its
-   band kernel in turns with ``sweep_kernel<cost, words>``), and profile
-   one frame of each path for the device's idle share and its device time
-   by kernel name (the three sweep kernels apart).
+   register-carry and the path-line kernel in turns with
+   ``line_scan_kernel<0>`` / ``<1>`` at the same shapes, with us per step,
+   and the path-line kernel at each number of lines a block; each abs and
+   census sweep shape on its band kernel in turns with ``sweep_kernel<cost,
+   words>``), and profile one frame of each path, ``calc_disparity_sgm``'s
+   too, for the device's idle share and its device time by kernel name (the
+   three sweep kernels apart).
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -233,6 +235,16 @@ def _band_instances(table):
     return out
 
 
+def _path_instances(table):
+    """{K: ptxas entry} of csrc/sgm_path_scan.cu's path_scan_kernel<K>."""
+    out = {}
+    for name, v in table.items():
+        m = re.search(r"path_scan_kernelILi(\d+)E", name)
+        if m:
+            out[int(m[1])] = v
+    return out
+
+
 def phase_build():
     from visionworkbench_torch.ops import _build, sgm_scan
     t0 = time.perf_counter()
@@ -241,6 +253,17 @@ def phase_build():
     for name, path in libs.items():
         log = path.with_suffix(".log")
         table = _ptxas_table(log.read_text() if log.exists() else "")
+        if name == "sgm_path_scan":
+            inst = _path_instances(table)
+            want = {1 << i for i in range(_build.PATH_SCAN_MAX_CELLS.bit_length() - 5)}
+            bad = [k for k, v in inst.items() if v["spill"] or v["stack"]]
+            for k in sorted(inst):
+                print(f"[build] sgm_path_scan: path_scan_kernel<{k}>: {inst[k]['regs']} "
+                      f"registers, {inst[k]['spill']} B spilled, {inst[k]['stack']} B stack")
+            if set(inst) != want or bad:
+                raise SystemExit(f"sgm_path_scan: instances {sorted(inst)} (want "
+                                 f"{sorted(want)}), spilling: {bad}")
+            continue
         if name != "mgm_scan":
             for fn, v in table.items():
                 print(f"[build] {name}: {fn[:70]}: {v['regs']} registers, "
@@ -466,8 +489,10 @@ def scan_cases():
     (512^2, window 5x2) x-scan (3 directions), y-scan and MGM scans, the
     level-4 x- and y-scans (64^2 padded, window 4x1), and the SGM and MGM
     scans of levels 4-1 (window 4x1, then 5x1 over 64-256 lanes); and
-    ``calc_disparity_sgm``'s x-scan at the 64x8 search on 256^2, whose
-    carry (1 MB per line) is in global scratch."""
+    ``calc_disparity_sgm``'s x- and y-scans at the 64x8 search on 256^2
+    (512 cells: the path-line kernel), an odd 3x11 grid with N > L on the
+    path-line kernel, and the MGM scan at the 64x8 search, whose carry (1 MB
+    per line) is in global scratch (``line_scan_kernel<1>``)."""
     n = SGM_HW
     levels = []
     for lv in (1, 2, 3):
@@ -491,8 +516,12 @@ def scan_cases():
                  shifts=(0, 1)),
             dict(kernel="mgm_bidir", name="level4", shape=(64, 1, 4, 64), shifts=(1, -1)),
             *levels,
-            dict(kernel="scan_bidir", name="calc_x_scratch",
+            dict(kernel="scan_bidir", name="calc_x",
                  shape=(CALC_HW, CALC_SEARCH[1], CALC_SEARCH[0], CALC_HW),
+                 shifts=(0, 1, -1)),
+            dict(kernel="scan_bidir", name="calc_y",
+                 shape=(CALC_HW, CALC_SEARCH[1], CALC_SEARCH[0], CALC_HW), shifts=(0,)),
+            dict(kernel="scan_bidir", name="odd_3x11", shape=(300, 3, 11, 200),
                  shifts=(0, 1, -1)),
             dict(kernel="mgm_bidir", name="calc_scratch",
                  shape=(CALC_HW, CALC_SEARCH[1], CALC_SEARCH[0], CALC_HW),
@@ -530,14 +559,34 @@ def _scan_call(case, inputs, plain=False):
     return fn(*inputs, case["shifts"], SGM_P1, SGM_P2, SGM_BAD)
 
 
-def _reg_threads(case):
-    """Threads of the register-carry instance the wrapper picks for the
-    case, or None where it runs line_scan_kernel."""
+def _scan_pick(case):
+    """The kernel the wrapper picks for a scan case: ("mgm_scan", threads),
+    ("path_scan", (cells a thread, lines a block)) or (line_scan_kernel<.>,
+    None)."""
+    import torch
     from visionworkbench_torch.ops import sgm_scan
     sy, sx, nl = case["shape"][-3:]
     if case["kernel"] == "scan_bidir":
-        return sgm_scan._scan_variant(sy, sx, nl, len(case["shifts"]))
-    return sgm_scan._mgm_variant(sy, sx, nl)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        threads, path = sgm_scan._scan_bidir_pick(case["shape"][0], sy, sx, nl,
+                                                  case["shifts"], sms)
+    else:
+        threads, path = sgm_scan._mgm_variant(sy, sx, nl), None
+    if threads is not None:
+        return "mgm_scan", threads
+    return ("path_scan", path) if path is not None else (_old_kernel(case), None)
+
+
+def _scan_ran(case, call):
+    """Run ``call`` and return the kernel it launched, by the counts:
+    "mgm_scan", "path_scan" or line_scan_kernel<.>."""
+    from visionworkbench_torch.ops import sgm_scan
+    k = case["kernel"]
+    before = (sgm_scan.mgm_scan_launches[k], sgm_scan.path_scan_launches.get(k, 0))
+    out = call()
+    ran = (sgm_scan.mgm_scan_launches[k] - before[0],
+           sgm_scan.path_scan_launches.get(k, 0) - before[1])
+    return out, ("mgm_scan" if ran[0] else "path_scan" if ran[1] else _old_kernel(case))
 
 
 def _old_kernel(case):
@@ -576,7 +625,7 @@ def phase_kernels(dev):
     err = {k: 0.0 for k in ("sweep", "sweep_census", "sweep_ternary_census",
                             "sweep_ncc", "sweep_census_codes", "best_of_search",
                             "tiled_search", "speckle", "scan_bidir",
-                            "scan_bidir_line_scan", "mgm_bidir", "mgm_fwd")}
+                            "scan_bidir_path_scan", "mgm_bidir", "mgm_fwd")}
 
     def check(key, what, got, ref):
         torch.cuda.synchronize()
@@ -665,39 +714,31 @@ def phase_kernels(dev):
               f"max_abs_err {e}")
         if e != 0.0:
             raise SystemExit(f"speckle kernel disagrees with its plain version at {c['name']}")
-    from visionworkbench_torch.ops import sgm_scan
     for i, c in enumerate(scan_cases()):
         inputs = _scan_inputs(c, dev, 300 + i)
-        before = sgm_scan.mgm_scan_launches[c["kernel"]]
-        got = _scan_call(c, inputs)
-        on_reg = sgm_scan.mgm_scan_launches[c["kernel"]] - before
+        got, which = _scan_ran(c, lambda: _scan_call(c, inputs))
         ref = _scan_call(c, inputs, plain=True)
         torch.cuda.synchronize()
         e = float((got - ref).abs().max())
-        # scan_bidir's rows: the register-carry kernel, and line_scan_kernel<0>
-        key = c["kernel"] + ("_line_scan" if c["kernel"] == "scan_bidir" and not on_reg
-                             else "")
+        # scan_bidir's rows: the register-carry kernel and the path-line one
+        key = "scan_bidir_path_scan" if which == "path_scan" else c["kernel"]
         err[key] = max(err[key], e)
-        which = "mgm_scan" if on_reg else _old_kernel(c)
-        if on_reg != int(_reg_threads(c) is not None):
-            raise SystemExit(f"{c['kernel']} {c['name']}: ran {which}, expected "
-                             f"threads {_reg_threads(c)}")
+        want, variant = _scan_pick(c)
+        if which != want:
+            raise SystemExit(f"{c['kernel']} {c['name']}: ran {which}, expected {want}")
         print(f"[kernels] {c['kernel']} {c['name']} {c['shape']} shifts {c['shifts']} "
-              f"{which}: mean {float(got.mean()):.4f}, max_abs_err {e}")
+              f"{which} {variant}: mean {float(got.mean()):.4f}, max_abs_err {e}")
         if e != 0.0:
             raise SystemExit(f"{c['kernel']} kernel disagrees with its plain version "
                              f"at {c['name']}")
-        if on_reg:
+        if which in ("mgm_scan", "path_scan"):
             old = _line_scan_call(c, inputs)
             torch.cuda.synchronize()
             e = float((got - old).abs().max())
-            if c["kernel"] == "scan_bidir":
-                err["scan_bidir_line_scan"] = max(err["scan_bidir_line_scan"],
-                                                  float((old - ref).abs().max()))
-            print(f"[kernels] {c['kernel']} {c['name']}: mgm_scan vs {_old_kernel(c)} "
+            print(f"[kernels] {c['kernel']} {c['name']}: {which} vs {_old_kernel(c)} "
                   f"max_abs_err {e}")
             if e != 0.0:
-                raise SystemExit(f"{c['kernel']} {c['name']}: mgm_scan disagrees with "
+                raise SystemExit(f"{c['kernel']} {c['name']}: {which} disagrees with "
                                  f"{_old_kernel(c)}")
     return err
 
@@ -771,21 +812,24 @@ def _reset_counts():
     sweep.band_launches = 0
     sweep.census_band_launches = 0
     speckle.launches = 0
-    for counts in (sgm_scan.launches, sgm_scan.mgm_scan_launches):
+    for counts in (sgm_scan.launches, sgm_scan.mgm_scan_launches,
+                   sgm_scan.path_scan_launches):
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts():
-    """Launches per wrapper; ``<wrapper>/mgm_scan``: of those, the
-    launches of the register-carry kernel; ``sweep/band`` and
+    """Launches per wrapper; ``<wrapper>/mgm_scan`` and
+    ``scan_bidir/path_scan``: of those, the launches of the register-carry
+    kernel and of the path-line kernel; ``sweep/band`` and
     ``sweep/census_band``: the sweep's launches of band_sweep_kernel and of
     band_census_kernel."""
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
     return {"sweep": sweep.launches, "sweep/band": sweep.band_launches,
             "sweep/census_band": sweep.census_band_launches,
             "speckle": speckle.launches, **sgm_scan.launches,
-            **{f"{k}/mgm_scan": v for k, v in sgm_scan.mgm_scan_launches.items()}}
+            **{f"{k}/mgm_scan": v for k, v in sgm_scan.mgm_scan_launches.items()},
+            **{f"{k}/path_scan": v for k, v in sgm_scan.path_scan_launches.items()}}
 
 
 def phase_main(dev):
@@ -794,8 +838,9 @@ def phase_main(dev):
     sgm_left, sgm_right = _make_pair(SGM_HW, SGM_HW)
     calc_left, calc_right = _make_calc_pair(CALC_HW, CALC_HW)
     c3_left, c3_right = (torch.as_tensor(a, device=dev) for a in _calc3_pair())
-    none = {"sweep": 0, "sweep/band": 0, "sweep/census_band": 0, "scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0,
-            "scan_bidir/mgm_scan": 0, "mgm_bidir/mgm_scan": 0, "mgm_fwd/mgm_scan": 0}
+    none = {"sweep": 0, "sweep/band": 0, "sweep/census_band": 0, "scan_bidir": 0,
+            "mgm_bidir": 0, "mgm_fwd": 0, "scan_bidir/mgm_scan": 0, "mgm_bidir/mgm_scan": 0,
+            "mgm_fwd/mgm_scan": 0, "scan_bidir/path_scan": 0}
     # abs sweeps all on band_sweep_kernel, census on band_census_kernel;
     # NCC on sweep_kernel
     c3 = {"sweep": 1, "speckle": 0}
@@ -809,9 +854,10 @@ def phase_main(dev):
             ("mgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "mgm"),
              {"mgm_fwd": 5, "mgm_bidir": 10, "mgm_fwd/mgm_scan": 5,
               "mgm_bidir/mgm_scan": 10}, SGM_HW),
-            # 512 cells a lane: line_scan_kernel<0> (no scan_bidir/mgm_scan)
+            # 512 cells a lane: both scans on the path-line kernel, none on
+            # line_scan_kernel<0>
             ("calc_sgm", lambda: _calc_run(calc_left, calc_right, dev),
-             {"scan_bidir": 2, "speckle": 0}, CALC_HW),
+             {"scan_bidir": 2, "scan_bidir/path_scan": 2, "speckle": 0}, CALC_HW),
             ("config4", lambda: _bench_run(left, right, dev, cost_type="census",
                                            census_window=CENSUS_WINDOW),
              {"sweep": 5, "sweep/census_band": 5}, H),
@@ -1021,6 +1067,7 @@ def phase_timings(dev):
     frame["calc_sgm"] = {"ms": ms, "mps": CALC_HW * CALC_HW / (ms * 1e3)}
     print(f"[time] frame calc_disparity_sgm ({CALC_HW}^2, {CALC_SEARCH}): {ms:.4f} ms, "
           f"{frame['calc_sgm']['mps']:.3f} Mp/s")
+    _profile_frame(lambda: _calc_run(cl, cr, dev), "calc_sgm", ms)
     rows = {}
 
     def band_in_turns(key, name, args, k):
@@ -1098,10 +1145,12 @@ def phase_timings(dev):
         npx = c["h"] * c["w"]
         ops = npx * (2 * c["half"] + 1) ** 2 * SPECKLE_OPS
         rows[("speckle", c["name"])] = _row(ms, plain_ms, 8 * npx, ops)
+    from visionworkbench_torch.ops import _build, sgm_scan
     for i, c in enumerate(scan_cases()):
         inputs = _scan_inputs(c, dev, 300 + i)
         n = c["shape"][0]
-        if _reg_threads(c) is not None:
+        which, variant = _scan_pick(c)
+        if variant is not None:
             # in turns with line_scan_kernel<0> / <1> at the same shape:
             # old, new, new, old
             old = lambda: _line_scan_call(c, inputs)  # noqa: E731
@@ -1110,8 +1159,8 @@ def phase_timings(dev):
             old_ms = statistics.median([ts[0], ts[3]])
             ms = statistics.median([ts[1], ts[2]])
             k = _old_kernel(c)
-            print(f"[time] {c['kernel']} {c['name']} in turns ({k}, mgm_scan, mgm_scan, "
-                  f"{k}): " + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+            print(f"[time] {c['kernel']} {c['name']} in turns ({k}, {which} {variant}, "
+                  f"{which}, {k}): " + ", ".join(f"{t:.4f}" for t in ts) + " ms")
         else:
             ms, old_ms = _time_ms(lambda: _scan_call(c, inputs), reps=20), None
         plain_ms = _time_ms(lambda: _scan_call(c, inputs, plain=True), reps=3, warmup=1)
@@ -1119,6 +1168,20 @@ def phase_timings(dev):
         r["us_per_step"] = ms * 1e3 / n
         if old_ms is not None:
             r.update(line_scan_ms=old_ms, line_scan_us_per_step=old_ms * 1e3 / n)
+        if which == "path_scan" and c["name"].startswith("calc"):
+            # the path-line kernel at each number of lines a block, in turns
+            # (8, 4, 2, 1, 1, 2, 4, 8)
+            widths = [_build.PATH_SCAN_MAX_LINES >> i
+                      for i in range(_build.PATH_SCAN_MAX_LINES.bit_length())]
+            ts = {g: [] for g in widths}
+            for g in widths + widths[::-1]:
+                ts[g].append(_time_ms(lambda: sgm_scan._scan_bidir_cuda(
+                    *inputs, c["shifts"], SGM_P1, SGM_P2, SGM_BAD, None, (variant[0], g)),
+                    reps=10))
+            r["lines_ms"] = {g: statistics.median(t) for g, t in ts.items()}
+            print(f"[time] {c['kernel']} {c['name']} path_scan by lines a block (the "
+                  f"wrapper's: {variant[1]}): " + ", ".join(
+                      f"{g}: {t[0]:.4f} / {t[1]:.4f}" for g, t in ts.items()) + " ms")
         rows[(c["kernel"], c["name"])] = r
     for (k, name), r in rows.items():
         extra = ""
@@ -1127,7 +1190,8 @@ def phase_timings(dev):
         if "line_scan_ms" in r:
             extra += (f"; line_scan_kernel<{int(k != 'scan_bidir')}> "
                       f"{r['line_scan_ms']:.4f} ms, "
-                      f"{r['line_scan_us_per_step']:.4f} us per step")
+                      f"{r['line_scan_us_per_step']:.4f} us per step, "
+                      f"{r['line_scan_ms'] / r['ms']:.2f}x")
         if "sweep_kernel_ms" in r:
             dev_new, dev_old = (("not measured" if r[x] is None else f"{r[x]:.4f} ms")
                                 for x in ("device_ms", "sweep_kernel_device_ms"))
@@ -1219,7 +1283,8 @@ def _profile_frame(run, what, frame_ms, frames=3):
              "band_census_kernel": lambda k: "band_census_kernel" in k,
              "sweep_kernel": lambda k: "sweep_kernel" in k and "band_sweep" not in k,
              **{n: (lambda k, n=n: n in k)
-                for n in ("speckle", "line_scan_kernel", "mgm_scan_kernel")}}
+                for n in ("speckle", "line_scan_kernel", "mgm_scan_kernel",
+                          "path_scan_kernel")}}
     for name, match in kinds.items():
         mine = [e for e in events if match(e.key)]
         if mine:
@@ -1281,8 +1346,8 @@ def main() -> int:
                     "visionworkbench_tpu/ops/speckle.py:93"),
         "scan_bidir": ("level0_x", "sgm", "visionworkbench_torch/csrc/mgm_scan.cu",
                        "visionworkbench_tpu/ops/sgm_scan.py:149"),
-        "scan_bidir_line_scan": ("calc_x_scratch", "calc_sgm",
-                                 "visionworkbench_torch/csrc/sgm_scan.cu",
+        "scan_bidir_path_scan": ("calc_x", "calc_sgm",
+                                 "visionworkbench_torch/csrc/sgm_path_scan.cu",
                                  "visionworkbench_tpu/ops/sgm_scan.py:149"),
         "mgm_bidir": ("level0", "mgm", "visionworkbench_torch/csrc/mgm_scan.cu",
                       "visionworkbench_tpu/ops/sgm_scan.py:222"),
@@ -1292,9 +1357,9 @@ def main() -> int:
     kernels = []
     for k, (shape, run, source, replaces) in table.items():
         c = counts[run]
-        if k == "scan_bidir_line_scan":     # the launches not on mgm_scan
+        if k == "scan_bidir_path_scan":
             r = rows[("scan_bidir", shape)]
-            launches = c["scan_bidir"] - c["scan_bidir/mgm_scan"]
+            launches = c["scan_bidir/path_scan"]
         else:
             r = rows[(k, shape)]
             # the scans: launches of the register-carry kernel on the path
@@ -1307,7 +1372,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
             **{x: r[x] for x in ("us_per_step", "line_scan_ms", "device_ms",
-                                 "sweep_kernel_ms", "sweep_kernel_device_ms") if x in r}})
+                                 "sweep_kernel_ms", "sweep_kernel_device_ms", "lines_ms")
+               if x in r}})
     print(json.dumps({"frame_ms": frame["plain"]["ms"],
                       "frame_mps": frame["plain"]["mps"],
                       "frame_lr_ms": frame["consistency"]["ms"],

@@ -1,18 +1,24 @@
 """Port's SGM/MGM aggregation scans (``visionworkbench_torch/ops/sgm_scan.py``)
 against the JAX package on the CPU: each plain version against the JAX
 ``lax.scan`` engine of ``stereo/sgm.py`` and against the Pallas kernel in
-interpret mode, as ``tests/test_sgm.py`` runs them (N <= 24, L = 128), on
-the same seeded integer-valued inputs.
+interpret mode, as ``tests/test_sgm.py`` runs them (N <= 24, L = 128; for
+``scan_bidir`` also the wide grids of ``calc_disparity_sgm``'s search,
+8x64 and an odd 3x11, at N < L and N > L so that diagonal lines enter and
+leave the frame), on the same seeded integer-valued inputs.
 
 Tolerance: exact. Every value is an integer-valued fp32 below 2^24, so the
 recurrences are exact in any order. The CUDA kernels are held against the
 plain versions on the card (skipped without one), also exactly, with the
 carry in shared memory and, for wide search windows, in global scratch; the
-register-carry kernel (``csrc/mgm_scan.cu``) also against
-``line_scan_kernel<0>`` (``scan_bidir``) and ``line_scan_kernel<1>`` (MGM)
-on the same inputs, with the launch counts showing which kernel ran. On the
-CPU, the choice between the kernels (``_scan_variant``, ``_mgm_variant``) is
-held against the shapes config 6's SGM and MGM pyramids give.
+register-carry kernel (``csrc/mgm_scan.cu``) and the path-line kernel
+(``csrc/sgm_path_scan.cu``) also against ``line_scan_kernel<0>``
+(``scan_bidir``) and ``line_scan_kernel<1>`` (MGM) on the same inputs, with
+the launch counts showing which kernel ran. On the CPU, the choice between
+the kernels (``_scan_bidir_pick``, ``_scan_variant``, ``_mgm_variant``) is
+held against the shapes config 6's SGM and MGM pyramids give and against
+the limits nvcc builds the instances with, and a plain model of the
+path-line kernel's decomposition (blocks of adjacent lines, the steps each
+runs, the padded grid) against the plain version.
 Pixel differences are drawn from [0, 256), the range of |dI| on 8-bit
 images, so the P2' = max(floor(P2 / |dI|), P1) clamp and every IEEE
 quotient of the penalty are reached.
@@ -72,10 +78,13 @@ def _t(arrays, device="cpu"):
 
 
 @pytest.mark.parametrize("shifts", [(0,), (0, 1, -1), (1, -1)])
-@pytest.mark.parametrize("grid", [(2, 5), (1, 4)])
+@pytest.mark.parametrize("grid", [(2, 5), (1, 4),
+                                  # (sy, sx, N, L): wide grids, N < L and N > L
+                                  (8, 64, 6, 40), (8, 64, 12, 5),
+                                  (3, 11, 6, 40), (3, 11, 12, 5)])
 def test_scan_bidir_matches_jax(shifts, grid):
-    sy, sx = grid
-    cost, pf, pr = _scan_inputs(20, 24, sy, sx, 128, len(shifts))
+    sy, sx, n, nl = (*grid, 24, 128)[:4]
+    cost, pf, pr = _scan_inputs(20, n, sy, sx, nl, len(shifts))
     got = tscan.scan_bidir(*_t((cost, pf, pr)), shifts, P1, P2, BAD).numpy()
     j = [jnp.asarray(a) for a in (cost, pf, pr)]
     np.testing.assert_array_equal(got, np.asarray(jsgm._scan_bidir(*j, shifts, P1, P2, BAD)))
@@ -218,15 +227,21 @@ _CONFIG6_SGM = {
 @pytest.mark.parametrize("shape,b,want", [
     ((2, 5, 512), 3, 512), ((2, 5, 512), 1, 512), ((1, 5, 65), 2, 96),
     ((1, 4, 64), 3, 64), ((4, 4, 512), 3, 512), ((1, 1, 1), 1, 32),
-    # line_scan_kernel<0>: more than 16 cells (calc_disparity_sgm's 64x8
-    # search), more than 512 lanes, more than 3 directions
+    # not the register-carry kernel: more than 16 cells (calc_disparity_sgm's
+    # 64x8 search), more than 512 lanes (both on the path-line kernel),
+    # more than 3 directions (line_scan_kernel<0>)
     ((8, 64, 256), 3, None), ((1, 17, 64), 1, None), ((2, 5, 513), 3, None),
     ((1, 4, 1100), 1, None), ((2, 5, 512), 4, None)])
 def test_scan_variant_picks_by_grid_line_and_directions(shape, b, want):
-    """Threads of the register-carry instance for scan_bidir, or None for
-    ``line_scan_kernel<0>``: up to 16 cells over up to 512 lanes, up to 3
-    path directions."""
+    """Threads of the register-carry instance for scan_bidir, or None: up to
+    16 cells over up to 512 lanes, up to 3 path directions. The shapes it
+    leaves with up to 512 cells and 3 directions have a path-line
+    instance."""
     assert tscan._scan_variant(*shape, b) == want
+    if want is None:
+        sy, sx, _ = shape
+        assert ((tscan._path_scan_variant(sy, sx, b) is not None)
+                == (sy * sx <= 512 and b <= 3))
 
 
 def test_scan_variant_covers_config6_sgm_pyramid(monkeypatch):
@@ -274,11 +289,164 @@ def test_scan_variant_limits_are_the_kernel_source_limits():
     assert f"if (B > {tscan._MAX_DIRECTIONS}) return cudaErrorInvalidValue;" in src
 
 
+# (N, sy, sx, L, shifts) -> the kernel on a card of 132 SMs: ("mgm_scan",
+# threads), ("path_scan", cells a thread, lines a block) or ("line_scan",)
+@pytest.mark.parametrize("case,want", [
+    # config 6's level-0 x- and y-scans: the register-carry kernel
+    ((512, 2, 5, 512, (0, 1, -1)), ("mgm_scan", 512)),
+    ((512, 2, 5, 512, (0,)), ("mgm_scan", 512)),
+    # calc_disparity_sgm's 64x8 search at 256^2: x-scan 2 x 1278 lines in
+    # blocks of 8; y-scan 2 x 256 lines, in blocks of 4 (128 blocks: at
+    # least half of 132 SMs)
+    ((256, 8, 64, 256, (0, 1, -1)), ("path_scan", 16, 8)),
+    ((256, 8, 64, 256, (0,)), ("path_scan", 16, 4)),
+    # 17, 33, 64 cells; lines past the register-carry kernel's 512 lanes
+    ((20, 1, 17, 33, (0, 1, -1)), ("path_scan", 1, 4)),
+    ((300, 3, 11, 200, (0, 1, -1)), ("path_scan", 2, 8)),
+    ((12, 8, 8, 1, (0, 1, -1)), ("path_scan", 2, 1)),
+    ((40, 1, 4, 1100, (0,)), ("path_scan", 1, 8)),
+    # the longest padded grid of 512 cells, 1x512: 8 lines in 132 KB
+    ((64, 1, 512, 2048, (0,)), ("path_scan", 16, 8)),
+    # past 512 cells or 3 directions: line_scan_kernel<0>
+    ((24, 8, 65, 256, (0, 1, -1)), ("line_scan",)),
+    ((24, 32, 32, 64, (0,)), ("line_scan",)),
+    ((24, 8, 64, 256, (0, 1, -1, 0)), ("line_scan",))])
+def test_scan_bidir_pick(case, want):
+    """Which kernel ``scan_bidir`` launches for a shape on the card:
+    register-carry where it has an instance, else the path-line kernel up
+    to 512 cells (any line length), else ``line_scan_kernel<0>``; and the
+    path-line kernel's instance and lines a block."""
+    n, sy, sx, nl, shifts = case
+    threads, path = tscan._scan_bidir_pick(n, sy, sx, nl, shifts, 132)
+    got = (("mgm_scan", threads) if threads is not None
+           else ("path_scan", *path) if path is not None else ("line_scan",))
+    assert got == want
+
+
+def test_path_scan_limits_are_the_kernel_source_limits(monkeypatch):
+    """``_path_scan_variant`` and ``_path_scan_lines`` read the limits nvcc
+    builds ``csrc/sgm_path_scan.cu`` with (part of the library's name: a
+    change rebuilds), and its direction limit is the wrapper's."""
+    from visionworkbench_torch.ops import _build
+    flags = _build.flags("sgm_path_scan")
+    cells, lines = _build.PATH_SCAN_MAX_CELLS, _build.PATH_SCAN_MAX_LINES
+    assert f"-DVW_PATH_MAX_CELLS={cells}" in flags
+    assert f"-DVW_PATH_MAX_LINES={lines}" in flags
+    assert "sgm_path_scan" in _build.SOURCES
+    assert tscan._path_scan_variant(1, cells, 3) == cells // 32
+    assert tscan._path_scan_variant(1, cells + 1, 3) is None
+    assert tscan._path_scan_variant(1, cells, 4) is None
+    assert tscan._path_scan_lines(1, 17, 10 ** 4, 10 ** 4, (0, 1, -1), 1) == lines
+    src = (_build.CSRC / "sgm_path_scan.cu").read_text()
+    assert f"constexpr int kMaxDirections = {tscan._MAX_DIRECTIONS};" in src
+    name = _build.library_path("sgm_path_scan")
+    monkeypatch.setitem(_build.DEFINES, "sgm_path_scan", (
+        f"-DVW_PATH_MAX_CELLS={2 * cells}", f"-DVW_PATH_MAX_LINES={lines}"))
+    assert _build.library_path("sgm_path_scan") != name
+
+
+@pytest.mark.parametrize("grid", [(1, 17), (17, 1), (3, 11), (8, 8), (8, 64), (16, 32),
+                                  (1, 512), (512, 1), (2, 256)])
+@pytest.mark.parametrize("shifts", [(0,), (0, 1, -1)])
+def test_path_scan_lines_fill_the_card_and_fit_shared_memory(grid, shifts):
+    """Lines a block: a power of two up to the limit, whose block fits
+    shared memory, and as many as leave the launch at least half as many
+    blocks as the 132 SMs (or 1 where even single lines do not)."""
+    from visionworkbench_torch.ops import _build
+    sy, sx = grid
+    for n, nl in ((256, 256), (12, 5), (1, 1100), (1024, 40)):
+        g = tscan._path_scan_lines(sy, sx, n, nl, shifts, 132)
+        assert g & (g - 1) == 0 and 1 <= g <= _build.PATH_SCAN_MAX_LINES
+        assert tscan._path_scan_smem(sy, sx, g) <= tscan._MAX_SMEM
+        blocks = 2 * sum(-(-(nl if s == 0 else nl + n - 1) // g) for s in shifts)
+        wider = 2 * g
+        if wider <= _build.PATH_SCAN_MAX_LINES and (
+                tscan._path_scan_smem(sy, sx, wider) <= tscan._MAX_SMEM):
+            assert 2 * 2 * sum(-(-(nl if s == 0 else nl + n - 1) // wider)
+                               for s in shifts) < 132
+        assert 2 * blocks >= 132 or g == 1
+
+
+def _path_line_model(cost, pf, pr, shifts, p1, p2, bad, lines):
+    """A plain model of ``csrc/sgm_path_scan.cu``'s decomposition: the
+    chains (group, direction, line k at lane k + s t), in blocks of
+    ``lines`` adjacent lines, each block running the steps at which one of
+    its lines is in the frame (the kernel's bounds), a line's carry bad
+    until it enters, its 3x3 grid min read from a grid padded with bad.
+    Returns the output volume."""
+    n, sy, sx, nl = cost.shape
+    cells = sy * sx
+    out = torch.zeros_like(cost)
+    c = torch.arange(cells)
+    pidx = (c // sx + 1) * (sx + 2) + c % sx + 1
+    for grp, pd in enumerate((pf, pr)):
+        for b, s in enumerate(shifts):
+            n_lines = nl if s == 0 else nl + n - 1
+            for k0 in range(1 - n if s > 0 else 0, (1 - n if s > 0 else 0) + n_lines,
+                            lines):
+                t_lo, t_hi = 0, n
+                if s > 0:
+                    t_lo, t_hi = max(0, 1 - k0 - lines), min(n, nl - k0)
+                elif s < 0:
+                    t_lo, t_hi = max(0, k0 - nl + 1), min(n, k0 + lines)
+                carry = torch.full((lines, cells), bad)
+                for t in range(t_lo, t_hi):
+                    row = n - 1 - t if grp else t
+                    for w in range(lines):
+                        lane = k0 + w + s * t
+                        if not 0 <= lane < nl:
+                            continue
+                        p, cx = carry[w], cost[row, :, :, lane].reshape(cells)
+                        p2m = torch.clamp(torch.floor(torch.tensor(p2) / torch.clamp(
+                            pd[row, b, lane], min=1.0)), min=p1)
+                        mp = p.min()
+                        g = torch.full(((sy + 2) * (sx + 2),), bad)
+                        g[pidx] = p
+                        q = p
+                        if sy > 1:
+                            q = torch.minimum(torch.minimum(q, g[pidx - sx - 2]),
+                                              g[pidx + sx + 2])
+                        g = torch.full_like(g, bad)
+                        g[pidx] = q
+                        r = q
+                        if sx > 1:
+                            r = torch.minimum(torch.minimum(r, g[pidx - 1]), g[pidx + 1])
+                        v = cx + (torch.minimum(torch.minimum(p, r + p1), mp + p2m) - mp)
+                        carry[w] = torch.where(cx >= bad, torch.full_like(v, bad), v)
+                        out[row, :, :, lane] += carry[w].reshape(sy, sx)
+    return out
+
+
+@pytest.mark.parametrize("case", [(7, 3, 11, 20, (0, 1, -1), 8), (12, 8, 64, 9, (1, -1), 2),
+                                  (9, 1, 17, 30, (0, 1, -1), 1), (5, 17, 1, 3, (1, -1), 4),
+                                  (1, 8, 8, 33, (0, 1, -1), 8), (20, 2, 3, 1, (0,), 2)])
+def test_path_line_model_matches_plain(case):
+    """The path-line kernel's decomposition computes ``scan_bidir``: the
+    model of it equals the plain version bit for bit, with N < L and N > L
+    (diagonal lines entering and leaving the frame), N = 1 and L = 1."""
+    n, sy, sx, nl, shifts, lines = case
+    cost, pf, pr = _t(_scan_inputs(35, n, sy, sx, nl, len(shifts)))
+    got = _path_line_model(cost, pf, pr, shifts, P1, P2, BAD, lines)
+    ref = tscan.scan_bidir_plain(cost, pf, pr, shifts, P1, P2, BAD)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
 def test_ablation_variants_edit_the_kernel_source(tmp_path):
     """Each variant of ``tools/mgm_scan_ablation.py`` is a text edit of
     ``csrc/mgm_scan.cu`` whose text occurs there exactly once."""
     from visionworkbench_torch.tools import mgm_scan_ablation as ablation
     paths = ablation._variant_sources(tmp_path, [])
+    assert set(paths) == set(ablation.ABLATIONS)
+    as_is = paths["as_is"].read_text()
+    for name, path in paths.items():
+        assert (path.read_text() != as_is) == bool(ablation.ABLATIONS[name])
+
+
+def test_path_ablation_variants_edit_the_kernel_source(tmp_path):
+    """Each variant of ``tools/path_scan_ablation.py`` is a text edit of
+    ``csrc/sgm_path_scan.cu`` whose text occurs there exactly once."""
+    from visionworkbench_torch.tools import path_scan_ablation as ablation
+    paths = ablation._variant_sources(tmp_path)
     assert set(paths) == set(ablation.ABLATIONS)
     as_is = paths["as_is"].read_text()
     for name, path in paths.items():
@@ -303,21 +471,23 @@ def test_wrappers_reject_bad_arguments():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(24, 2, 5, 128, (0, 1, -1)), (40, 1, 4, 1100, (0,)),
                                   (7, 3, 3, 33, (1, -1)),
-                                  # a 64x8 search: the carry is in global scratch
+                                  # a 64x8 search (512 cells)
                                   (24, 8, 64, 256, (0, 1, -1))])
 def test_scan_bidir_kernel_matches_plain(cuda, case):
-    """The wrapper's pick: the register-carry kernel, or
-    ``line_scan_kernel<0>`` for lines past 512 lanes (1100) and the 64x8
-    search, as the counts show."""
+    """The wrapper's pick: the register-carry kernel, or the path-line
+    kernel for lines past 512 lanes (1100) and the 64x8 search, as the
+    counts show."""
     n, sy, sx, nl, shifts = case
     args = _t(_scan_inputs(24, n, sy, sx, nl, len(shifts)), cuda)
     before = tscan.launches["scan_bidir"]
     reg = tscan.mgm_scan_launches["scan_bidir"]
+    path = tscan.path_scan_launches["scan_bidir"]
     got = tscan.scan_bidir(*args, shifts, P1, P2, BAD)
     assert tscan.launches["scan_bidir"] == before + 1
     on_reg = int(tscan._scan_variant(sy, sx, nl, len(shifts)) is not None)
     assert on_reg == int(nl <= 512 and sy * sx <= 16)
     assert tscan.mgm_scan_launches["scan_bidir"] == reg + on_reg
+    assert tscan.path_scan_launches["scan_bidir"] == path + 1 - on_reg
     ref = tscan.scan_bidir_plain(*args, shifts, P1, P2, BAD)
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
 
@@ -358,6 +528,55 @@ def test_scan_bidir_register_kernel_edges_and_level0(cuda, case):
     n, sy, sx, nl, shifts, bad_frac = case
     args = _t(_scan_inputs(34, n, sy, sx, nl, len(shifts), bad_frac), cuda)
     _scan_both_kernels(args, shifts)
+
+
+# (N, sy, sx, L, shifts): 17, 33, 64 and 512 cells; grids (1, 17), (17, 1),
+# (3, 11), (8, 8), (8, 64), (16, 32); lanes 1, 33, 256, 1100; N = 1, N < L,
+# N > L; a 3 % share of absent costs
+_PATH_CASES = [
+    (20, 1, 17, 33, (0, 1, -1)), (40, 17, 1, 33, (1, -1)), (1, 3, 11, 256, (0,)),
+    (50, 3, 11, 33, (0, 1, -1)), (12, 8, 8, 1, (0, 1, -1)), (1, 8, 8, 33, (1, -1)),
+    (24, 8, 64, 256, (0, 1, -1)), (300, 8, 64, 33, (1, -1)), (7, 16, 32, 1100, (0,)),
+    (40, 16, 32, 256, (0, 1, -1)), (256, 8, 64, 256, (0,))]
+
+
+def _path_both_kernels(args, shifts, path=None):
+    """scan_bidir on the path-line kernel (the wrapper's pick, or ``path``
+    forced), held bit for bit against its plain version and against
+    line_scan_kernel<0> on the same inputs; the counts show which kernel
+    ran each time."""
+    before = tscan.launches["scan_bidir"]
+    runs = tscan.path_scan_launches["scan_bidir"]
+    if path is None:
+        got = tscan.scan_bidir(*args, shifts, P1, P2, BAD)
+    else:
+        got = tscan._scan_bidir_cuda(*args, shifts, P1, P2, BAD, None, path)
+    assert tscan.path_scan_launches["scan_bidir"] == runs + 1
+    old = tscan._scan_bidir_cuda(*args, shifts, P1, P2, BAD, None)
+    assert tscan.launches["scan_bidir"] == before + 2
+    assert tscan.path_scan_launches["scan_bidir"] == runs + 1
+    ref = tscan.scan_bidir_plain(*args, shifts, P1, P2, BAD)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), old.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _PATH_CASES)
+def test_path_scan_kernel_matches_plain_and_line_scan(cuda, case):
+    n, sy, sx, nl, shifts = case
+    args = _t(_scan_inputs(36, n, sy, sx, nl, len(shifts), 0.03), cuda)
+    _path_both_kernels(args, shifts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lines", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", [(30, 3, 11, 45, (0, 1, -1)), (9, 8, 64, 70, (1, -1))])
+def test_path_scan_kernel_every_block_width(cuda, case, lines):
+    """Each number of lines a block, forced, on shapes whose lines do not
+    divide into whole blocks."""
+    n, sy, sx, nl, shifts = case
+    args = _t(_scan_inputs(37, n, sy, sx, nl, len(shifts), 0.03), cuda)
+    _path_both_kernels(args, shifts, (tscan._path_scan_variant(sy, sx, len(shifts)), lines))
 
 
 def _mgm_both_kernels(args, fargs):

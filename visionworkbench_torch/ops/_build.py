@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sweep", "speckle", "sgm_scan", "mgm_scan")
+SOURCES = ("sweep", "speckle", "sgm_scan", "mgm_scan", "sgm_path_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 # The limits of csrc/mgm_scan.cu's register-carry instances (SGM and MGM),
@@ -30,6 +30,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # a block).
 MGM_MAX_CELLS = 16
 MGM_MAX_LANES = 512
+# The limits of csrc/sgm_path_scan.cu (scan_bidir, one warp per path line),
+# read by ops/sgm_scan.py:_path_scan_variant and _path_scan_lines:
+# disparity cells a line (its instances hold 1, 2, 4, ... these / 32 cells
+# a thread) and lines (warps) a block.
+PATH_SCAN_MAX_CELLS = 512
+PATH_SCAN_MAX_LINES = 8
 # The layout and limits of csrc/sweep.cu's band kernels (band_sweep_kernel:
 # abs/sq; band_census_kernel: census), read by ops/sweep.py:_sweep_variant,
 # _band_geometry and _census_band_geometry: output rows a block, output
@@ -41,6 +47,8 @@ SWEEP_BAND_K = (16, 24)
 SWEEP_BAND_MAX_THREADS = 256
 DEFINES = {"mgm_scan": (f"-DVW_MGM_MAX_CELLS={MGM_MAX_CELLS}",
                         f"-DVW_MGM_MAX_LANES={MGM_MAX_LANES}"),
+           "sgm_path_scan": (f"-DVW_PATH_MAX_CELLS={PATH_SCAN_MAX_CELLS}",
+                             f"-DVW_PATH_MAX_LINES={PATH_SCAN_MAX_LINES}"),
            "sweep": (f"-DVW_SWEEP_BAND_ROWS={SWEEP_BAND_ROWS}",
                      f"-DVW_SWEEP_SEG={SWEEP_SEG}",
                      f"-DVW_SWEEP_BAND_K0={SWEEP_BAND_K[0]}",

@@ -1,6 +1,6 @@
-"""SGM/MGM aggregation scans: the CUDA kernels of ``csrc/sgm_scan.cu`` and
-``csrc/mgm_scan.cu``, their plain PyTorch versions and the wrappers that
-pick between them by device.
+"""SGM/MGM aggregation scans: the CUDA kernels of ``csrc/sgm_scan.cu``,
+``csrc/mgm_scan.cu`` and ``csrc/sgm_path_scan.cu``, their plain PyTorch
+versions and the wrappers that pick between them by device.
 
 Replaces the TPU kernels of ``visionworkbench_tpu/ops/sgm_scan.py``:
 
@@ -29,12 +29,17 @@ On the card, the three wrappers take the register-carry kernel of
 ``csrc/mgm_scan.cu`` where it has an instance for the grid and line (up to
 ``_build.MGM_MAX_CELLS`` disparity cells over up to ``_build.MGM_MAX_LANES``
 lanes; :func:`_mgm_variant`, :func:`_scan_variant`), with the MGM wrapper's
-own pair of lane shifts or, for ``scan_bidir``, up to 3 path directions;
-every other shape runs ``line_scan_kernel<0>`` (``scan_bidir``) or
-``line_scan_kernel<1>`` (MGM) of ``csrc/sgm_scan.cu``, which compute the
-same functions. Any search window runs on the card: a line's carry that
-does not fit a block's shared memory goes to a global scratch buffer. What bounds the kernels on the H100, and what their design
-does about it: see the notes at the top of the two sources.
+own pair of lane shifts or, for ``scan_bidir``, up to 3 path directions.
+Every other ``scan_bidir`` of up to ``_build.PATH_SCAN_MAX_CELLS`` cells
+(``calc_disparity_sgm``'s 64x8 search: 512), at any line length, runs
+``csrc/sgm_path_scan.cu``, one warp per path line
+(:func:`_path_scan_variant`, :func:`_path_scan_lines`). Wider grids run
+``line_scan_kernel<0>`` (``scan_bidir``), and MGM shapes past the
+register-carry limits ``line_scan_kernel<1>``, of ``csrc/sgm_scan.cu``,
+which compute the same functions. Any search window runs on the card:
+``line_scan_kernel``'s carry goes to a global scratch buffer where it does
+not fit a block's shared memory. What bounds the kernels on the H100, and
+what their design does about it: see the notes at the top of the sources.
 """
 
 from __future__ import annotations
@@ -50,9 +55,11 @@ from visionworkbench_torch.ops import _build
 # Kernel launches since the count was last set to 0, one count per wrapper
 # (each wrapper adds one per launch of a CUDA kernel, and nowhere else), and
 # of those the launches that went to the register-carry kernel of
-# csrc/mgm_scan.cu (the rest ran line_scan_kernel of csrc/sgm_scan.cu).
+# csrc/mgm_scan.cu and to the path-line kernel of csrc/sgm_path_scan.cu
+# (the rest ran line_scan_kernel of csrc/sgm_scan.cu).
 launches = {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
 mgm_scan_launches = {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
+path_scan_launches = {"scan_bidir": 0}
 
 _MAX_THREADS = 1024
 _MAX_SMEM = 232448        # bytes of shared memory one H100 block may opt into
@@ -63,6 +70,7 @@ _MODES = {"mgm_fwd": 0, "mgm_bidir": 1, "scan_bidir": 2}
 _MAX_DIRECTIONS = 3       # path directions a scan_bidir launch takes
 _lib = None
 _mgm_lib = None
+_path_lib = None
 
 
 def _mgm_variant(sy: int, sx: int, nl: int):
@@ -88,6 +96,69 @@ def _scan_variant(sy: int, sx: int, nl: int, b: int):
     return _mgm_variant(sy, sx, nl)
 
 
+def _path_scan_variant(sy: int, sx: int, b: int):
+    """Cells a thread (K) of the path-line kernel's instance
+    (``csrc/sgm_path_scan.cu``) for ``b`` path directions over a (``sy``,
+    ``sx``) grid, or None where ``line_scan_kernel<0>`` runs the shape: more
+    than ``_build.PATH_SCAN_MAX_CELLS`` cells, or more than 3 directions.
+    A warp holds a line's cells, K = 1, 2, 4, ... a thread; nvcc builds the
+    instances from the same limit."""
+    cells = sy * sx
+    if b > _MAX_DIRECTIONS or cells > _build.PATH_SCAN_MAX_CELLS:
+        return None
+    k = 1
+    while 32 * k < cells:
+        k *= 2
+    return k
+
+
+def _path_scan_smem(sy: int, sx: int, lines: int) -> int:
+    """Shared memory (bytes) of a path-scan block of ``lines`` warps (as
+    ``csrc/sgm_path_scan.cu:smem_bytes``): the double-buffered slab of
+    cells x lines costs (row stride: the cells rounded up to a warp, plus
+    32 / lines) and of its |dI|, and each warp's two padded (sy + 2, sx + 2)
+    grids."""
+    stride = -(-sy * sx // 32) * 32 + (32 // lines) % 32
+    return 4 * (2 * lines * (stride + 1) + 2 * lines * (sy + 2) * (sx + 2))
+
+
+def _path_scan_lines(sy: int, sx: int, n: int, nl: int, shifts, sms: int) -> int:
+    """Path lines (warps) a block of the path-line kernel: the most, up to
+    ``_build.PATH_SCAN_MAX_LINES`` (8 lanes: a 32-byte sector a cell row of
+    the slab and of the atomics), whose shared memory fits a block, halved
+    while the launch has fewer blocks than half the ``sms`` SMs. The lines
+    of a launch: 2 groups x (``nl`` a direction with shift 0, ``nl`` + ``n``
+    - 1 diagonals with shift +-1). At ``calc_disparity_sgm``'s 64x8 search
+    on 256^2 this gives the x-scan 8 and the y-scan 4 lines a block (128
+    blocks), the fastest of 1-8 for each on an H100 (``chip_smoke.py``
+    phase 5; ``PERF.md``): fewer lines fill more SMs, but each request of
+    the slab and the atomics then carries less of its 32-byte sector."""
+    lines = _build.PATH_SCAN_MAX_LINES
+    while lines > 1 and _path_scan_smem(sy, sx, lines) > _MAX_SMEM:
+        lines //= 2
+
+    def blocks(g):
+        return 2 * sum(-(-(nl if s == 0 else nl + n - 1) // g) for s in shifts)
+
+    while lines > 1 and 2 * blocks(lines) < sms:
+        lines //= 2
+    return lines
+
+
+def _scan_bidir_pick(n: int, sy: int, sx: int, nl: int, shifts, sms: int):
+    """The kernel of a ``scan_bidir`` on the card, as ``(threads, path)``
+    for :func:`_scan_bidir_cuda`: the register-carry kernel where
+    :func:`_scan_variant` has an instance (``threads``), else the path-line
+    kernel where :func:`_path_scan_variant` has one (``path`` = (cells a
+    thread, lines a block) for a card of ``sms`` SMs), else
+    ``line_scan_kernel<0>`` (both None)."""
+    threads = _scan_variant(sy, sx, nl, len(shifts))
+    k = None if threads is not None else _path_scan_variant(sy, sx, len(shifts))
+    if k is None:
+        return threads, None
+    return None, (k, _path_scan_lines(sy, sx, n, nl, shifts, sms))
+
+
 def _bind_mgm(lib):
     """Set the argument types of ``vw_mgm_scan`` on a loaded library."""
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -106,6 +177,25 @@ def _mgm_library():
     if _mgm_lib is None:
         _mgm_lib = _bind_mgm(_build.load("mgm_scan"))
     return _mgm_lib
+
+
+def _bind_path(lib):
+    """Set the argument types of ``vw_path_scan`` on a loaded library."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.vw_path_scan.argtypes = [
+        p, p, p, p,                    # cost, pd_f, pd_r, out
+        i, i, i, i, i,                 # B, N, sy, sx, L
+        i, i, i,                       # lane shifts
+        f, f, f, i, i, p]              # p1, p2, bad, k, lines, stream
+    lib.vw_path_scan.restype = i
+    return lib
+
+
+def _path_library():
+    global _path_lib
+    if _path_lib is None:
+        _path_lib = _bind_path(_build.load("sgm_path_scan"))
+    return _path_lib
 
 
 def _library():
@@ -324,6 +414,29 @@ def _launch_mgm(name, threads, groups, b, n, sy, sx, nl, cost, pd, guard, out,
     mgm_scan_launches[name] += 1
 
 
+def _launch_path(cost_t, pdiffs_f, pdiffs_r, out, shifts, p1, p2, bad, k,
+                 lines):
+    """Check device, type and contiguity, then launch the path-line kernel
+    of ``csrc/sgm_path_scan.cu`` (instance ``k``, ``lines`` warps a block)
+    adding both groups of every direction into the zeroed ``out``.
+    ``shifts``: the lane shift of each of the B directions of ``pdiffs_*``
+    (N, B, L), padded to 3."""
+    dev = _check_tensors("scan_bidir", (cost_t,), (pdiffs_f, pdiffs_r),
+                         (None, None), (out,))
+    n, sy, sx, nl = (int(d) for d in cost_t.shape)
+    lib = _path_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vw_path_scan(cost_t.data_ptr(), pdiffs_f.data_ptr(),
+                               pdiffs_r.data_ptr(), out.data_ptr(),
+                               int(pdiffs_f.shape[1]), n, sy, sx, nl, *shifts,
+                               float(p1), float(p2), float(bad), k, lines,
+                               stream)
+    _build.check(err, "scan_bidir")
+    launches["scan_bidir"] += 1
+    path_scan_launches["scan_bidir"] += 1
+
+
 def _plain_or_cuda(name, t):
     if t.device.type == "cpu":
         return True
@@ -340,9 +453,10 @@ def scan_bidir(cost_t, pdiffs_f, pdiffs_r, shifts: Sequence[int], p1: float,
     each direction's carry (0 straight, +-1 diagonal). Returns the per-step
     sum over the B directions of both groups, (N, sy, sx, L).
 
-    CPU tensors run :func:`scan_bidir_plain`; CUDA tensors launch the
-    kernel (the register-carry one where :func:`_scan_variant` has an
-    instance, else ``line_scan_kernel<0>``) or raise."""
+    CPU tensors run :func:`scan_bidir_plain`; CUDA tensors launch a kernel
+    or raise: the register-carry one where :func:`_scan_variant` has an
+    instance, else the path-line one where :func:`_path_scan_variant` has
+    one, else ``line_scan_kernel<0>``."""
     shifts = tuple(int(s) for s in shifts)
     if cost_t.dim() != 4 or not shifts:
         raise ArgumentErr("scan_bidir: cost_t must be (N, sy, sx, L) and "
@@ -356,18 +470,25 @@ def scan_bidir(cost_t, pdiffs_f, pdiffs_r, shifts: Sequence[int], p1: float,
     if b > _MAX_DIRECTIONS:
         raise ArgumentErr(f"scan_bidir: the CUDA scan takes at most "
                           f"{_MAX_DIRECTIONS} path directions, got {b}")
+    sms = torch.cuda.get_device_properties(cost_t.device).multi_processor_count
     return _scan_bidir_cuda(cost_t, pdiffs_f, pdiffs_r, shifts, p1, p2, bad,
-                            _scan_variant(sy, sx, nl, b))
+                            *_scan_bidir_pick(n, sy, sx, nl, shifts, sms))
 
 
 def _scan_bidir_cuda(cost_t, pdiffs_f, pdiffs_r, shifts, p1, p2, bad,
-                     threads):
+                     threads, path=None):
     """The card's :func:`scan_bidir`: the register-carry kernel with
-    ``threads`` per block, or ``line_scan_kernel<0>`` where ``threads`` is
-    None."""
+    ``threads`` per block; where ``threads`` is None, the path-line kernel
+    with ``path`` = (cells a thread, lines a block), or
+    ``line_scan_kernel<0>`` where that is None too."""
     n, sy, sx, nl = (int(d) for d in cost_t.shape)
     b = len(shifts)
     out = torch.zeros_like(cost_t)
+    if threads is None and path is not None:
+        _launch_path(cost_t, pdiffs_f, pdiffs_r, out,
+                     tuple(shifts) + (0,) * (_MAX_DIRECTIONS - b), p1, p2, bad,
+                     *path)
+        return out
     cells = sy * sx * nl
     # (cost n, cost b, pd n, pd b, out n, out b) strides in elements
     strides = (cells, 0, b * nl, nl, cells, 0)

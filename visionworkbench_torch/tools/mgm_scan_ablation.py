@@ -133,7 +133,7 @@ def main() -> int:
             continue
         inputs = cs._scan_inputs(case, "cuda", 300 + i)
         shape = case["shape"]
-        threads = cs._reg_threads(case)
+        threads = cs._scan_pick(case)[1]
         fn = getattr(sgm_scan, f"_{case['kernel']}_cuda")
         times = {n: [] for n in names}
         try:        # the wrappers launch whichever library is loaded
