@@ -7,9 +7,10 @@ Phases (each raises on a mismatch; none catches its own failure):
 1. Build the CUDA kernels from ``visionworkbench_torch/csrc/`` (one nvcc per
    source, started together), print each build's registers and spills (and
    fail if an instance of the register-carry SGM/MGM kernel that the
-   wrappers can select, of the path-line SGM kernel, or of the sweep's band
-   kernels -- abs/sq and census, 1 and 2 words, every K -- spills), and
-   print the card's name and power limit.
+   wrappers can select, of the path-line SGM kernel, of the MGM cluster
+   kernel -- every cell count and mode -- or of the
+   sweep's band kernels -- abs/sq and census, 1 and 2 words, every K --
+   spills), and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
    to the 1/256 grid (integer disparities, validity, cost patches and keep
@@ -33,8 +34,12 @@ Phases (each raises on a mismatch; none catches its own failure):
    (``csrc/sgm_path_scan.cu``) at ``calc_disparity_sgm``'s 64x8 search (x-
    and y-scan) and an odd 3x11 grid; each is held against the plain version
    and against ``line_scan_kernel<0>`` (``scan_bidir``) or ``<1>`` (MGM) on
-   the same inputs; MGM at the 64x8 search runs ``line_scan_kernel<1>``,
-   its carry in global scratch (the launch counts show which kernel ran).
+   the same inputs; the MGM scans past the register-carry kernel's limits
+   run a cluster a line: both at the 64x8 search on 256^2 and the three of
+   the one-level 64x2 search on 64x512 on ``csrc/mgm_cluster_scan.cu``,
+   both at config 6's level 0 on 1024^2 (1024 lanes) on the register-carry
+   kernel over a cluster of blocks (the launch counts show which kernel
+   ran).
 3. Run the main paths, each with the launch counts set to 0 just before it
    and read just after: ``pyramid_correlate`` at the configuration of
    ``bench.py`` (1024^2 pair, 64x8 search, 15x15 kernel, 4 levels, tile 64,
@@ -44,7 +49,11 @@ Phases (each raises on a mismatch; none catches its own failure):
    ``"mgm"``, and ``calc_disparity_sgm`` as ``docs/stereo.md`` calls it
    (64x8 search, census 5x5, parabola) on a 256^2 frame (the SGM frame's
    10 ``scan_bidir`` launches all on the register-carry kernel, the 2 of
-   ``calc_disparity_sgm`` on the path-line kernel); config 4 (the
+   ``calc_disparity_sgm`` on the path-line kernel), the same call with
+   ``use_mgm=True`` (its 2 ``mgm_bidir`` and 1 ``mgm_fwd`` on the cluster
+   kernel) and config 6's MGM pyramid on the bench's 1024^2 pair (level 0's
+   three scans a cluster a line, the 12 of levels 1-4 a block a line; none
+   of the 512^2 MGM frame's a cluster a line); config 4 (the
    bench frame with census 5x5 costs, ``tools_bench_configs.py:166-182``)
    without and with the L<->R check, and with ternary census 7x7;
    ``calc_disparity`` at config 3 (``tools_bench_configs.py:150-164``:
@@ -60,18 +69,21 @@ Phases (each raises on a mismatch; none catches its own failure):
    the mean fill of the masked pixels allclose at rtol 1e-6: its sum runs
    in another order on the card), SGM and MGM at 128^2 with 2 levels and
    subpixel none, SGM also masked (equal), ``calc_disparity_sgm``
-   at 128^2 with the 64x8 search (validity equal, parabola allclose at
-   atol 2e-5), config 4 at 256^2 with 2 levels (integer disparities and
+   at 128^2 with the 64x8 search, SGM and MGM (validity equal, parabola
+   allclose at atol 2e-5), config 4 at 256^2 with 2 levels (integer disparities and
    validity equal, parabola allclose at atol 1e-4), ``calc_disparity`` with
    ncc and ternary census 7x7 at 128^2 (equal).
 5. Time the frames and each kernel with CUDA events (the scans on the
-   register-carry and the path-line kernel in turns with
+   register-carry, the path-line and the cluster kernel in turns with
    ``line_scan_kernel<0>`` / ``<1>`` at the same shapes, with us per step,
-   and the path-line kernel at each number of lines a block; each abs and
+   the path-line kernel at each number of lines a block and the
+   register-carry kernel over a cluster at each number of lanes a block;
+   each abs and
    census sweep shape on its band kernel in turns with ``sweep_kernel<cost,
    words>``), and profile one frame of each path, ``calc_disparity_sgm``'s
    too, for the device's idle share and its device time by kernel name (the
-   three sweep kernels apart).
+   three sweep kernels apart), ``calc_disparity_sgm(use_mgm=True)``'s and
+   the 1024^2 MGM frame's too.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -211,12 +223,15 @@ MGM_MODES = ("fwd", "bidir", "sgm")
 
 
 def _mgm_instances(table):
-    """{(sy, sx, mode): ptxas entry} of csrc/mgm_scan.cu."""
+    """{(sy, sx, mode): ptxas entry} of csrc/mgm_scan.cu's
+    mgm_scan_kernel<SY, SX, MODE, CLUSTER>; mode "fwd", "bidir" or "sgm",
+    and "fwd_cluster" or "bidir_cluster" for the cluster instances."""
     out = {}
     for name, v in table.items():
-        m = re.search(r"mgm_scan_kernelILi(\d+)ELi(\d+)ELi([012])E", name)
+        m = re.search(r"mgm_scan_kernelILi(\d+)ELi(\d+)ELi([012])ELb([01])E", name)
         if m:
-            out[(int(m[1]), int(m[2]), MGM_MODES[int(m[3])])] = v
+            mode = MGM_MODES[int(m[3])] + ("_cluster" if m[4] == "1" else "")
+            out[(int(m[1]), int(m[2]), mode)] = v
     return out
 
 
@@ -232,6 +247,17 @@ def _band_instances(table):
         m = re.search(r"band_census_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             out[(f"census{m[1]}", int(m[2]))] = v
+    return out
+
+
+def _cluster_instances(table):
+    """{(T, K, mode): ptxas entry} of csrc/mgm_cluster_scan.cu's
+    cluster_wide_kernel<T, K, MODE>."""
+    out = {}
+    for name, v in table.items():
+        m = re.search(r"cluster_wide_kernelILi(\d+)ELi(\d+)ELi([01])E", name)
+        if m:
+            out[(int(m[1]), int(m[2]), MGM_MODES[int(m[3])])] = v
     return out
 
 
@@ -253,6 +279,22 @@ def phase_build():
     for name, path in libs.items():
         log = path.with_suffix(".log")
         table = _ptxas_table(log.read_text() if log.exists() else "")
+        if name == "mgm_cluster_scan":
+            inst = _cluster_instances(table)
+            max_k = _build.CLUSTER_MAX_CELLS // 32
+            want = {(t, k, m) for m in ("fwd", "bidir")
+                    for t, k in [(16, 1 << i) for i in range(1, max_k.bit_length())]
+                    + [(32, max_k)]}
+            bad = [key for key, v in inst.items() if v["spill"] or v["stack"]]
+            print(f"[build] mgm_cluster_scan: {len(inst)} instances; instances that "
+                  f"spill: {bad or 'none'}")
+            for key in sorted(inst):
+                print(f"[build] mgm_cluster_scan (T, K, mode) {key}: {inst[key]['regs']} "
+                      f"registers, {inst[key]['spill']} B spilled, {inst[key]['stack']} B stack")
+            if set(inst) != want or bad:
+                raise SystemExit(f"mgm_cluster_scan: instances missing {sorted(want - set(inst))}"
+                                 f", unexpected {sorted(set(inst) - want)}, spilling: {bad}")
+            continue
         if name == "sgm_path_scan":
             inst = _path_instances(table)
             want = {1 << i for i in range(_build.PATH_SCAN_MAX_CELLS.bit_length() - 5)}
@@ -284,15 +326,24 @@ def phase_build():
         if not inst:
             raise SystemExit("mgm_scan: no kernel instance in the build log")
         # every instance is one the wrappers select (ops/sgm_scan.py:
-        # _mgm_variant), at up to _build.MGM_MAX_LANES threads
+        # _mgm_variant, _cluster_variant), at up to _build.MGM_MAX_LANES
+        # threads (a block a line, or a block of a cluster): every grid of
+        # up to _build.MGM_MAX_CELLS cells in each mode, and in the MGM modes
+        # over a cluster
+        cells = _build.MGM_MAX_CELLS
+        want = {(y, x, m) for y in range(1, cells + 1) for x in range(1, cells // y + 1)
+                for m in (*MGM_MODES, "fwd_cluster", "bidir_cluster")}
         bad = [(key, v) for key, v in sorted(inst.items())
                if sgm_scan._mgm_variant(key[0], key[1], _build.MGM_MAX_LANES) is None
                or v["spill"] or v["stack"]]
+        if set(inst) != want:
+            bad.append(("instances missing", sorted(want - set(inst))))
+            bad.append(("unexpected instances", sorted(set(inst) - want)))
         regs = [v["regs"] for v in inst.values()]
         print(f"[build] mgm_scan: {len(inst)} instances, {min(regs)}-{max(regs)} "
               f"registers, instances that spill or are past the limits: {bad or 'none'}")
         for grid in ((2, 5), (1, 5), (1, 4), (4, 4)):
-            for mode in MGM_MODES:
+            for mode in (*MGM_MODES, "fwd_cluster", "bidir_cluster"):
                 print(f"[build] mgm_scan (sy, sx, mode) {(*grid, mode)}: "
                       f"{inst.get((*grid, mode))}")
         if bad:
@@ -491,8 +542,10 @@ def scan_cases():
     scans of levels 4-1 (window 4x1, then 5x1 over 64-256 lanes); and
     ``calc_disparity_sgm``'s x- and y-scans at the 64x8 search on 256^2
     (512 cells: the path-line kernel), an odd 3x11 grid with N > L on the
-    path-line kernel, and the MGM scan at the 64x8 search, whose carry (1 MB
-    per line) is in global scratch (``line_scan_kernel<1>``)."""
+    path-line kernel; and the MGM scans that run the cluster kernel: those
+    of ``calc_disparity_sgm(use_mgm=True)`` at the 64x8 search on 256^2,
+    of config 6's level 0 at 1024^2 (1024 lanes) and of the one-level
+    pyramid with config 6's 64x2 search on 64x512 (128 cells)."""
     n = SGM_HW
     levels = []
     for lv in (1, 2, 3):
@@ -523,9 +576,28 @@ def scan_cases():
                  shape=(CALC_HW, CALC_SEARCH[1], CALC_SEARCH[0], CALC_HW), shifts=(0,)),
             dict(kernel="scan_bidir", name="odd_3x11", shape=(300, 3, 11, 200),
                  shifts=(0, 1, -1)),
-            dict(kernel="mgm_bidir", name="calc_scratch",
-                 shape=(CALC_HW, CALC_SEARCH[1], CALC_SEARCH[0], CALC_HW),
-                 shifts=(1, -1))]
+            *mgm_cluster_cases()]
+
+
+def mgm_cluster_cases():
+    """The MGM scans that run a cluster a line: ``calc_disparity_sgm(
+    use_mgm=True)`` at the 64x8 search on 256^2 and the one-level 64x2
+    search on 64x512 (csrc/mgm_cluster_scan.cu), config 6's level 0 at
+    1024^2 (csrc/mgm_scan.cu's kernel over a cluster)."""
+    sx, sy = CALC_SEARCH
+    return [dict(kernel="mgm_bidir", name="calc", shape=(CALC_HW, sy, sx, CALC_HW),
+                 shifts=(1, -1)),
+            dict(kernel="mgm_fwd", name="calc_sheared",
+                 shape=(2 * CALC_HW, 4, sy, sx, CALC_HW), shifts=(0, 1)),
+            dict(kernel="mgm_bidir", name="level0_1024", shape=(H, 2, 5, W), shifts=(1, -1)),
+            dict(kernel="mgm_fwd", name="level0_sheared_1024", shape=(2 * H, 4, 2, 5, W),
+                 shifts=(0, 1)),
+            dict(kernel="mgm_bidir", name="single_rows", shape=(64, 2, 64, 512),
+                 shifts=(1, -1)),
+            dict(kernel="mgm_bidir", name="single_cols", shape=(512, 2, 64, 64),
+                 shifts=(1, -1)),
+            dict(kernel="mgm_fwd", name="single_sheared", shape=(576, 4, 2, 64, 64),
+                 shifts=(0, 1))]
 
 
 def _scan_inputs(case, dev, seed):
@@ -561,32 +633,43 @@ def _scan_call(case, inputs, plain=False):
 
 def _scan_pick(case):
     """The kernel the wrapper picks for a scan case: ("mgm_scan", threads),
-    ("path_scan", (cells a thread, lines a block)) or (line_scan_kernel<.>,
-    None)."""
+    ("path_scan", (cells a thread, lines a block)), ("cluster_scan", its
+    launch) or (line_scan_kernel<.>, None)."""
     import torch
     from visionworkbench_torch.ops import sgm_scan
     sy, sx, nl = case["shape"][-3:]
     if case["kernel"] == "scan_bidir":
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        threads, path = sgm_scan._scan_bidir_pick(case["shape"][0], sy, sx, nl,
-                                                  case["shifts"], sms)
+        threads, other = sgm_scan._scan_bidir_pick(case["shape"][0], sy, sx, nl,
+                                                   case["shifts"], sms)
+        name = "path_scan"
     else:
-        threads, path = sgm_scan._mgm_variant(sy, sx, nl), None
+        threads, other = sgm_scan._mgm_pick(sy, sx, nl)
+        name = "cluster_scan"
     if threads is not None:
         return "mgm_scan", threads
-    return ("path_scan", path) if path is not None else (_old_kernel(case), None)
+    return (name, other) if other is not None else (_old_kernel(case), None)
 
 
 def _scan_ran(case, call):
     """Run ``call`` and return the kernel it launched, by the counts:
-    "mgm_scan", "path_scan" or line_scan_kernel<.>."""
+    "mgm_scan", "path_scan", "cluster_scan" or line_scan_kernel<.>."""
     from visionworkbench_torch.ops import sgm_scan
     k = case["kernel"]
-    before = (sgm_scan.mgm_scan_launches[k], sgm_scan.path_scan_launches.get(k, 0))
+    counts = (sgm_scan.mgm_scan_launches, sgm_scan.path_scan_launches,
+              sgm_scan.cluster_scan_launches)
+    before = [c.get(k, 0) for c in counts]
     out = call()
-    ran = (sgm_scan.mgm_scan_launches[k] - before[0],
-           sgm_scan.path_scan_launches.get(k, 0) - before[1])
-    return out, ("mgm_scan" if ran[0] else "path_scan" if ran[1] else _old_kernel(case))
+    ran = [c.get(k, 0) - b for c, b in zip(counts, before)]
+    names = ("mgm_scan", "path_scan", "cluster_scan")
+    return out, next((n for n, r in zip(names, ran) if r), _old_kernel(case))
+
+
+def _cluster_row(variant):
+    """The kernels row suffix of a cluster-a-line launch: "lane_cluster"
+    (the register-carry kernel of csrc/mgm_scan.cu over a cluster, a thread
+    a lane) or "cluster" (csrc/mgm_cluster_scan.cu)."""
+    return "lane_cluster" if variant[0] == 1 else "cluster"
 
 
 def _old_kernel(case):
@@ -625,7 +708,9 @@ def phase_kernels(dev):
     err = {k: 0.0 for k in ("sweep", "sweep_census", "sweep_ternary_census",
                             "sweep_ncc", "sweep_census_codes", "best_of_search",
                             "tiled_search", "speckle", "scan_bidir",
-                            "scan_bidir_path_scan", "mgm_bidir", "mgm_fwd")}
+                            "scan_bidir_path_scan", "mgm_bidir", "mgm_fwd",
+                            "mgm_bidir_cluster", "mgm_fwd_cluster",
+                            "mgm_bidir_lane_cluster", "mgm_fwd_lane_cluster")}
 
     def check(key, what, got, ref):
         torch.cuda.synchronize()
@@ -720,10 +805,14 @@ def phase_kernels(dev):
         ref = _scan_call(c, inputs, plain=True)
         torch.cuda.synchronize()
         e = float((got - ref).abs().max())
-        # scan_bidir's rows: the register-carry kernel and the path-line one
-        key = "scan_bidir_path_scan" if which == "path_scan" else c["kernel"]
-        err[key] = max(err[key], e)
+        # scan_bidir's rows: the register-carry kernel and the path-line one;
+        # the MGM scans': the register-carry kernel a block a line and a
+        # cluster a line, and the cluster kernel
         want, variant = _scan_pick(c)
+        key = ("scan_bidir_path_scan" if which == "path_scan" else
+               f"{c['kernel']}_{_cluster_row(variant)}" if which == "cluster_scan"
+               else c["kernel"])
+        err[key] = max(err[key], e)
         if which != want:
             raise SystemExit(f"{c['kernel']} {c['name']}: ran {which}, expected {want}")
         print(f"[kernels] {c['kernel']} {c['name']} {c['shape']} shifts {c['shifts']} "
@@ -731,7 +820,7 @@ def phase_kernels(dev):
         if e != 0.0:
             raise SystemExit(f"{c['kernel']} kernel disagrees with its plain version "
                              f"at {c['name']}")
-        if which in ("mgm_scan", "path_scan"):
+        if which in ("mgm_scan", "path_scan", "cluster_scan"):
             old = _line_scan_call(c, inputs)
             torch.cuda.synchronize()
             e = float((got - old).abs().max())
@@ -777,10 +866,11 @@ def _sgm_run(left, right, dev, algo):
                              stereo_algorithm=algo, subpixel="parabola", device=dev)
 
 
-def _calc_run(left, right, dev):
+def _calc_run(left, right, dev, use_mgm=False):
     from visionworkbench_torch.stereo.sgm import calc_disparity_sgm
     return calc_disparity_sgm(left, right, CALC_SEARCH, kernel_size=5,
-                              cost_type="census", subpixel="parabola", device=dev)
+                              cost_type="census", use_mgm=use_mgm,
+                              subpixel="parabola", device=dev)
 
 
 def _calc3_run(left, right, dev, cost, cw=5):
@@ -813,15 +903,16 @@ def _reset_counts():
     sweep.census_band_launches = 0
     speckle.launches = 0
     for counts in (sgm_scan.launches, sgm_scan.mgm_scan_launches,
-                   sgm_scan.path_scan_launches):
+                   sgm_scan.path_scan_launches, sgm_scan.cluster_scan_launches):
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts():
-    """Launches per wrapper; ``<wrapper>/mgm_scan`` and
-    ``scan_bidir/path_scan``: of those, the launches of the register-carry
-    kernel and of the path-line kernel; ``sweep/band`` and
+    """Launches per wrapper; ``<wrapper>/mgm_scan``,
+    ``scan_bidir/path_scan`` and ``<wrapper>/cluster_scan``: of those, the
+    launches of the register-carry kernel, of the path-line kernel and of
+    the cluster kernel; ``sweep/band`` and
     ``sweep/census_band``: the sweep's launches of band_sweep_kernel and of
     band_census_kernel."""
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
@@ -829,7 +920,8 @@ def _read_counts():
             "sweep/census_band": sweep.census_band_launches,
             "speckle": speckle.launches, **sgm_scan.launches,
             **{f"{k}/mgm_scan": v for k, v in sgm_scan.mgm_scan_launches.items()},
-            **{f"{k}/path_scan": v for k, v in sgm_scan.path_scan_launches.items()}}
+            **{f"{k}/path_scan": v for k, v in sgm_scan.path_scan_launches.items()},
+            **{f"{k}/cluster_scan": v for k, v in sgm_scan.cluster_scan_launches.items()}}
 
 
 def phase_main(dev):
@@ -840,7 +932,8 @@ def phase_main(dev):
     c3_left, c3_right = (torch.as_tensor(a, device=dev) for a in _calc3_pair())
     none = {"sweep": 0, "sweep/band": 0, "sweep/census_band": 0, "scan_bidir": 0,
             "mgm_bidir": 0, "mgm_fwd": 0, "scan_bidir/mgm_scan": 0, "mgm_bidir/mgm_scan": 0,
-            "mgm_fwd/mgm_scan": 0, "scan_bidir/path_scan": 0}
+            "mgm_fwd/mgm_scan": 0, "scan_bidir/path_scan": 0, "mgm_bidir/cluster_scan": 0,
+            "mgm_fwd/cluster_scan": 0}
     # abs sweeps all on band_sweep_kernel, census on band_census_kernel;
     # NCC on sweep_kernel
     c3 = {"sweep": 1, "speckle": 0}
@@ -858,6 +951,15 @@ def phase_main(dev):
             # line_scan_kernel<0>
             ("calc_sgm", lambda: _calc_run(calc_left, calc_right, dev),
              {"scan_bidir": 2, "scan_bidir/path_scan": 2, "speckle": 0}, CALC_HW),
+            # 512 cells a lane: the three MGM scans on the cluster kernel
+            ("calc_mgm", lambda: _calc_run(calc_left, calc_right, dev, use_mgm=True),
+             {"mgm_bidir": 2, "mgm_fwd": 1, "mgm_bidir/cluster_scan": 2,
+              "mgm_fwd/cluster_scan": 1, "speckle": 0}, CALC_HW),
+            # config 6's MGM pyramid at 1024^2: level 0 (1024 lanes) on the
+            # cluster kernel, levels 1-4 on the register-carry kernel
+            ("mgm_1024", lambda: _sgm_run(left, right, dev, "mgm"),
+             {"mgm_fwd": 5, "mgm_bidir": 10, "mgm_fwd/mgm_scan": 4, "mgm_bidir/mgm_scan": 8,
+              "mgm_fwd/cluster_scan": 1, "mgm_bidir/cluster_scan": 2}, H),
             ("config4", lambda: _bench_run(left, right, dev, cost_type="census",
                                            census_window=CENSUS_WINDOW),
              {"sweep": 5, "sweep/census_band": 5}, H),
@@ -998,12 +1100,16 @@ def phase_slice_vs_cpu(dev):
     left, right = _make_calc_pair(128, 128)
     left = np.round(left * 256) / 256
     right = np.round(right * 256) / 256
-    (dg, vg), (dc, vc) = [_calc_run(left, right, d).to_numpy() for d in (dev, "cpu")]
-    e = float(np.abs(dg - dc).max())
-    print(f"[slice] calc_disparity_sgm 128^2 {CALC_SEARCH}: valid {vg.mean():.4f}, "
-          f"validity differs at {int((vg != vc).sum())} pixels, max |gpu - cpu| {e}")
-    if not (np.array_equal(vg, vc) and np.allclose(dg, dc, rtol=1e-5, atol=2e-5)):
-        raise SystemExit("slice calc_disparity_sgm: GPU and CPU outputs differ")
+    for use_mgm in (False, True):
+        (dg, vg), (dc, vc) = [_calc_run(left, right, d, use_mgm).to_numpy()
+                              for d in (dev, "cpu")]
+        e = float(np.abs(dg - dc).max())
+        print(f"[slice] calc_disparity_sgm{' use_mgm' if use_mgm else ''} 128^2 "
+              f"{CALC_SEARCH}: valid {vg.mean():.4f}, validity differs at "
+              f"{int((vg != vc).sum())} pixels, max |gpu - cpu| {e}")
+        if not (np.array_equal(vg, vc) and np.allclose(dg, dc, rtol=1e-5, atol=2e-5)):
+            raise SystemExit(f"slice calc_disparity_sgm (use_mgm={use_mgm}): GPU and "
+                             "CPU outputs differ")
 
 
 # ---- phase 5 ----------------------------------------------------------------
@@ -1063,11 +1169,17 @@ def phase_timings(dev):
               f"{frame[algo]['mps']:.3f} Mp/s")
         _profile_frame(lambda: _sgm_run(sl, sr, dev, algo), algo, ms)
     cl, cr = (torch.as_tensor(a, device=dev) for a in _make_calc_pair(CALC_HW, CALC_HW))
-    ms = _time_ms(lambda: _calc_run(cl, cr, dev), reps=5)
-    frame["calc_sgm"] = {"ms": ms, "mps": CALC_HW * CALC_HW / (ms * 1e3)}
-    print(f"[time] frame calc_disparity_sgm ({CALC_HW}^2, {CALC_SEARCH}): {ms:.4f} ms, "
-          f"{frame['calc_sgm']['mps']:.3f} Mp/s")
-    _profile_frame(lambda: _calc_run(cl, cr, dev), "calc_sgm", ms)
+    for what, use_mgm in (("calc_sgm", False), ("calc_mgm", True)):
+        ms = _time_ms(lambda: _calc_run(cl, cr, dev, use_mgm), reps=5)
+        frame[what] = {"ms": ms, "mps": CALC_HW * CALC_HW / (ms * 1e3)}
+        print(f"[time] frame calc_disparity_sgm{' use_mgm' if use_mgm else ''} ({CALC_HW}^2, "
+              f"{CALC_SEARCH}): {ms:.4f} ms, {frame[what]['mps']:.3f} Mp/s")
+        _profile_frame(lambda: _calc_run(cl, cr, dev, use_mgm), what, ms)
+    ms = _time_ms(lambda: _sgm_run(lt, rt, dev, "mgm"), reps=5)
+    frame["mgm_1024"] = {"ms": ms, "mps": H * W / (ms * 1e3)}
+    print(f"[time] frame mgm (config 6 at {H}^2): {ms:.4f} ms, "
+          f"{frame['mgm_1024']['mps']:.3f} Mp/s")
+    _profile_frame(lambda: _sgm_run(lt, rt, dev, "mgm"), "mgm_1024", ms)
     rows = {}
 
     def band_in_turns(key, name, args, k):
@@ -1152,10 +1264,15 @@ def phase_timings(dev):
         which, variant = _scan_pick(c)
         if variant is not None:
             # in turns with line_scan_kernel<0> / <1> at the same shape:
-            # old, new, new, old
+            # old, new, new, old (line_scan_kernel<1> at wide grids, 0.2-0.4
+            # s a launch, 3 times)
             old = lambda: _line_scan_call(c, inputs)  # noqa: E731
             new = lambda: _scan_call(c, inputs)       # noqa: E731
-            ts = [_time_ms(f, reps=20) for f in (old, new, new, old)]
+            wide = c["shape"][-3] * c["shape"][-2] > _build.MGM_MAX_CELLS
+            old_reps = (dict(reps=3, warmup=1) if which == "cluster_scan" and wide
+                        else dict(reps=20))
+            ts = [_time_ms(f, **(old_reps if f is old else dict(reps=20)))
+                  for f in (old, new, new, old)]
             old_ms = statistics.median([ts[0], ts[3]])
             ms = statistics.median([ts[1], ts[2]])
             k = _old_kernel(c)
@@ -1181,6 +1298,22 @@ def phase_timings(dev):
             r["lines_ms"] = {g: statistics.median(t) for g, t in ts.items()}
             print(f"[time] {c['kernel']} {c['name']} path_scan by lines a block (the "
                   f"wrapper's: {variant[1]}): " + ", ".join(
+                      f"{g}: {t[0]:.4f} / {t[1]:.4f}" for g, t in ts.items()) + " ms")
+        if which == "cluster_scan" and variant[0] == 1:
+            # the register-carry kernel over a cluster at each number of
+            # lanes a block, in turns (512, 256, 128, 64, 64, 128, 256, 512)
+            nl = c["shape"][-1]
+            widths = [512, 256, 128, 64]
+            ts = {g: [] for g in widths}
+            fn = getattr(sgm_scan, f"_{c['kernel']}_cuda")
+            for g in widths + widths[::-1]:
+                blocks = -(-nl // g)
+                v = (1, 0, -(-nl // (32 * blocks)) * 32, blocks)
+                ts[g].append(_time_ms(lambda: fn(*inputs, c["shifts"], SGM_P1, SGM_P2,
+                                                 SGM_BAD, None, v), reps=10))
+            r["lanes_ms"] = {g: statistics.median(t) for g, t in ts.items()}
+            print(f"[time] {c['kernel']} {c['name']} cluster_scan by lanes a block (the "
+                  f"wrapper's: {variant[2]} x {variant[3]} blocks): " + ", ".join(
                       f"{g}: {t[0]:.4f} / {t[1]:.4f}" for g, t in ts.items()) + " ms")
         rows[(c["kernel"], c["name"])] = r
     for (k, name), r in rows.items():
@@ -1284,7 +1417,7 @@ def _profile_frame(run, what, frame_ms, frames=3):
              "sweep_kernel": lambda k: "sweep_kernel" in k and "band_sweep" not in k,
              **{n: (lambda k, n=n: n in k)
                 for n in ("speckle", "line_scan_kernel", "mgm_scan_kernel",
-                          "path_scan_kernel")}}
+                          "path_scan_kernel", "cluster_wide_kernel")}}
     for name, match in kinds.items():
         mine = [e for e in events if match(e.key)]
         if mine:
@@ -1353,6 +1486,18 @@ def main() -> int:
                       "visionworkbench_tpu/ops/sgm_scan.py:222"),
         "mgm_fwd": ("level0_sheared", "mgm", "visionworkbench_torch/csrc/mgm_scan.cu",
                     "visionworkbench_tpu/ops/sgm_scan.py:272"),
+        "mgm_bidir_cluster": ("calc", "calc_mgm",
+                              "visionworkbench_torch/csrc/mgm_cluster_scan.cu",
+                              "visionworkbench_tpu/ops/sgm_scan.py:222"),
+        "mgm_fwd_cluster": ("calc_sheared", "calc_mgm",
+                            "visionworkbench_torch/csrc/mgm_cluster_scan.cu",
+                            "visionworkbench_tpu/ops/sgm_scan.py:272"),
+        "mgm_bidir_lane_cluster": ("level0_1024", "mgm_1024",
+                                   "visionworkbench_torch/csrc/mgm_scan.cu",
+                                   "visionworkbench_tpu/ops/sgm_scan.py:222"),
+        "mgm_fwd_lane_cluster": ("level0_sheared_1024", "mgm_1024",
+                                 "visionworkbench_torch/csrc/mgm_scan.cu",
+                                 "visionworkbench_tpu/ops/sgm_scan.py:272"),
     }
     kernels = []
     for k, (shape, run, source, replaces) in table.items():
@@ -1360,6 +1505,11 @@ def main() -> int:
         if k == "scan_bidir_path_scan":
             r = rows[("scan_bidir", shape)]
             launches = c["scan_bidir/path_scan"]
+        elif k.endswith("_cluster"):
+            # in each run only one layout goes a cluster a line
+            wrapper = k.split("_")[0] + "_" + k.split("_")[1]
+            r = rows[(wrapper, shape)]
+            launches = c[f"{wrapper}/cluster_scan"]
         else:
             r = rows[(k, shape)]
             # the scans: launches of the register-carry kernel on the path
@@ -1372,7 +1522,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
             **{x: r[x] for x in ("us_per_step", "line_scan_ms", "device_ms",
-                                 "sweep_kernel_ms", "sweep_kernel_device_ms", "lines_ms")
+                                 "sweep_kernel_ms", "sweep_kernel_device_ms", "lines_ms",
+                                 "lanes_ms")
                if x in r}})
     print(json.dumps({"frame_ms": frame["plain"]["ms"],
                       "frame_mps": frame["plain"]["mps"],
@@ -1382,6 +1533,8 @@ def main() -> int:
                       "mgm_frame_ms": frame["mgm"]["ms"],
                       "mgm_frame_mps": frame["mgm"]["mps"],
                       "calc_sgm_frame_ms": frame["calc_sgm"]["ms"],
+                      "calc_mgm_frame_ms": frame["calc_mgm"]["ms"],
+                      "mgm_1024_frame_ms": frame["mgm_1024"]["ms"],
                       **{f"{k}_frame_ms": frame[k]["ms"] for k in
                          ("config4", "config4_lr", "calc3_abs", "calc3_ncc",
                           "calc3_census7")},

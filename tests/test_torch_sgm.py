@@ -306,29 +306,57 @@ def test_calc_disparity_sgm_wide_search_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_calc_disparity_sgm_mgm_wide_search_card_matches_cpu(cuda):
+    """``calc_disparity_sgm(..., use_mgm=True)`` at the documented 64x8
+    search on a 128^2 frame: 512 disparity cells, so the three MGM scans (2
+    ``mgm_bidir``, 1 ``mgm_fwd``) run the cluster kernel
+    (``csrc/mgm_cluster_scan.cu``), as the counts show. Card against CPU:
+    validity exact, parabola subpixel allclose at the subpixel tolerance."""
+    from visionworkbench_torch.ops import sgm_scan
+    rng = np.random.default_rng(103)
+    h = w = 128
+    right = quantized(rng, (h + 7, w + 63))
+    left = right[3:3 + h, 20:20 + w].copy()
+    args = (left, right, (64, 8))
+    opts = dict(kernel_size=5, cost_type="census", subpixel="parabola", use_mgm=True)
+    counts = (sgm_scan.launches, sgm_scan.cluster_scan_launches)
+    before = [dict(c) for c in counts]
+    gd, gv = tsgm.calc_disparity_sgm(*args, device=cuda, **opts).to_numpy()
+    ran = [{k: c[k] - b[k] for k in c} for c, b in zip(counts, before)]
+    assert ran == [{"scan_bidir": 0, "mgm_bidir": 2, "mgm_fwd": 1},
+                   {"mgm_bidir": 2, "mgm_fwd": 1}]
+    cd, cv = tsgm.calc_disparity_sgm(*args, device="cpu", **opts).to_numpy()
+    np.testing.assert_array_equal(gv, cv)
+    np.testing.assert_allclose(gd, cd, **SUB_TOL)
+    core = np.s_[8:-8, 8:-8]
+    assert (np.abs(gd[core] - [20, 3]) < 0.5).all(-1).mean() > 0.95
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("algo", ["sgm", "mgm"])
 def test_single_level_wide_search_card_matches_cpu(cuda, algo):
     """``pyramid_correlate`` at one level with config 6's 64x2 search on a
     64x512 frame: more than 16 cells a lane, so SGM's two scans run the
-    path-line kernel and MGM's scans ``line_scan_kernel<1>`` (its carry in
-    global scratch), as the counts show. Card against CPU: integer
-    disparities and validity exact."""
+    path-line kernel and MGM's three scans the cluster kernel, as the counts
+    show. Card against CPU: integer disparities and validity exact."""
     from visionworkbench_torch.ops import sgm_scan
     left, right = _pair(102, 64, 512, (16, 0))
     args = (left, right, BBox2i(0, -1, 64, 2))
     opts = dict(stereo_algorithm=algo, max_pyramid_levels=0, tile_size=64,
                 subpixel="none")
-    counts = (sgm_scan.launches, sgm_scan.mgm_scan_launches, sgm_scan.path_scan_launches)
+    counts = (sgm_scan.launches, sgm_scan.mgm_scan_launches, sgm_scan.path_scan_launches,
+              sgm_scan.cluster_scan_launches)
     before = [dict(c) for c in counts]
     gd, gv = tpyr.pyramid_correlate(*args, device=cuda, **opts).to_numpy()
     ran = [{k: c[k] - b[k] for k in c} for c, b in zip(counts, before)]
     if algo == "sgm":
         assert ran == [{"scan_bidir": 2, "mgm_bidir": 0, "mgm_fwd": 0},
-                       {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}, {"scan_bidir": 2}]
+                       {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}, {"scan_bidir": 2},
+                       {"mgm_bidir": 0, "mgm_fwd": 0}]
     else:
-        assert ran[0]["scan_bidir"] == 0 and ran[0]["mgm_bidir"] > 0
-        assert ran[1] == {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
-        assert ran[2] == {"scan_bidir": 0}
+        assert ran == [{"scan_bidir": 0, "mgm_bidir": 2, "mgm_fwd": 1},
+                       {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}, {"scan_bidir": 0},
+                       {"mgm_bidir": 2, "mgm_fwd": 1}]
     cd, cv = tpyr.pyramid_correlate(*args, device="cpu", **opts).to_numpy()
     np.testing.assert_array_equal(gv, cv)
     np.testing.assert_array_equal(gd, cd)

@@ -16,9 +16,13 @@ register-carry kernel (``csrc/mgm_scan.cu``) and the path-line kernel
 the launch counts showing which kernel ran. On the CPU, the choice between
 the kernels (``_scan_bidir_pick``, ``_scan_variant``, ``_mgm_variant``) is
 held against the shapes config 6's SGM and MGM pyramids give and against
-the limits nvcc builds the instances with, and a plain model of the
+the limits nvcc builds the instances with, and plain models of the
 path-line kernel's decomposition (blocks of adjacent lines, the steps each
-runs, the padded grid) against the plain version.
+runs, the padded grid) and of the MGM cluster kernel's (a line's lanes in
+block tiles, the source terms posted to double-buffered rows, the tiles'
+edge lanes reading the neighbour tile's rows) against the plain versions.
+The MGM plain versions are also held against the JAX package at wide grids
+(3x11, 8x8), the cluster kernel's.
 Pixel differences are drawn from [0, 256), the range of |dI| on 8-bit
 images, so the P2' = max(floor(P2 / |dI|), P1) clamp and every IEEE
 quotient of the penalty are reached.
@@ -92,7 +96,9 @@ def test_scan_bidir_matches_jax(shifts, grid):
         got, np.asarray(jscan.pallas_scan_bidir(*j, shifts, P1, P2, BAD, interpret=True)))
 
 
-@pytest.mark.parametrize("grid", [(2, 5), (3, 3)])
+@pytest.mark.parametrize("grid", [(2, 5), (3, 3),
+                                  # wide grids (the cluster kernel's)
+                                  (3, 11), (8, 8)])
 def test_mgm_bidir_matches_jax(grid):
     sy, sx = grid
     arrays = _mgm_inputs(21, 16, sy, sx, 128)
@@ -111,6 +117,31 @@ def test_mgm_bidir_matches_jax(grid):
 
 def test_mgm_fwd_matches_jax():
     cost, pd, g = _fwd_inputs(22, 16, 4, 2, 5, 128)
+    got = tscan.mgm_fwd(*_t((cost, pd, g)), (0, 1), P1, P2, BAD).numpy()
+    j = [jnp.asarray(a) for a in (cost, pd, g)]
+
+    def step(carry, inp):                 # the scan body of _mgm_sheared_scan
+        cx, px, gx = inp
+        a = jsgm._path_update(carry, cx, px, P1, P2, BAD)
+        bb = jsgm._path_update(jsgm._shift_lane(carry, 1, BAD), cx, px, P1, P2, BAD)
+        o = jnp.floor((a + bb) * 0.5)
+        o = jnp.where(gx[:, None, None, :], o, cx)
+        o = jsgm._force_bad(o, cx, BAD)
+        return o, o
+
+    _, ref = jax.lax.scan(step, jnp.full(cost.shape[1:], BAD, jnp.float32), tuple(j))
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    np.testing.assert_array_equal(
+        got, np.asarray(jscan.pallas_mgm_fwd(*j, (0, 1), P1, P2, BAD, interpret=True)))
+
+
+@pytest.mark.parametrize("grid", [(3, 11), (8, 8)])
+def test_mgm_fwd_wide_grid_matches_jax(grid):
+    """The sheared forward scan at wide grids (the cluster kernel's), B = 2
+    orientations on a short line, against the JAX package's scan body of
+    ``_mgm_sheared_scan`` and the Pallas kernel in interpret mode."""
+    sy, sx = grid
+    cost, pd, g = _fwd_inputs(39, 8, 2, sy, sx, 128)
     got = tscan.mgm_fwd(*_t((cost, pd, g)), (0, 1), P1, P2, BAD).numpy()
     j = [jnp.asarray(a) for a in (cost, pd, g)]
 
@@ -193,6 +224,8 @@ def test_mgm_variant_covers_config6_mgm_pyramid(monkeypatch):
     assert seen == _CONFIG6_MGM
     for (_, shape) in seen:
         assert tscan._mgm_variant(*shape[-3:]) == shape[-1]
+        # and so none of them takes the cluster kernel
+        assert tscan._mgm_pick(*shape[-3:]) == (shape[-1], None)
 
 
 def test_mgm_instance_limits_are_built_from_the_variant_limits(monkeypatch):
@@ -431,6 +464,260 @@ def test_path_line_model_matches_plain(case):
     np.testing.assert_array_equal(got.numpy(), ref.numpy())
 
 
+# The MGM shapes that run a cluster a line on a card (csrc/mgm_cluster_scan.cu;
+# one thread a lane: csrc/mgm_scan.cu's kernel): (sy, sx, L) -> (threads a
+# lane, cells a thread, threads a block, blocks a cluster)
+_CLUSTER_SHAPES = {
+    # calc_disparity_sgm(use_mgm=True) at the 64x8 search, 256^2: mgm_bidir
+    # (256, 8, 64, 256) and mgm_fwd (512, 4, 8, 64, 256); 512 cells, a lane a
+    # warp, 16 lanes a block, 16 blocks (the non-portable cluster size)
+    (8, 64, 256): (32, 16, 512, 16),
+    # config 6 at 1024^2, level 0: mgm_bidir (1024, 2, 5, 1024), mgm_fwd
+    # (2048, 4, 2, 5, 1024); one thread a lane (mgm_scan.cu), 16 blocks of 64
+    (2, 5, 1024): (1, 0, 64, 16),
+    # one-level MGM with config 6's 64x2 search on 64x512: 128 cells; mgm_bidir
+    # (64, 2, 64, 512) and (512, 2, 64, 64), mgm_fwd (576, 4, 2, 64, 64)
+    (2, 64, 512): (16, 8, 512, 16),
+    (2, 64, 64): (16, 8, 64, 16)}
+
+
+@pytest.mark.parametrize("shape", sorted(_CLUSTER_SHAPES))
+def test_mgm_pick_takes_the_cluster_kernel(shape):
+    """Each MGM shape of the main paths that the register-carry kernel does
+    not take runs the cluster kernel, with the launch above."""
+    assert tscan._mgm_variant(*shape) is None
+    assert tscan._mgm_pick(*shape) == (None, _CLUSTER_SHAPES[shape])
+
+
+@pytest.mark.parametrize("shape,want", [
+    # the register-carry kernel's shapes stay there
+    ((2, 5, 512), (512, None)), ((1, 16, 33), (64, None)),
+    # one thread a lane past 512 lanes, over 16 blocks of the fewest warps
+    ((1, 1, 513), (None, (1, 0, 64, 16))), ((4, 4, 4096), (None, (1, 0, 256, 16))),
+    ((2, 5, 8192), (None, (1, 0, 512, 16))),
+    # 17-256 cells: a lane over 16 threads; 257-512: over a warp; blocks of
+    # a power of two of lanes, up to 16 blocks
+    ((1, 17, 1), (None, (16, 2, 32, 1))), ((3, 11, 45), (None, (16, 4, 64, 12))),
+    ((16, 16, 40), (None, (16, 16, 64, 10))), ((1, 257, 16), (None, (32, 16, 32, 16))),
+    ((16, 16, 300), (None, (16, 16, 512, 10))), ((512, 1, 100), (None, (32, 16, 256, 13))),
+    # past the limits: line_scan_kernel<1>
+    ((2, 5, 8193), (None, None)), ((8, 64, 257), (None, None)),
+    ((8, 65, 64), (None, None)), ((16, 16, 600), (None, None)),
+    # a long padded grid: 16 lanes a block do not fit shared memory
+    ((1, 256, 300), (None, None))])
+def test_mgm_pick_by_grid_and_line(shape, want):
+    assert tscan._mgm_pick(*shape) == want
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (2, 5), (4, 4), (1, 17), (17, 1), (3, 11), (8, 8),
+                                  (16, 16), (1, 256), (2, 64), (8, 64), (1, 512), (512, 1)])
+def test_cluster_variant_fits_the_card(grid):
+    """Every launch the picker gives holds the line within the kernel's
+    limits: lanes a block a power of two (mgm_cluster_scan.cu), threads a multiple
+    of 32, the shared memory of a block, at most 16 blocks, and the line's
+    lanes covered; where it gives none, no layout within the limits holds
+    the line."""
+    from visionworkbench_torch.ops import _build
+    sy, sx = grid
+    for nl in (1, 31, 64, 100, 256, 513, 1024, 4096, 8192):
+        v = tscan._cluster_variant(sy, sx, nl)
+        if v is None:
+            if sy * sx <= _build.MGM_MAX_CELLS:
+                assert nl > _build.CLUSTER_MAX_BLOCKS * _build.MGM_MAX_LANES
+            elif sy * sx <= _build.CLUSTER_MAX_CELLS:
+                per_warp = 32 // (16 if sy * sx <= 256 else 32)
+                most = max(w * per_warp for w in (1, 2, 4, 8, 16) if tscan._cluster_smem(
+                    sy, sx, w * per_warp) <= tscan._MAX_SMEM)
+                assert _build.CLUSTER_MAX_BLOCKS * most < nl
+            continue
+        t, k, threads, blocks = v
+        assert threads % 32 == 0 and threads >= 32
+        assert 1 <= blocks <= _build.CLUSTER_MAX_BLOCKS
+        if t == 1:
+            # csrc/mgm_scan.cu's kernel over a cluster
+            assert sy * sx <= _build.MGM_MAX_CELLS and threads * blocks >= nl
+            assert threads <= _build.MGM_MAX_LANES
+            continue
+        assert threads <= _build.CLUSTER_MAX_THREADS
+        lanes = threads // t
+        assert lanes & (lanes - 1) == 0 and lanes * blocks >= nl
+        assert t * k >= sy * sx and k <= _build.CLUSTER_MAX_CELLS // 32
+        assert tscan._cluster_smem(sy, sx, lanes) <= tscan._MAX_SMEM
+
+
+def test_mgm_pick_takes_the_cluster_kernel_at_config6_level0_1024(monkeypatch):
+    """Config 6's MGM pyramid at 1024^2: level 0's three scans (mgm_bidir
+    (1024, 2, 5, 1024) twice, mgm_fwd (2048, 4, 2, 5, 1024) once) run the
+    cluster kernel, levels 1-4 (at most 512 lanes) the register-carry
+    kernel. The scans are replaced by a recorder (no scan runs)."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo import sgm as tsgm
+    from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    seen = {}
+
+    def recorder(kind):
+        def scan(cost_t, *args):
+            key = (kind, tuple(cost_t.shape))
+            seen[key] = seen.get(key, 0) + 1
+            return torch.zeros_like(cost_t)
+        return scan
+
+    monkeypatch.setattr(tsgm, "mgm_fwd", recorder("mgm_fwd"))
+    monkeypatch.setattr(tsgm, "mgm_bidir", recorder("mgm_bidir"))
+    img = np.random.default_rng(40).random((1024, 1024)).astype(np.float32)
+    pyramid_correlate(img, img, BBox2i(0, -1, 64, 2), kernel_size=(5, 5),
+                      max_pyramid_levels=4, tile_size=64, stereo_algorithm="mgm",
+                      subpixel="none", device="cpu")
+    level0 = {("mgm_fwd", (2048, 4, 2, 5, 1024)): 1, ("mgm_bidir", (1024, 2, 5, 1024)): 2}
+    assert {k: v for k, v in seen.items() if k[1][-1] > 512} == level0
+    assert sum(seen.values()) == 15
+    for (_, shape) in seen:
+        threads, cluster = tscan._mgm_pick(*shape[-3:])
+        assert (cluster is not None) == (shape[-1] > 512)
+        assert (threads is not None) == (shape[-1] <= 512)
+
+
+def test_cluster_limits_are_built_from_the_macros(monkeypatch):
+    """``_cluster_variant`` reads the limits nvcc builds
+    ``csrc/mgm_cluster_scan.cu`` and ``csrc/mgm_scan.cu``'s clusters with
+    (part of the library's name: a change rebuilds), and the kernel's modes
+    are the wrapper's."""
+    import re
+
+    from visionworkbench_torch.ops import _build
+    flags = _build.flags("mgm_cluster_scan")
+    assert f"-DVW_CLUSTER_MAX_BLOCKS={_build.CLUSTER_MAX_BLOCKS}" in _build.flags("mgm_scan")
+    for macro, value in (("VW_CLUSTER_MAX_CELLS", _build.CLUSTER_MAX_CELLS),
+                         ("VW_CLUSTER_MAX_BLOCKS", _build.CLUSTER_MAX_BLOCKS),
+                         ("VW_CLUSTER_MAX_THREADS", _build.CLUSTER_MAX_THREADS)):
+        assert f"-D{macro}={value}" in flags
+    assert "mgm_cluster_scan" in _build.SOURCES
+    cells, blocks = _build.CLUSTER_MAX_CELLS, _build.CLUSTER_MAX_BLOCKS
+    # at most cells / 32 a thread, a lane a warp, 16 warps a block
+    assert tscan._cluster_variant(8, cells // 8, blocks * 16) is not None
+    assert tscan._cluster_variant(1, cells + 1, 16) is None
+    assert tscan._cluster_variant(8, cells // 8, blocks * 16 + 1) is None
+    lanes = blocks * _build.MGM_MAX_LANES
+    assert tscan._cluster_variant(1, _build.MGM_MAX_CELLS, lanes)[3] == blocks
+    assert tscan._cluster_variant(1, _build.MGM_MAX_CELLS, lanes + 1) is None
+    src = (_build.CSRC / "mgm_cluster_scan.cu").read_text()
+    enum = re.search(r"enum Mode \{ kFwd = (\d), kBidir = (\d) \}", src)
+    assert tuple(int(x) for x in enum.groups()) == (tscan._MODES["mgm_fwd"],
+                                                    tscan._MODES["mgm_bidir"])
+    name = _build.library_path("mgm_cluster_scan")
+    monkeypatch.setitem(_build.DEFINES, "mgm_cluster_scan", flags[len(_build.NVCC_FLAGS):-1]
+                        + (f"-DVW_CLUSTER_MAX_THREADS={_build.CLUSTER_MAX_THREADS // 2}",))
+    assert _build.library_path("mgm_cluster_scan") != name
+
+
+def _grid_terms(p, sy, sx, p1, bad):
+    """min_prior and m1 = min(P, min3x3(P) + P1) of priors ``p`` (X, cells),
+    the 3x3 grid min through a grid padded with bad, y pass then x pass, as
+    the cluster kernel computes them."""
+    x = p.shape[0]
+    g = torch.full((x, sy + 2, sx + 2), bad)
+    g[:, 1:-1, 1:-1] = p.reshape(x, sy, sx)
+    q = p.reshape(x, sy, sx)
+    if sy > 1:
+        q = torch.minimum(torch.minimum(q, g[:, :-2, 1:-1]), g[:, 2:, 1:-1])
+    g = torch.full_like(g, bad)
+    g[:, 1:-1, 1:-1] = q
+    r = q
+    if sx > 1:
+        r = torch.minimum(torch.minimum(r, g[:, 1:-1, :-2]), g[:, 1:-1, 2:])
+    return p.amin(1), torch.minimum(p, r.reshape(x, -1) + p1)
+
+
+def _cluster_line_model(cost, pd, guard, rev, bidir, lanes, p1, p2, bad):
+    """A plain model of ``csrc/mgm_cluster_scan.cu``'s decomposition for one
+    line (a cluster): ``cost`` (N, sy, sx, L), ``pd``/``guard`` (N, L). The
+    lanes are split into tiles (blocks) of ``lanes``; the lanes past L in
+    the last tile compute from garbage and are read by nobody. Each step
+    every lane posts (m1 of each cell, mp) to its tile's row in buffer t % 2
+    (stamped with t), and a tile's first and last lane also to the
+    neighbour tiles' halos (distributed shared memory; unwritten halo
+    entries are NaN); then every lane reads its source lanes' rows only
+    from there: inside its tile, its tile's halo at the tile's edges, or the
+    outside row at the line's ends (a stale buffer fails the stamp check).
+    Returns every step's carry in the line's order of rows (n = N - 1 - t
+    for ``rev``)."""
+    n, sy, sx, nl = cost.shape
+    cells = sy * sx
+    tiles = -(-nl // lanes)
+    pad = tiles * lanes
+    c = torch.zeros((n, cells, pad))                  # zeros past L (cp.async fill)
+    c[:, :, :nl] = cost.reshape(n, cells, nl)
+    pdv = torch.zeros((n, pad))
+    pdv[:, :nl] = pd
+    keep = torch.ones((n, pad), dtype=torch.bool)
+    keep[:, :nl] = guard
+    outside = torch.cat([torch.full((cells,), min(bad, bad + p1)), torch.tensor([bad])])
+    rows = torch.zeros((2, tiles, lanes, cells + 1))
+    halo = torch.full((2, tiles, 2, cells + 1), float("nan"))
+    stamp = [-1, -1]
+    carry = torch.full((pad, cells), bad)
+    out = torch.empty((n, cells, nl))
+    for t in range(n):
+        row = n - 1 - t if rev else t
+        buf = t % 2
+        mp, m1 = _grid_terms(carry, sy, sx, p1, bad)
+        rows[buf] = torch.cat([m1, mp[:, None]], 1).reshape(tiles, lanes, cells + 1)
+        halo[buf, 1:, 0] = rows[buf, :-1, -1]        # a tile's last lane, to the next
+        halo[buf, :-1, 1] = rows[buf, 1:, 0]         # its first lane, to the previous
+        stamp[buf] = t
+        # ---- cluster barrier ----
+        assert stamp[buf] == t
+        x = rows[buf]
+        up = torch.empty_like(x)
+        up[:, 1:] = x[:, :-1]
+        up[:, 0] = halo[buf, :, 0]
+        up[0, 0] = outside
+        dn = torch.empty_like(x)
+        dn[:, :-1] = x[:, 1:]
+        dn[:, -1] = halo[buf, :, 1]
+        up, dn = up.reshape(pad, -1), dn.reshape(pad, -1)
+        dn[nl - 1:] = outside                        # lane + 1 >= L
+        own = torch.cat([m1, mp[:, None]], 1)
+        s0, s1 = (up, dn) if bidir else (own, up)
+        cx = c[row].T                                # (pad, cells)
+        p2m = torch.clamp(torch.floor(torch.full_like(pdv[row], p2)
+                                      / torch.clamp(pdv[row], min=1.0)), min=p1)[:, None]
+        va = cx + (torch.minimum(s0[:, :cells], s0[:, cells:] + p2m) - s0[:, cells:])
+        vb = cx + (torch.minimum(s1[:, :cells], s1[:, cells:] + p2m) - s1[:, cells:])
+        v = torch.where(keep[row][:, None], torch.floor((va + vb) * 0.5), cx)
+        carry = torch.where(cx >= bad, torch.full_like(v, bad), v)
+        out[row] = carry[:nl].T
+    return out.reshape(n, sy, sx, nl)
+
+
+# (N, sy, sx, L, lanes a tile, inputs): L not a multiple of the tile, L = 1,
+# one tile, N = 1, guards off, absent candidates, grids of up to 16 cells
+# (mgm_scan.cu's clusters) and wider (mgm_cluster_scan.cu)
+_CLUSTER_MODEL_CASES = [
+    (7, 3, 11, 20, 8, {}), (5, 8, 8, 1, 16, {}), (6, 2, 5, 16, 16, {}),
+    (1, 8, 64, 9, 4, {}), (9, 1, 17, 33, 4, dict(guard_off=1.0)),
+    (8, 2, 5, 40, 8, dict(bad_frac=0.9)), (12, 17, 1, 30, 2, dict(guard_off=0.0)),
+    (10, 2, 64, 24, 4, {})]
+
+
+@pytest.mark.parametrize("case", _CLUSTER_MODEL_CASES)
+def test_cluster_line_model_matches_plain(case):
+    """The cluster kernel's decomposition computes ``mgm_bidir`` (two
+    lines, group 1 reverse, added) and ``mgm_fwd`` (a line per orientation):
+    the model of it equals the plain versions bit for bit."""
+    n, sy, sx, nl, lanes, fill = case
+    cost, pf, pr, gf, gr = _t(_mgm_inputs(41, n, sy, sx, nl, **fill))
+    got = sum(_cluster_line_model(cost, pd, g, rev, True, lanes, P1, P2, BAD)
+              for pd, g, rev in ((pf, gf, False), (pr, gr, True)))
+    ref = tscan.mgm_bidir_plain(cost, pf, pr, gf, gr, (1, -1), P1, P2, BAD)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    cost, pd, g = _t(_fwd_inputs(42, n, 2, sy, sx, nl, **fill))
+    got = torch.stack([_cluster_line_model(cost[:, b], pd[:, b], g[:, b], False, False,
+                                           lanes, P1, P2, BAD) for b in range(2)], 1)
+    ref = tscan.mgm_fwd_plain(cost, pd, g, (0, 1), P1, P2, BAD)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
 def test_ablation_variants_edit_the_kernel_source(tmp_path):
     """Each variant of ``tools/mgm_scan_ablation.py`` is a text edit of
     ``csrc/mgm_scan.cu`` whose text occurs there exactly once."""
@@ -446,6 +733,17 @@ def test_path_ablation_variants_edit_the_kernel_source(tmp_path):
     """Each variant of ``tools/path_scan_ablation.py`` is a text edit of
     ``csrc/sgm_path_scan.cu`` whose text occurs there exactly once."""
     from visionworkbench_torch.tools import path_scan_ablation as ablation
+    paths = ablation._variant_sources(tmp_path)
+    assert set(paths) == set(ablation.ABLATIONS)
+    as_is = paths["as_is"].read_text()
+    for name, path in paths.items():
+        assert (path.read_text() != as_is) == bool(ablation.ABLATIONS[name])
+
+
+def test_cluster_ablation_variants_edit_the_kernel_source(tmp_path):
+    """Each variant of ``tools/mgm_cluster_ablation.py`` is a text edit of
+    ``csrc/mgm_cluster_scan.cu`` whose text occurs there exactly once."""
+    from visionworkbench_torch.tools import mgm_cluster_ablation as ablation
     paths = ablation._variant_sources(tmp_path)
     assert set(paths) == set(ablation.ABLATIONS)
     as_is = paths["as_is"].read_text()
@@ -582,20 +880,34 @@ def test_path_scan_kernel_every_block_width(cuda, case, lines):
 def _mgm_both_kernels(args, fargs):
     """mgm_bidir and mgm_fwd through their wrappers, each held bit for bit
     against its plain version and, where the wrapper ran the register-carry
-    kernel, against line_scan_kernel<1> on the same inputs. Returns the
-    register-carry launches of each."""
-    before = dict(tscan.launches)
-    reg = {k: tscan.mgm_scan_launches[k] for k in ("mgm_bidir", "mgm_fwd")}
+    or the cluster kernel, against line_scan_kernel<1> on the same inputs.
+    Returns the kernel each ran, by the counts: "mgm_scan", "cluster_scan"
+    or "line_scan"."""
+    ran = {}
     for name, a, shifts, plain in (("mgm_bidir", args, (1, -1), tscan.mgm_bidir_plain),
                                    ("mgm_fwd", fargs, (0, 1), tscan.mgm_fwd_plain)):
+        before = (tscan.launches[name], tscan.mgm_scan_launches[name],
+                  tscan.cluster_scan_launches[name])
         got = getattr(tscan, name)(*a, shifts, P1, P2, BAD)
-        assert tscan.launches[name] == before[name] + 1
+        after = (tscan.launches[name], tscan.mgm_scan_launches[name],
+                 tscan.cluster_scan_launches[name])
+        assert after[0] == before[0] + 1
+        ran[name] = ("mgm_scan" if after[1] > before[1] else
+                     "cluster_scan" if after[2] > before[2] else "line_scan")
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       plain(*a, shifts, P1, P2, BAD).cpu().numpy())
-        if tscan.mgm_scan_launches[name] > reg[name]:
+        if ran[name] != "line_scan":
             old = getattr(tscan, f"_{name}_cuda")(*a, shifts, P1, P2, BAD, None)
             np.testing.assert_array_equal(got.cpu().numpy(), old.cpu().numpy())
-    return {k: tscan.mgm_scan_launches[k] - reg[k] for k in reg}
+    return ran
+
+
+def _picked(sy, sx, nl):
+    """The kernel the MGM wrappers pick for a shape, named as
+    :func:`_mgm_both_kernels` returns it."""
+    threads, cluster = tscan._mgm_pick(sy, sx, nl)
+    return ("mgm_scan" if threads is not None else
+            "cluster_scan" if cluster is not None else "line_scan")
 
 
 @pytest.mark.cuda
@@ -605,8 +917,8 @@ def _mgm_both_kernels(args, fargs):
     # whole warps (64, 512, the longest line an instance takes)
     (12, 1, 1, 33), (12, 1, 4, 64), (12, 3, 3, 65), (10, 4, 4, 512),
     (10, 1, 16, 64), (10, 16, 1, 33),
-    # line_scan_kernel<1>: lines too long for any instance (1024, 1030,
-    # 600), and a wide window (global scratch)
+    # lines too long for any instance (1024, 1030, 600) and a wide window:
+    # the cluster kernel (line_scan_kernel<1> before it)
     (9, 2, 3, 1024),
     (9, 1, 1, 1030), (9, 1, 7, 600), (9, 3, 3, 600), (9, 8, 16, 256),
     # the (1, 5) grid of config 6's levels 1-3
@@ -615,8 +927,9 @@ def test_mgm_kernels_match_plain(cuda, case):
     n, sy, sx, nl = case
     args = _t(_mgm_inputs(25, n, sy, sx, nl), cuda)
     fargs = _t(_fwd_inputs(26, n, 4, sy, sx, nl), cuda)
-    on_reg = int(tscan._mgm_variant(sy, sx, nl) is not None)
-    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": on_reg, "mgm_fwd": on_reg}
+    want = _picked(sy, sx, nl)
+    assert want == ("mgm_scan" if sy * sx <= 16 and nl <= 512 else "cluster_scan")
+    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": want, "mgm_fwd": want}
 
 
 @pytest.mark.cuda
@@ -626,7 +939,8 @@ def test_mgm_kernels_guards_and_absent_costs(cuda, fill):
     """Guards all false, all true, and a cost plane that is mostly bad."""
     args = _t(_mgm_inputs(28, 24, 2, 5, 65, **fill), cuda)
     fargs = _t(_fwd_inputs(29, 24, 4, 2, 5, 65, **fill), cuda)
-    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": 1, "mgm_fwd": 1}
+    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": "mgm_scan",
+                                              "mgm_fwd": "mgm_scan"}
 
 
 @pytest.mark.cuda
@@ -635,4 +949,40 @@ def test_mgm_kernels_match_plain_at_level0(cuda):
     mgm_bidir (512, 2, 5, 512)."""
     args = _t(_mgm_inputs(30, 512, 2, 5, 512), cuda)
     fargs = _t(_fwd_inputs(31, 1024, 4, 2, 5, 512), cuda)
-    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": 1, "mgm_fwd": 1}
+    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": "mgm_scan",
+                                              "mgm_fwd": "mgm_scan"}
+
+
+# (N, sy, sx, L, inputs): the cluster kernel's main-path shapes with fewer
+# steps (the 64x8 search over 256 lanes, 16 blocks; config 6's level 0 at
+# 1024^2; the one-level 64x2 search's 128 cells over 512 and 64 lanes), an
+# odd grid over lanes that do not fill the last block, N = 1, L = 1, one
+# thread a lane over 513 and 4096 lanes (3 and 16 blocks), guards all off,
+# a mostly absent cost plane
+_CLUSTER_CASES = [
+    (24, 8, 64, 256, {}), (40, 2, 5, 1024, {}), (12, 2, 64, 512, {}), (30, 2, 64, 64, {}),
+    (20, 3, 11, 45, {}), (1, 8, 64, 40, {}), (9, 3, 11, 1, {}), (20, 1, 17, 33, {}),
+    (16, 17, 1, 70, {}), (12, 1, 1, 513, {}), (6, 4, 4, 4096, {}),
+    (16, 16, 16, 100, {}), (10, 1, 300, 20, {}),
+    (20, 2, 5, 700, dict(guard_off=1.0)), (20, 8, 8, 90, dict(bad_frac=0.9))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _CLUSTER_CASES)
+def test_cluster_kernel_matches_plain_and_line_scan(cuda, case):
+    n, sy, sx, nl, fill = case
+    args = _t(_mgm_inputs(43, n, sy, sx, nl, **fill), cuda)
+    fargs = _t(_fwd_inputs(44, 2 * n, 4, sy, sx, nl, **fill), cuda)
+    assert _picked(sy, sx, nl) == "cluster_scan"
+    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": "cluster_scan",
+                                              "mgm_fwd": "cluster_scan"}
+
+
+@pytest.mark.cuda
+def test_cluster_kernel_at_the_64x8_search(cuda):
+    """calc_disparity_sgm(use_mgm=True)'s scans at the 64x8 search on 256^2,
+    full length: mgm_bidir (256, 8, 64, 256), mgm_fwd (512, 4, 8, 64, 256)."""
+    args = _t(_mgm_inputs(45, 256, 8, 64, 256, 0.03), cuda)
+    fargs = _t(_fwd_inputs(46, 512, 4, 8, 64, 256, 0.03), cuda)
+    assert _mgm_both_kernels(args, fargs) == {"mgm_bidir": "cluster_scan",
+                                              "mgm_fwd": "cluster_scan"}

@@ -4,8 +4,9 @@
 //
 // Replaces three TPU kernels of visionworkbench_tpu/ops/sgm_scan.py on the
 // shapes the SGM and MGM main paths give them (up to VW_MGM_MAX_CELLS
-// disparity cells a lane, up to VW_MGM_MAX_LANES lanes a line, both set by
-// ops/_build.py), one mode each:
+// disparity cells a lane, up to VW_MGM_MAX_LANES lanes a block, both set by
+// ops/_build.py; MGM lines of more lanes over a cluster, below), one mode
+// each:
 //   * kSgm, pallas_scan_bidir (pl.pallas_call at :149): B <= 3 path
 //     directions, each with one prior lane shift s of {0, +1, -1}, forward
 //     and reverse, all 2 * B lines summed;
@@ -19,9 +20,28 @@
 // prior shifted by s; an MGM step is floor((L(shift s0) + L(shift s1)) / 2),
 // reset to C where the guard is false. Every step is forced to bad where
 // C >= bad; a prior lane shifted in from outside the line, and an
-// out-of-grid 3x3 neighbour, read bad. Other grids and longer lines (and
-// other MGM shift pairs) run line_scan_kernel<0> / <1> of csrc/sgm_scan.cu,
-// which computes the same functions.
+// out-of-grid 3x3 neighbour, read bad. Wider MGM grids run
+// csrc/mgm_cluster_scan.cu, other SGM grids and longer SGM lines
+// csrc/sgm_path_scan.cu; what neither takes (and other MGM shift pairs)
+// runs line_scan_kernel<0> / <1> of csrc/sgm_scan.cu. All compute the same
+// functions.
+//
+// Lines past VW_MGM_MAX_LANES lanes (MGM modes only; config 6's level 0 at
+// 1024^2: 1024 lanes) run the same kernel as a thread-block cluster of up to
+// VW_CLUSTER_MAX_BLOCKS blocks a line, its CLUSTER instances: block rank r
+// holds lanes r * blockDim.x + threadIdx.x, the step is the one below, a
+// cluster barrier (barrier.cluster.arrive.release / wait.acquire) takes the
+// place of the block barrier, and the block's first warp reads the previous
+// block's last edge row and its last warp the next block's first, through
+// distributed shared memory (map_shared_rank). A last cluster barrier keeps
+// every block's rows alive until its neighbours have read them. The cluster
+// code is compiled out of the one-block instances: carried at run time, it
+// slowed either the one-block scans (512^2: +8.5 %) or the cluster ones
+// (1024^2: +13-20 %) (chip_smoke.py, tools/mgm_scan_ablation.py; PERF.md).
+// A 1024-lane step over 16 blocks of 64 takes ~1.56 us, ~0.5 of it the
+// cluster barrier (NVIDIA H100 80GB HBM3, 700 W); spreading a line over
+// more blocks (fewer warps an SM) is faster at every width measured past
+// 512 lanes, so the wrapper takes up to 16.
 //
 // What bounds it on the H100: the time of one step times the N steps. The
 // work is tiny and sequential; only 2 * B (SGM), B (fwd) or 2 (bidir) blocks
@@ -70,19 +90,25 @@
 //
 // SGM is a mode here, not a source of its own: it is the MGM step with one
 // path update and no guard, and shares the MGM kernel's loads, source terms,
-// edge rows, instance limits and dispatch (one build, 150 instances).
+// edge rows, instance limits and dispatch (one build, 150 one-block
+// instances and the MGM modes' 100 cluster instances).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-#if !defined(VW_MGM_MAX_CELLS) || !defined(VW_MGM_MAX_LANES)
-#error "needs -DVW_MGM_MAX_CELLS and -DVW_MGM_MAX_LANES (ops/_build.py)"
+#if !defined(VW_MGM_MAX_CELLS) || !defined(VW_MGM_MAX_LANES) || \
+    !defined(VW_CLUSTER_MAX_BLOCKS)
+#error "needs -DVW_MGM_MAX_CELLS, -DVW_MGM_MAX_LANES and -DVW_CLUSTER_MAX_BLOCKS (ops/_build.py)"
 #endif
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxCells = VW_MGM_MAX_CELLS;  // grids with sy * sx <= this
 constexpr int kMaxLanes = VW_MGM_MAX_LANES;  // threads a block, 32 | this
+constexpr int kMaxBlocks = VW_CLUSTER_MAX_BLOCKS;  // blocks a line (MGM)
 
 // The modes, numbered as vw_mgm_scan's mode argument.
 enum Mode { kFwd = 0, kBidir = 1, kSgm = 2 };
@@ -102,9 +128,11 @@ struct MgmArgs {
 // atomicAdd into a zeroed output. kBidir: sources lane l - 1 (shift +1) and
 // l + 1 (shift -1), group 1 walks n = N-1-t, atomicAdd into a zeroed
 // output. kFwd: sources lane l (shift 0) and l - 1 (shift +1), one group,
-// each step stored.
-template <int SY, int SX, int MODE>
+// each step stored. CLUSTER (MGM modes): line (b, g) is the cluster of nb
+// blocks nb * b ... nb * b + nb - 1 of grid row g.
+template <int SY, int SX, int MODE, bool CLUSTER>
 __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
+  static_assert(!CLUSTER || MODE != kSgm, "SGM lines run one block each");
   constexpr bool SGM = MODE == kSgm, BIDIR = MODE == kBidir;
   constexpr int CELLS = SY * SX;
   constexpr int SIDES = BIDIR ? 2 : 1;
@@ -114,10 +142,13 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
   __shared__ __align__(16) float edge[2][kMaxLanes / 32 + 2][SIDES][ROW];
 
   const int L = a.L, N = a.N;
-  const int l = threadIdx.x, lane = l & 31, warp = l >> 5;
+  const int nb = CLUSTER ? cg::this_cluster().num_blocks() : 1;
+  const int rank = CLUSTER ? cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / nb, g = blockIdx.y;
+  const int l = rank * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const bool active = l < L;
-  const int b = blockIdx.x, g = blockIdx.y;
   // SGM: the block's shift (uniform), the lane it reads in the warp, and
   // whether that lane is in the next or previous warp (read from its row).
   const int s = SGM ? a.shift[b] : 0;
@@ -140,12 +171,25 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
   // beside the first and last warp. Lanes past L in the last warp give the
   // same: their carry stays bad (their cost is bad), and they compute it
   // with the same operations.
-  if (l < ROW) {
-    const float v = l < CELLS ? fminf(bad, bad + p1) : bad;
+  if (threadIdx.x < ROW) {
+    const float v = threadIdx.x < CELLS ? fminf(bad, bad + p1) : bad;
     for (int buf = 0; buf < 2; ++buf) {
-      edge[buf][0][0][l] = v;
-      edge[buf][warps + 1][SIDES - 1][l] = v;
+      edge[buf][0][0][threadIdx.x] = v;
+      edge[buf][warps + 1][SIDES - 1][threadIdx.x] = v;
     }
+  }
+  // The rows the warp reads, buffer 0 (buffer 1 is kBuf floats on): the
+  // previous warp's lane-31 row and the next warp's lane-0 row, or the
+  // outside rows; over a cluster, the block's first warp reads the previous
+  // block's last row and its last warp the next block's first.
+  constexpr int kBuf = (kMaxLanes / 32 + 2) * SIDES * ROW;
+  const float* up_row = &edge[0][warp][0][0];
+  const float* dn_row = &edge[0][warp + 2][SIDES - 1][0];
+  if constexpr (CLUSTER) {
+    if (warp == 0 && rank > 0)
+      up_row = cg::this_cluster().map_shared_rank(&edge[0][warps][0][0], rank - 1);
+    if (warp == warps - 1 && rank < nb - 1)
+      dn_row = cg::this_cluster().map_shared_rank(&edge[0][1][SIDES - 1][0], rank + 1);
   }
 
   float P[CELLS], Cn[CELLS];
@@ -206,8 +250,9 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
       }
 
     // Post the warp's edge lanes (float4 stores), then one barrier for
-    // the block.
-    float(*eb)[SIDES][ROW] = edge[t & 1];
+    // the block (the cluster's, over a cluster).
+    const int buf = t & 1;
+    float(*eb)[SIDES][ROW] = edge[buf];
     auto post = [&](float* row) {
       float e[ROW];
 #pragma unroll
@@ -220,7 +265,10 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
     if (SGM ? (s != 0 && lane == (s > 0 ? 31 : 0)) : lane == 31)
       post(eb[warp + 1][0]);
     if (BIDIR && lane == 0) post(eb[warp + 1][SIDES - 1]);
-    if (!SGM || s != 0) __syncthreads();
+    if constexpr (CLUSTER)
+      cg::this_cluster().sync();
+    else if (!SGM || s != 0)
+      __syncthreads();
     // Lane l - 1's value and lane l + 1's, by shuffles (every lane takes
     // part); lane 0 takes the row of the previous warp's lane 31, and lane
     // 31 that of the next warp's lane 0, read by the warp as float4
@@ -230,6 +278,10 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
     const float4* row_up = reinterpret_cast<const float4*>(eb[warp][0]);
     const float4* row_dn =
         reinterpret_cast<const float4*>(eb[warp + 2][SIDES - 1]);
+    if constexpr (CLUSTER) {
+      row_up = reinterpret_cast<const float4*>(up_row + buf * kBuf);
+      row_dn = reinterpret_cast<const float4*>(dn_row + buf * kBuf);
+    }
     const float4* row_src =
         reinterpret_cast<const float4*>(eb[warp + 1 - s][0]);
     float4 up4, dn4, src4;
@@ -301,30 +353,72 @@ __global__ void __launch_bounds__(kMaxLanes, 1) mgm_scan_kernel(MgmArgs a) {
     }
     out += dout;
   }
+  if constexpr (CLUSTER) cg::this_cluster().sync();  // the neighbours' last reads
 }
 
+// A cluster of `blocks` blocks a line (MGM modes); a cluster the card
+// cannot schedule is refused.
+template <typename Kernel>
+cudaError_t launch_cluster(Kernel kernel, const MgmArgs& a, int B, int groups,
+                           int threads, int blocks, cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  if (blocks > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * blocks, groups);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// One block a line, or (blocks > 1, MGM modes) one cluster a line.
 template <int SY, int SX, int MODE>
 cudaError_t launch(const MgmArgs& a, int B, int groups, int threads,
-                   cudaStream_t s) {
-  mgm_scan_kernel<SY, SX, MODE><<<dim3(B, groups), threads, 0, s>>>(a);
-  return cudaGetLastError();
+                   int blocks, cudaStream_t s) {
+  if (blocks == 1) {
+    mgm_scan_kernel<SY, SX, MODE, false><<<dim3(B, groups), threads, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  if constexpr (MODE == kSgm) {
+    return cudaErrorInvalidValue;
+  } else {
+    return launch_cluster(mgm_scan_kernel<SY, SX, MODE, true>, a, B, groups,
+                          threads, blocks, s);
+  }
 }
 
 // The instance of grid (sy, sx): every SY * SX <= kMaxCells, in turn.
 template <int SY, int SX>
 cudaError_t dispatch(int sy, int sx, int mode, const MgmArgs& a, int B,
-                     int groups, int threads, cudaStream_t s) {
+                     int groups, int threads, int blocks, cudaStream_t s) {
   if constexpr (SY > kMaxCells) {
     return cudaErrorInvalidValue;
   } else if constexpr (SY * SX > kMaxCells) {
-    return dispatch<SY + 1, 1>(sy, sx, mode, a, B, groups, threads, s);
+    return dispatch<SY + 1, 1>(sy, sx, mode, a, B, groups, threads, blocks, s);
   } else {
     if (sy != SY || sx != SX)
-      return dispatch<SY, SX + 1>(sy, sx, mode, a, B, groups, threads, s);
+      return dispatch<SY, SX + 1>(sy, sx, mode, a, B, groups, threads, blocks,
+                                  s);
     switch (mode) {
-      case kFwd: return launch<SY, SX, kFwd>(a, B, groups, threads, s);
-      case kBidir: return launch<SY, SX, kBidir>(a, B, groups, threads, s);
-      case kSgm: return launch<SY, SX, kSgm>(a, B, groups, threads, s);
+      case kFwd: return launch<SY, SX, kFwd>(a, B, groups, threads, blocks, s);
+      case kBidir:
+        return launch<SY, SX, kBidir>(a, B, groups, threads, blocks, s);
+      case kSgm: return launch<SY, SX, kSgm>(a, B, groups, threads, blocks, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -333,12 +427,13 @@ cudaError_t dispatch(int sy, int sx, int mode, const MgmArgs& a, int B,
 }  // namespace
 
 // Returns a cudaError_t (0 on success). The caller checks shapes, types and
-// contiguity and passes threads = L rounded up to a warp (at most
-// kMaxLanes) and a grid of at most kMaxCells cells. mode 2: scan_bidir,
-// groups 2 (group 1 reverse), B <= 3 directions with lane shifts
-// shift0..2 (each of -1, 0, +1), no guards; mode 1: mgm_bidir, groups 2
-// (group 1 reverse); mode 0: mgm_fwd, groups 1. Block (b, g) reads cost_g /
-// pd_g / guard_g at offset b * (cost_b, pd_b) and writes out_g at
+// contiguity and passes a grid of at most kMaxCells cells, threads a block
+// (a multiple of 32, at most kMaxLanes) and blocks a line (1, or for the
+// MGM modes up to kMaxBlocks, one cluster a line) with threads * blocks >=
+// L. mode 2: scan_bidir, groups 2 (group 1 reverse), B <= 3 directions with
+// lane shifts shift0..2 (each of -1, 0, +1), no guards; mode 1: mgm_bidir,
+// groups 2 (group 1 reverse); mode 0: mgm_fwd, groups 1. Line (b, g) reads
+// cost_g / pd_g / guard_g at offset b * (cost_b, pd_b) and writes out_g at
 // b * out_b.
 extern "C" int vw_mgm_scan(int mode, const float* cost0, const float* cost1,
                            const float* pd0, const float* pd1,
@@ -349,8 +444,10 @@ extern "C" int vw_mgm_scan(int mode, const float* cost0, const float* cost1,
                            long long pd_n, long long pd_b, long long out_n,
                            long long out_b, int shift0, int shift1,
                            int shift2, float p1, float p2, float bad,
-                           int threads, void* stream) {
-  if (threads < L || threads % 32 != 0 || threads > kMaxLanes)
+                           int threads, int blocks, void* stream) {
+  if (threads < 32 || threads % 32 != 0 || threads > kMaxLanes ||
+      blocks < 1 || blocks > kMaxBlocks || (mode == kSgm && blocks > 1) ||
+      (long long)threads * blocks < L)
     return cudaErrorInvalidValue;
   const int shift[3] = {shift0, shift1, shift2};
   if (mode == kSgm) {
@@ -379,6 +476,6 @@ extern "C" int vw_mgm_scan(int mode, const float* cost0, const float* cost1,
   a.p1 = p1;
   a.p2 = p2;
   a.bad = bad;
-  return dispatch<1, 1>(sy, sx, mode, a, B, groups, threads,
+  return dispatch<1, 1>(sy, sx, mode, a, B, groups, threads, blocks,
                         static_cast<cudaStream_t>(stream));
 }

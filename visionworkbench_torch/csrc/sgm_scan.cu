@@ -14,10 +14,12 @@
 //   * pallas_mgm_bidir (:222) and pallas_mgm_fwd (:272): mode 1, the MGM
 //     step floor((L(shift0) + L(shift1)) / 2), reset to the local cost where
 //     the guard is false; summed over the two groups (bidir) or stored per
-//     step and orientation (fwd). Mode 1 runs the shapes that the
-//     register-carry kernel of csrc/mgm_scan.cu does not take (more than 16
-//     disparity cells, longer lines, other shift pairs); that kernel runs
-//     every MGM scan of the main path.
+//     step and orientation (fwd). Mode 1 runs the shapes that neither the
+//     register-carry kernel of csrc/mgm_scan.cu (up to 16 disparity cells
+//     over up to 512 lanes) nor the cluster kernel of
+//     csrc/mgm_cluster_scan.cu (up to 512 cells, a line over the blocks of
+//     one cluster) takes: wider grids, lines longer than a cluster holds,
+//     other shift pairs. Those two run every MGM scan of the main paths.
 // Every step then forces absent candidates (C >= bad) to exactly bad, and a
 // prior lane shifted in from outside the line reads bad. The semantics are
 // those of the lax.scan engines of visionworkbench_tpu/stereo/sgm.py
@@ -53,10 +55,10 @@
 // time is most likely each lane's chain of dependent shared loads and mins
 // at 16 warps per SM.
 // csrc/mgm_scan.cu keeps each lane's priors in registers for grids of up to
-// 16 cells; spreading a wide grid over a warp, or a line over a
-// thread-block cluster with distributed shared memory, is later work. The
-// TPU kernel's pltpu.roll lane shifts, (N, 1, L) guard layout and VMEM
-// scratch are not carried over.
+// 16 cells; csrc/sgm_path_scan.cu spreads a wide SGM grid over a warp and
+// csrc/mgm_cluster_scan.cu an MGM line over a thread-block cluster with
+// distributed shared memory. The TPU kernel's pltpu.roll lane shifts,
+// (N, 1, L) guard layout and VMEM scratch are not carried over.
 
 #include <cuda_runtime.h>
 

@@ -21,13 +21,15 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sweep", "speckle", "sgm_scan", "mgm_scan", "sgm_path_scan")
+SOURCES = ("sweep", "speckle", "sgm_scan", "mgm_scan", "sgm_path_scan",
+           "mgm_cluster_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 # The limits of csrc/mgm_scan.cu's register-carry instances (SGM and MGM),
-# given to nvcc as macros and read by ops/sgm_scan.py:_mgm_variant and
-# _scan_variant: disparity cells a lane (sy * sx) and lanes a line (threads
-# a block).
+# given to nvcc as macros and read by ops/sgm_scan.py:_mgm_variant,
+# _scan_variant and _cluster_variant: disparity cells a lane (sy * sx) and
+# lanes a block (threads a block; one block a line, or MGM lines over a
+# cluster of up to CLUSTER_MAX_BLOCKS blocks).
 MGM_MAX_CELLS = 16
 MGM_MAX_LANES = 512
 # The limits of csrc/sgm_path_scan.cu (scan_bidir, one warp per path line),
@@ -36,6 +38,14 @@ MGM_MAX_LANES = 512
 # a thread) and lines (warps) a block.
 PATH_SCAN_MAX_CELLS = 512
 PATH_SCAN_MAX_LINES = 8
+# The limits of csrc/mgm_cluster_scan.cu (MGM grids of more than
+# MGM_MAX_CELLS cells, a line's lanes over the blocks of a thread-block
+# cluster), read by ops/sgm_scan.py:_cluster_variant: disparity cells a
+# lane (up to these / 32 cells a thread), blocks a cluster (16: the H100's
+# non-portable most; csrc/mgm_scan.cu's clusters too) and threads a block.
+CLUSTER_MAX_CELLS = 512
+CLUSTER_MAX_BLOCKS = 16
+CLUSTER_MAX_THREADS = 512
 # The layout and limits of csrc/sweep.cu's band kernels (band_sweep_kernel:
 # abs/sq; band_census_kernel: census), read by ops/sweep.py:_sweep_variant,
 # _band_geometry and _census_band_geometry: output rows a block, output
@@ -46,9 +56,13 @@ SWEEP_SEG = 8
 SWEEP_BAND_K = (16, 24)
 SWEEP_BAND_MAX_THREADS = 256
 DEFINES = {"mgm_scan": (f"-DVW_MGM_MAX_CELLS={MGM_MAX_CELLS}",
-                        f"-DVW_MGM_MAX_LANES={MGM_MAX_LANES}"),
+                        f"-DVW_MGM_MAX_LANES={MGM_MAX_LANES}",
+                        f"-DVW_CLUSTER_MAX_BLOCKS={CLUSTER_MAX_BLOCKS}"),
            "sgm_path_scan": (f"-DVW_PATH_MAX_CELLS={PATH_SCAN_MAX_CELLS}",
                              f"-DVW_PATH_MAX_LINES={PATH_SCAN_MAX_LINES}"),
+           "mgm_cluster_scan": (f"-DVW_CLUSTER_MAX_CELLS={CLUSTER_MAX_CELLS}",
+                                f"-DVW_CLUSTER_MAX_BLOCKS={CLUSTER_MAX_BLOCKS}",
+                                f"-DVW_CLUSTER_MAX_THREADS={CLUSTER_MAX_THREADS}"),
            "sweep": (f"-DVW_SWEEP_BAND_ROWS={SWEEP_BAND_ROWS}",
                      f"-DVW_SWEEP_SEG={SWEEP_SEG}",
                      f"-DVW_SWEEP_BAND_K0={SWEEP_BAND_K[0]}",

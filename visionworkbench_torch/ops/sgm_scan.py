@@ -1,6 +1,7 @@
 """SGM/MGM aggregation scans: the CUDA kernels of ``csrc/sgm_scan.cu``,
-``csrc/mgm_scan.cu`` and ``csrc/sgm_path_scan.cu``, their plain PyTorch
-versions and the wrappers that pick between them by device.
+``csrc/mgm_scan.cu``, ``csrc/sgm_path_scan.cu`` and
+``csrc/mgm_cluster_scan.cu``, their plain PyTorch versions and the wrappers
+that pick between them by device.
 
 Replaces the TPU kernels of ``visionworkbench_tpu/ops/sgm_scan.py``:
 
@@ -33,10 +34,17 @@ own pair of lane shifts or, for ``scan_bidir``, up to 3 path directions.
 Every other ``scan_bidir`` of up to ``_build.PATH_SCAN_MAX_CELLS`` cells
 (``calc_disparity_sgm``'s 64x8 search: 512), at any line length, runs
 ``csrc/sgm_path_scan.cu``, one warp per path line
-(:func:`_path_scan_variant`, :func:`_path_scan_lines`). Wider grids run
-``line_scan_kernel<0>`` (``scan_bidir``), and MGM shapes past the
-register-carry limits ``line_scan_kernel<1>``, of ``csrc/sgm_scan.cu``,
-which compute the same functions. Any search window runs on the card:
+(:func:`_path_scan_variant`, :func:`_path_scan_lines`). Every other MGM
+scan whose line fits one thread-block cluster spreads the line's lanes over
+the cluster's blocks (:func:`_cluster_variant`; :func:`_mgm_pick` picks):
+grids of up to ``_build.MGM_MAX_CELLS`` cells on longer lines (config 6's
+level 0 past 512^2: 1024 lanes) run the register-carry kernel of
+``csrc/mgm_scan.cu`` as a cluster, wider grids of up to
+``_build.CLUSTER_MAX_CELLS`` cells (``calc_disparity_sgm(use_mgm=True)``'s
+64x8 search: 512) ``csrc/mgm_cluster_scan.cu``. Wider grids run
+``line_scan_kernel<0>`` (``scan_bidir``), and MGM shapes past the cluster
+kernel's limits ``line_scan_kernel<1>``, of ``csrc/sgm_scan.cu``, which
+compute the same functions. Any search window runs on the card:
 ``line_scan_kernel``'s carry goes to a global scratch buffer where it does
 not fit a block's shared memory. What bounds the kernels on the H100, and
 what their design does about it: see the notes at the top of the sources.
@@ -55,11 +63,14 @@ from visionworkbench_torch.ops import _build
 # Kernel launches since the count was last set to 0, one count per wrapper
 # (each wrapper adds one per launch of a CUDA kernel, and nowhere else), and
 # of those the launches that went to the register-carry kernel of
-# csrc/mgm_scan.cu and to the path-line kernel of csrc/sgm_path_scan.cu
-# (the rest ran line_scan_kernel of csrc/sgm_scan.cu).
+# csrc/mgm_scan.cu with one block a line, to the path-line kernel of
+# csrc/sgm_path_scan.cu and to a cluster a line (csrc/mgm_cluster_scan.cu,
+# or csrc/mgm_scan.cu's MGM modes over more than one block); the rest ran
+# line_scan_kernel of csrc/sgm_scan.cu.
 launches = {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
 mgm_scan_launches = {"scan_bidir": 0, "mgm_bidir": 0, "mgm_fwd": 0}
 path_scan_launches = {"scan_bidir": 0}
+cluster_scan_launches = {"mgm_bidir": 0, "mgm_fwd": 0}
 
 _MAX_THREADS = 1024
 _MAX_SMEM = 232448        # bytes of shared memory one H100 block may opt into
@@ -71,6 +82,7 @@ _MAX_DIRECTIONS = 3       # path directions a scan_bidir launch takes
 _lib = None
 _mgm_lib = None
 _path_lib = None
+_cluster_lib = None
 
 
 def _mgm_variant(sy: int, sx: int, nl: int):
@@ -159,6 +171,73 @@ def _scan_bidir_pick(n: int, sy: int, sx: int, nl: int, shifts, sms: int):
     return None, (k, _path_scan_lines(sy, sx, n, nl, shifts, sms))
 
 
+def _cluster_smem(sy: int, sx: int, lanes: int) -> int:
+    """Shared memory (bytes) of a block of the cluster kernel holding ``lanes`` lanes (as ``csrc/mgm_cluster_scan.cu:
+    vw_mgm_cluster_scan``): the double-buffered exchange rows (m1 of each
+    cell and mp), the outside row, each lane's padded (sy + 2, sx + 2) grid,
+    the double-buffered slab of cells x (lanes + 1), the double-buffered two
+    halo rows; rows padded to 16 mod 32 floats."""
+    def stride16(v):
+        return v + (16 - v % 32) % 32
+
+    cells = sy * sx
+    rs, pgs = stride16(cells + 1), stride16((sy + 2) * (sx + 2))
+    return 4 * (2 * lanes * rs + rs + lanes * pgs + 2 * cells * (lanes + 1) + 4 * rs)
+
+
+def _cluster_variant(sy: int, sx: int, nl: int):
+    """The launch of a line over a thread-block cluster for a (``sy``,
+    ``sx``) grid over ``nl`` lanes, as ``(t, k, threads, blocks)``: threads a
+    lane (1: ``mgm_scan_kernel`` of ``csrc/mgm_scan.cu``, one thread a lane
+    with its cells in registers, for grids of up to ``_build.MGM_MAX_CELLS``
+    cells, k unused (0); 16, or 32 past 256 cells: ``cluster_wide_kernel``
+    of ``csrc/mgm_cluster_scan.cu``, k cells a thread), threads a block and
+    blocks a cluster (one cluster a line). None where ``line_scan_kernel<1>``
+    runs the shape: more than ``_build.CLUSTER_MAX_CELLS`` cells, or a line
+    that ``_build.CLUSTER_MAX_BLOCKS`` blocks (of ``_build.MGM_MAX_LANES``
+    threads, or of ``_build.CLUSTER_MAX_THREADS`` threads and the shared
+    memory a block has) do not hold. A line is spread over as many blocks as
+    it fills, up to ``_build.CLUSTER_MAX_BLOCKS``, each of the fewest warps
+    (lanes a block a power of two for ``cluster_wide_kernel``) that hold it:
+    config 6's level 0 at 1024^2 takes 1.59 / 3.12 ms (bidir / fwd) over 16
+    blocks of 64 lanes, 1.68 / 3.19 over 8, 1.95 / 3.58 over 4 and 2.47 /
+    4.37 over 2 (chip_smoke.py phase 5, PERF.md)."""
+    cells = sy * sx
+    max_blocks, max_threads = _build.CLUSTER_MAX_BLOCKS, _build.CLUSTER_MAX_THREADS
+    if cells <= _build.MGM_MAX_CELLS:
+        blocks = min(max_blocks, -(-nl // 32))
+        threads = -(-nl // (32 * blocks)) * 32
+        return (1, 0, threads, blocks) if threads <= _build.MGM_MAX_LANES else None
+    max_k = _build.CLUSTER_MAX_CELLS // 32
+    if cells > 32 * max_k:
+        return None
+    t = 16 if cells <= 16 * max_k else 32
+    k = 1
+    while t * k < cells:
+        k *= 2
+    per_warp = 32 // t
+    warps = -(-nl // per_warp)
+    w = 1
+    while w * max_blocks < warps:
+        w *= 2
+    if 32 * w > max_threads or _cluster_smem(sy, sx, w * per_warp) > _MAX_SMEM:
+        return None
+    return t, k, 32 * w, -(-warps // w)
+
+
+def _mgm_pick(sy: int, sx: int, nl: int):
+    """The kernel of an MGM scan (main-path shifts) on the card, as
+    ``(threads, cluster)`` for :func:`_mgm_bidir_cuda` /
+    :func:`_mgm_fwd_cuda`: the register-carry kernel where
+    :func:`_mgm_variant` has an instance (``threads``), else the cluster
+    kernel where :func:`_cluster_variant` has a launch (``cluster``), else
+    ``line_scan_kernel<1>`` (both None)."""
+    threads = _mgm_variant(sy, sx, nl)
+    if threads is not None:
+        return threads, None
+    return None, _cluster_variant(sy, sx, nl)
+
+
 def _bind_mgm(lib):
     """Set the argument types of ``vw_mgm_scan`` on a loaded library."""
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -167,7 +246,7 @@ def _bind_mgm(lib):
         i, i, i, i, i, i,              # groups, B, N, sy, sx, L
         ll, ll, ll, ll, ll, ll,        # strides
         i, i, i,                       # lane shifts (SGM)
-        f, f, f, i, p]                 # p1, p2, bad, threads, stream
+        f, f, f, i, i, p]              # p1, p2, bad, threads, blocks, stream
     lib.vw_mgm_scan.restype = i
     return lib
 
@@ -177,6 +256,27 @@ def _mgm_library():
     if _mgm_lib is None:
         _mgm_lib = _bind_mgm(_build.load("mgm_scan"))
     return _mgm_lib
+
+
+def _bind_cluster(lib):
+    """Set the argument types of ``vw_mgm_cluster_scan`` on a loaded
+    library."""
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.vw_mgm_cluster_scan.argtypes = [
+        i, p, p, p, p, p, p, p, p,     # mode, cost/pd/guard/out per group
+        i, i, i, i, i,                 # lines, N, sy, sx, L
+        ll, ll, ll, ll, ll, ll,        # strides
+        f, f, f,                       # p1, p2, bad
+        i, i, i, i, p]                 # t, k, threads, blocks, stream
+    lib.vw_mgm_cluster_scan.restype = i
+    return lib
+
+
+def _cluster_library():
+    global _cluster_lib
+    if _cluster_lib is None:
+        _cluster_lib = _bind_cluster(_build.load("mgm_cluster_scan"))
+    return _cluster_lib
 
 
 def _bind_path(lib):
@@ -392,13 +492,14 @@ def _launch(name, mode, groups, b, n, sy, sx, nl, cost, pd, guard, out,
 
 
 def _launch_mgm(name, threads, groups, b, n, sy, sx, nl, cost, pd, guard, out,
-                strides, p1, p2, bad, shifts=(0, 0, 0)):
+                strides, p1, p2, bad, shifts=(0, 0, 0), blocks=1):
     """Check device, type and contiguity, then launch the register-carry
-    kernel of ``csrc/mgm_scan.cu`` with one block of ``threads`` per (group,
-    direction or orientation) line: scan_bidir and mgm_bidir as 2 groups
-    (group 1 reverse) adding into a zeroed ``out``, mgm_fwd as 1 group
-    storing every step. ``shifts``: scan_bidir's lane shift per direction;
-    ``guard``: None for scan_bidir."""
+    kernel of ``csrc/mgm_scan.cu`` with ``blocks`` blocks of ``threads`` per
+    (group, direction or orientation) line (more than one: a cluster, MGM
+    only; the card refusing it raises): scan_bidir and mgm_bidir as 2
+    groups (group 1 reverse) adding into a zeroed ``out``, mgm_fwd as 1
+    group storing every step. ``shifts``: scan_bidir's lane shift per
+    direction; ``guard``: None for scan_bidir."""
     dev = _check_tensors(name, cost, pd, guard, out)
     lib = _mgm_library()
     ptr = [t.data_ptr() if t is not None else None
@@ -408,10 +509,38 @@ def _launch_mgm(name, threads, groups, b, n, sy, sx, nl, cost, pd, guard, out,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vw_mgm_scan(_MODES[name], *ptr, groups, b, n, sy, sx, nl,
                               *strides, *shifts, float(p1), float(p2),
-                              float(bad), threads, stream)
+                              float(bad), threads, blocks, stream)
     _build.check(err, name)
     launches[name] += 1
-    mgm_scan_launches[name] += 1
+    (cluster_scan_launches if blocks > 1 else mgm_scan_launches)[name] += 1
+
+
+def _launch_cluster(name, variant, lines, n, sy, sx, nl, cost, pd, guard, out,
+                    strides, p1, p2, bad):
+    """Check device, type and contiguity, then launch a cluster per line
+    (``variant`` from :func:`_cluster_variant`): ``csrc/mgm_scan.cu``'s
+    kernel where a thread holds a lane, else ``csrc/mgm_cluster_scan.cu``'s;
+    mgm_bidir as 2 lines (group 1 reverse) adding into a zeroed ``out``,
+    mgm_fwd as one line per orientation storing every step. Raises where the
+    card cannot schedule the cluster."""
+    t, _, threads, blocks = variant
+    if t == 1:
+        groups, b = (2, 1) if name == "mgm_bidir" else (1, lines)
+        _launch_mgm(name, threads, groups, b, n, sy, sx, nl, cost, pd, guard, out,
+                    strides, p1, p2, bad, blocks=blocks)
+        return
+    dev = _check_tensors(name, cost, pd, guard, out)
+    lib = _cluster_library()
+    ptr = [t.data_ptr() for t in (cost[0], cost[-1], pd[0], pd[-1], guard[0],
+                                  guard[-1], out[0], out[-1])]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vw_mgm_cluster_scan(_MODES[name], *ptr, lines, n, sy, sx, nl,
+                                      *strides, float(p1), float(p2),
+                                      float(bad), *variant, stream)
+    _build.check(err, name)
+    launches[name] += 1
+    cluster_scan_launches[name] += 1
 
 
 def _launch_path(cost_t, pdiffs_f, pdiffs_r, out, shifts, p1, p2, bad, k,
@@ -511,7 +640,7 @@ def mgm_bidir(cost_t, pd_f, pd_r, g_f, g_r, shifts: Sequence[int], p1: float,
     of the forward / reverse task. Returns the sum of both, (N, sy, sx, L).
 
     CPU tensors run :func:`mgm_bidir_plain`; CUDA tensors launch the kernel
-    or raise."""
+    that :func:`_mgm_pick` picks, or raise."""
     shifts = tuple(int(s) for s in shifts)
     if cost_t.dim() != 4:
         raise ArgumentErr("mgm_bidir: cost_t must be (N, sy, sx, L)")
@@ -522,17 +651,18 @@ def mgm_bidir(cost_t, pd_f, pd_r, g_f, g_r, shifts: Sequence[int], p1: float,
     if _plain_or_cuda("mgm_bidir", cost_t):
         return mgm_bidir_plain(cost_t, pd_f, pd_r, g_f, g_r, shifts, p1, p2,
                                bad)
-    threads = (_mgm_variant(sy, sx, nl)
-               if tuple(sorted(shifts)) == _MGM_SHIFTS["mgm_bidir"] else None)
+    pick = (_mgm_pick(sy, sx, nl)
+            if tuple(sorted(shifts)) == _MGM_SHIFTS["mgm_bidir"] else (None, None))
     return _mgm_bidir_cuda(cost_t, pd_f, pd_r, g_f, g_r, shifts, p1, p2, bad,
-                           threads)
+                           *pick)
 
 
 def _mgm_bidir_cuda(cost_t, pd_f, pd_r, g_f, g_r, shifts, p1, p2, bad,
-                    threads):
+                    threads, cluster=None):
     """The card's :func:`mgm_bidir`: the register-carry kernel with
-    ``threads`` per block, or ``line_scan_kernel<1>`` where ``threads`` is
-    None."""
+    ``threads`` per block; where ``threads`` is None, the cluster kernel
+    with the launch ``cluster`` (:func:`_cluster_variant`), or
+    ``line_scan_kernel<1>`` where that is None too."""
     n, sy, sx, nl = (int(d) for d in cost_t.shape)
     out = torch.zeros_like(cost_t)
     cells = sy * sx * nl
@@ -540,6 +670,10 @@ def _mgm_bidir_cuda(cost_t, pd_f, pd_r, g_f, g_r, shifts, p1, p2, bad,
     if threads is not None:
         _launch_mgm("mgm_bidir", threads, 2, 1, n, sy, sx, nl, (cost_t, cost_t),
                     (pd_f, pd_r), (g_f, g_r), (out, out), strides, p1, p2, bad)
+    elif cluster is not None:
+        _launch_cluster("mgm_bidir", cluster, 2, n, sy, sx, nl, (cost_t, cost_t),
+                        (pd_f, pd_r), (g_f, g_r), (out, out), strides, p1, p2,
+                        bad)
     else:
         _launch("mgm_bidir", 1, 2, 1, n, sy, sx, nl, (cost_t, cost_t),
                 (pd_f, pd_r), (g_f, g_r), (out, out), strides, True,
@@ -554,7 +688,7 @@ def mgm_fwd(cost_t, pd_t, g_t, shifts: Sequence[int], p1: float, p2: float,
     step's carry, (N, B, sy, sx, L).
 
     CPU tensors run :func:`mgm_fwd_plain`; CUDA tensors launch the kernel
-    or raise."""
+    that :func:`_mgm_pick` picks, or raise."""
     shifts = tuple(int(s) for s in shifts)
     if cost_t.dim() != 5:
         raise ArgumentErr("mgm_fwd: cost_t must be (N, B, sy, sx, L)")
@@ -563,15 +697,17 @@ def mgm_fwd(cost_t, pd_t, g_t, shifts: Sequence[int], p1: float, p2: float,
                                         ("g_t", g_t, (n, b, nl))], shifts, 2)
     if _plain_or_cuda("mgm_fwd", cost_t):
         return mgm_fwd_plain(cost_t, pd_t, g_t, shifts, p1, p2, bad)
-    threads = (_mgm_variant(sy, sx, nl)
-               if tuple(sorted(shifts)) == _MGM_SHIFTS["mgm_fwd"] else None)
-    return _mgm_fwd_cuda(cost_t, pd_t, g_t, shifts, p1, p2, bad, threads)
+    pick = (_mgm_pick(sy, sx, nl)
+            if tuple(sorted(shifts)) == _MGM_SHIFTS["mgm_fwd"] else (None, None))
+    return _mgm_fwd_cuda(cost_t, pd_t, g_t, shifts, p1, p2, bad, *pick)
 
 
-def _mgm_fwd_cuda(cost_t, pd_t, g_t, shifts, p1, p2, bad, threads):
+def _mgm_fwd_cuda(cost_t, pd_t, g_t, shifts, p1, p2, bad, threads,
+                  cluster=None):
     """The card's :func:`mgm_fwd`: the register-carry kernel with
-    ``threads`` per block, or ``line_scan_kernel<1>`` where ``threads`` is
-    None."""
+    ``threads`` per block; where ``threads`` is None, the cluster kernel
+    with the launch ``cluster`` (:func:`_cluster_variant`), or
+    ``line_scan_kernel<1>`` where that is None too."""
     n, b, sy, sx, nl = (int(d) for d in cost_t.shape)
     out = torch.empty_like(cost_t)
     cells = sy * sx * nl
@@ -579,6 +715,9 @@ def _mgm_fwd_cuda(cost_t, pd_t, g_t, shifts, p1, p2, bad, threads):
     if threads is not None:
         _launch_mgm("mgm_fwd", threads, 1, b, n, sy, sx, nl, (cost_t,), (pd_t,),
                     (g_t,), (out,), strides, p1, p2, bad)
+    elif cluster is not None:
+        _launch_cluster("mgm_fwd", cluster, b, n, sy, sx, nl, (cost_t,), (pd_t,),
+                        (g_t,), (out,), strides, p1, p2, bad)
     else:
         _launch("mgm_fwd", 1, 1, b, n, sy, sx, nl, (cost_t,), (pd_t,), (g_t,),
                 (out,), strides, False, shifts + (0,), True, p1, p2, bad)

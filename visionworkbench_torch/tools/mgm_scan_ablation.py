@@ -8,13 +8,21 @@ taken out at a time, and times each variant with CUDA events, in turns
 (v0, v1, ..., vk, vk, ..., v0), at config 6's level-0 and level-4 shapes
 as ``chip_smoke.py`` makes them: ``mgm_fwd`` (1024, 4, 2, 5, 512) and
 (128, 4, 1, 4, 64), ``mgm_bidir`` (512, 2, 5, 512) and (64, 1, 4, 64),
-``scan_bidir`` (512, 2, 5, 512) with shifts (0, 1, -1) and (0,). A variant
-with a part taken out computes wrong values; only its time counts, and the
-difference to ``as_is`` is what that part costs:
+``scan_bidir`` (512, 2, 5, 512) with shifts (0, 1, -1) and (0,), one block
+a line; and at level 0 of config 6 at 1024^2, ``mgm_bidir`` (1024, 2, 5,
+1024) and ``mgm_fwd`` (2048, 4, 2, 5, 1024), a line over a cluster of the
+blocks the wrapper picks. A variant with a part taken out computes wrong
+values; only its time counts, and the difference to ``as_is`` is what that
+part costs:
 
-  no_loads    each lane loads its costs, |dI| and guard at step 0 only
-  no_stores   no step is stored (fwd) or added (bidir, SGM)
-  no_barrier  the per-step __syncthreads is dropped (warp-edge lanes race)
+  no_loads            each lane loads its costs, |dI| and guard at step 0 only
+  no_stores           no step is stored (fwd) or added (bidir, SGM)
+  no_barrier          the per-step barrier is dropped (warp-edge lanes race)
+  no_cluster_barrier  over a cluster, the per-step cluster barrier becomes a
+                      block barrier (the neighbour blocks' rows race)
+  no_dsmem            over a cluster, the block's edge warps read their own
+                      block's rows, not the neighbour blocks' (no
+                      distributed shared memory access)
 
 ``--also NAME=FILE`` adds another source with the same C interface (an
 earlier version of the kernel) as one more variant. Prints the card's name
@@ -44,10 +52,17 @@ ABLATIONS = {
     "no_loads": [("    if (t + 1 < N) load();\n", "")],
     "no_stores": [("    if (active) {\n      float* on = out;",
                    "    if (false) {\n      float* on = out;")],
-    "no_barrier": [("    if (!SGM || s != 0) __syncthreads();\n", "")],
+    "no_barrier": [("    if constexpr (CLUSTER)\n      cg::this_cluster().sync();\n"
+                    "    else if (!SGM || s != 0)\n      __syncthreads();\n", "")],
+    "no_cluster_barrier": [("      cg::this_cluster().sync();\n    else if",
+                            "      __syncthreads();\n    else if")],
+    "no_dsmem": [("      up_row = cg::this_cluster().map_shared_rank(&edge[0][warps][0][0], rank - 1);",
+                  "      up_row = &edge[0][warps][0][0];"),
+                 ("      dn_row = cg::this_cluster().map_shared_rank(&edge[0][1][SIDES - 1][0], "
+                  "rank + 1);", "      dn_row = &edge[0][1][SIDES - 1][0];")],
 }
 SHAPES = ("level0_sheared", "level0", "level4_sheared", "level4", "level0_x",
-          "level0_y")
+          "level0_y", "level0_1024", "level0_sheared_1024")
 
 
 def _variant_sources(out_dir: Path, also):
@@ -99,12 +114,12 @@ def _sass_mix(so: Path):
     text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
     for func in re.split(r"\n\s*Function : ", text)[1:]:
-        m = re.search(r"mgm_scan_kernelILi(\d+)ELi(\d+)ELi([012])E", func)
+        m = re.search(r"mgm_scan_kernelILi(\d+)ELi(\d+)ELi([012])ELb([01])E", func)
         if not m or (m[1], m[2]) != ("2", "5"):
             continue
         ops = Counter(re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
                                  func))
-        kind = ("fwd", "bidir", "sgm")[int(m[3])]
+        kind = ("fwd", "bidir", "sgm")[int(m[3])] + (", cluster" if m[4] == "1" else "")
         print(f"[ablation] SASS mgm_scan_kernel<2, 5, {kind}>: "
               f"{sum(ops.values())} instructions; "
               + ", ".join(f"{k} {v}" for k, v in ops.most_common(16)))
@@ -133,7 +148,12 @@ def main() -> int:
             continue
         inputs = cs._scan_inputs(case, "cuda", 300 + i)
         shape = case["shape"]
-        threads = cs._scan_pick(case)[1]
+        which, variant = cs._scan_pick(case)
+        # one block a line (threads), or a cluster a line (its launch)
+        pick = (variant,) if which == "mgm_scan" else (None, variant)
+        if which not in ("mgm_scan", "cluster_scan") or (
+                which == "cluster_scan" and variant[0] != 1):
+            raise SystemExit(f"{case['name']}: the wrapper picks {which} {variant}")
         fn = getattr(sgm_scan, f"_{case['kernel']}_cuda")
         times = {n: [] for n in names}
         try:        # the wrappers launch whichever library is loaded
@@ -141,7 +161,7 @@ def main() -> int:
                 sgm_scan._mgm_lib = libs[name]
                 times[name].append(cs._time_ms(
                     lambda: fn(*inputs, case["shifts"], cs.SGM_P1, cs.SGM_P2,
-                               cs.SGM_BAD, threads), reps=args.reps))
+                               cs.SGM_BAD, *pick), reps=args.reps))
         finally:
             sgm_scan._mgm_lib = None
         for name in names:
