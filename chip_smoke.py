@@ -9,8 +9,9 @@ Phases (each raises on a mismatch; none catches its own failure):
    fail if an instance of the register-carry SGM/MGM kernel that the
    wrappers can select, of the path-line SGM kernel, of the MGM cluster
    kernel -- every cell count and mode -- or of the
-   sweep's band kernels -- abs/sq and census, 1 and 2 words, every K --
-   spills), and print the card's name and power limit.
+   sweep's band kernels -- abs/sq/NCC and census, 1 and 2 words, every K --
+   or of the speckle stencil -- every rows-a-pass instance -- spills), and
+   print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
    to the 1/256 grid (integer disparities, validity, cost patches and keep
@@ -20,14 +21,19 @@ Phases (each raises on a mismatch; none catches its own failure):
    ``band_census_kernel``, each also against ``sweep_kernel<cost, words>``
    and also on off-grid inputs, the bench texture, where the summation
    order shows and the codes have structure across band boundaries),
-   ternary census 7x7 at level 0 (the census band kernel), NCC and the
-   full-frame census 7x7 codes at config 3's shape (NCC with black blocks in
-   both frames, so zero-energy windows give NaN metrics; the code planes'
-   sweep also against ``sweep_kernel<3,2>``), a tile of 128 at level 1's
-   shape (NCC on ``sweep_kernel``, its pixels in rounds; census on the band
-   kernel and against ``sweep_kernel``), and the entry points of the
-   first-generation sweeps (``ops/cost_volume.py``, on the band kernel) --
-   and the three
+   ternary census 7x7 at level 0 (the census band kernel), NCC on
+   ``band_sweep_kernel`` at every level of the bench frame without the ring
+   and its level-0 R->L pass (each also against ``sweep_kernel<2,1>``, level
+   0 with black blocks in both frames, so zero-energy windows give NaN
+   metrics), NCC and the full-frame census 7x7 codes at config 3's shape
+   (black blocks too; the code planes' sweep also against
+   ``sweep_kernel<3,2>``), a tile of 128 at level 1's shape (NCC with black
+   blocks and census, on the band kernels and against ``sweep_kernel``,
+   which runs its pixels in rounds), and the entry points of the
+   first-generation sweeps (``ops/cost_volume.py``, on the band kernel);
+   the speckle stencil at level 0's 11x11 window on 1024^2 and on an odd
+   1000x777 frame, a coarse level's 3x3, a window with ``hh != hv`` and a
+   frame smaller than a block -- and the three
    SGM/MGM scans on integer-valued inputs (exact). The three scans run the
    register-carry kernel (``csrc/mgm_scan.cu``) at every shape of config
    6's pyramid; ``scan_bidir`` runs the path-line kernel
@@ -55,13 +61,14 @@ Phases (each raises on a mismatch; none catches its own failure):
    three scans a cluster a line, the 12 of levels 1-4 a block a line; none
    of the 512^2 MGM frame's a cluster a line); config 4 (the
    bench frame with census 5x5 costs, ``tools_bench_configs.py:166-182``)
-   without and with the L<->R check, and with ternary census 7x7;
+   without and with the L<->R check, and with ternary census 7x7; the
+   bench frame with NCC costs without and with the L<->R check;
    ``calc_disparity`` at config 3 (``tools_bench_configs.py:150-164``:
    1024^2, 32x1 search, 15x15, the right frame edge-padded by 31 columns)
    with abs, ncc and census 7x7 costs; and the entry points of TPU kernels
    6 and 7 on config 3's frames; apply ``bench.py``'s sanity check to each
-   (every abs sweep launch on ``band_sweep_kernel``, every census one on
-   ``band_census_kernel``, NCC on ``sweep_kernel``).
+   (every abs and NCC sweep launch on ``band_sweep_kernel``, every census
+   one on ``band_census_kernel``, none on ``sweep_kernel``).
 4. Run the slices small on the card and on the CPU (plain versions) on
    quantized inputs: BM at 256^2 with 2 levels (integer disparities and
    validity equal, the parabola output allclose at atol 1e-4), the same BM
@@ -78,9 +85,10 @@ Phases (each raises on a mismatch; none catches its own failure):
    ``line_scan_kernel<0>`` / ``<1>`` at the same shapes, with us per step,
    the path-line kernel at each number of lines a block and the
    register-carry kernel over a cluster at each number of lanes a block;
-   each abs and
+   each abs, NCC and
    census sweep shape on its band kernel in turns with ``sweep_kernel<cost,
-   words>``), and profile one frame of each path, ``calc_disparity_sgm``'s
+   words>``, between events and as device time; each speckle case, also as
+   device time), and profile one frame of each path, ``calc_disparity_sgm``'s
    too, for the device's idle share and its device time by kernel name (the
    three sweep kernels apart), ``calc_disparity_sgm(use_mgm=True)``'s and
    the 1024^2 MGM frame's too.
@@ -237,13 +245,13 @@ def _mgm_instances(table):
 
 def _band_instances(table):
     """{(cost, K): ptxas entry} of csrc/sweep.cu's band kernels:
-    band_sweep_kernel<cost, K> (abs, sq) and band_census_kernel<n_words, K>
-    (census1, census2)."""
+    band_sweep_kernel<cost, K> (abs, sq, ncc) and band_census_kernel<
+    n_words, K> (census1, census2)."""
     out = {}
     for name, v in table.items():
         m = re.search(r"band_sweep_kernelILi(\d+)ELi(\d+)E", name)
         if m:
-            out[(("abs", "sq")[int(m[1])], int(m[2]))] = v
+            out[(("abs", "sq", "ncc")[int(m[1])], int(m[2]))] = v
         m = re.search(r"band_census_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             out[(f"census{m[1]}", int(m[2]))] = v
@@ -313,7 +321,7 @@ def phase_build():
             if name == "sweep":
                 band = _band_instances(table)
                 bad = [key for key, v in band.items() if v["spill"] or v["stack"]]
-                want = {(c, k) for c in ("abs", "sq", "census1", "census2")
+                want = {(c, k) for c in ("abs", "sq", "ncc", "census1", "census2")
                         for k in _build.SWEEP_BAND_K}
                 print(f"[build] sweep: band kernels (cost or census words, K): "
                       f"{ {key: band[key]['regs'] for key in sorted(band)} } registers; "
@@ -321,6 +329,13 @@ def phase_build():
                 if set(band) != want or bad:
                     raise SystemExit(f"sweep: band kernel instances {sorted(band)} "
                                      f"(want {sorted(want)}), spilling: {bad}")
+            if name == "speckle":
+                rows = {int(m[1]): v for fn, v in table.items()
+                        if (m := re.search(r"speckle_kernelILi(\d+)E", fn))}
+                bad = [r for r, v in rows.items() if v["spill"] or v["stack"]]
+                if set(rows) != {1, 3, 5, 7, 9, 11} or bad:
+                    raise SystemExit(f"speckle: instances (rows a pass) {sorted(rows)}, "
+                                     f"spilling: {bad}")
             continue
         inst = _mgm_instances(table)
         if not inst:
@@ -406,7 +421,9 @@ def _sweep_inputs(case, dev, seed, texture=False):
 def sweep_mode_cases():
     """Each sweep mode and the main-path shapes it runs at: (row key,
     shape name, cost, census window). The sq cost (band_sweep_kernel's
-    other instance) runs at level 0 with the ring."""
+    other instance) runs at level 0 with the ring; NCC (no patch mode) at
+    every level without it, level 0 and the tile of 128 with black blocks
+    (zero-energy windows)."""
     rows = []
     for c in sweep_cases():
         rows.append(("sweep", c, "abs", 5))
@@ -414,8 +431,13 @@ def sweep_mode_cases():
         if c["name"] == "level0_patches":
             rows.append(("sweep_sq", c, "sq", 5))
             rows.append(("sweep_ternary_census", c, "ternary_census", 7))
+            rows.append(("sweep_ncc", {**c, "name": "level0", "ring": 0, "mh": c["mh"] - 2,
+                                       "mw": c["mw"] - 2, "black": True}, "ncc", 5))
+        else:
+            rows.append(("sweep_ncc", c, "ncc", 5))
     # pyramid_correlate(tile_size=128) at level 1's shape: NCC on
-    # sweep_kernel (its pixels in rounds), census on band_census_kernel
+    # band_sweep_kernel, census on band_census_kernel (sweep_kernel, held
+    # against both, runs its pixels in rounds there)
     level1 = next(c for c in sweep_cases() if c["name"] == "level1")
     nt = -(-(H >> 1) // 128)
     lb = nt * 128 + KERNEL[0] - 1
@@ -428,8 +450,8 @@ def sweep_mode_cases():
 
 def _band(case, cost, cw=5):
     """K of the band kernel instance the wrapper picks for a sweep case
-    (band_sweep_kernel for abs/sq, band_census_kernel for census), or None
-    where sweep_kernel runs it."""
+    (band_sweep_kernel for abs/sq/ncc, band_census_kernel for census), or
+    None where sweep_kernel runs it."""
     from visionworkbench_torch.ops import sweep
     kw, kh = KERNEL
     return sweep._sweep_variant(cost, case.get("tile", TILE), case["sx"], case["sy"],
@@ -516,10 +538,13 @@ def _max_err(got, ref):
 
 def speckle_cases():
     """The speckle stencil's shapes on the main path (level 0 11x11, a
-    coarse level's 3x3 second pass) and one odd frame."""
-    return [dict(name="1024x1024_11x11", h=1024, w=1024, half=5, t=3, min_match=61),
-            dict(name="512x512_3x3", h=512, w=512, half=1, t=3, min_match=2),
-            dict(name="1000x777_11x11", h=1000, w=777, half=5, t=3, min_match=61)]
+    coarse level's 3x3 second pass), one odd frame, a window with hh != hv
+    (the kernel's rows in passes) and a frame smaller than a block."""
+    return [dict(name="1024x1024_11x11", h=1024, w=1024, hh=5, hv=5, t=3, min_match=61),
+            dict(name="512x512_3x3", h=512, w=512, hh=1, hv=1, t=3, min_match=2),
+            dict(name="1000x777_11x11", h=1000, w=777, hh=5, hv=5, t=3, min_match=61),
+            dict(name="517x301_5x15", h=517, w=301, hh=2, hv=7, t=2, min_match=40),
+            dict(name="5x3_11x11", h=5, w=3, hh=5, hv=5, t=3, min_match=61)]
 
 
 def _speckle_input(case, dev, seed):
@@ -770,13 +795,12 @@ def phase_kernels(dev):
                 raise SystemExit("sweep_ncc: the zero-energy windows did not give "
                                  "valid NaN-metric pixels")
         check(key, f"config3 ({cost} {cw}, {H}x{W}, window {sx}x{sy})", got, ref)
-        if cost != "ncc":      # the code planes' sweep itself, on both kernels
-            base, match, offs, t = sweep.frame_sweep_args(left, right, sx, sy, kw, kh,
-                                                          cost, cw)
-            fargs = (base, match, offs, t, sx, sy, kw, kh, cost, False, cw)
-            k = sweep._sweep_variant(cost, t, sx, sy, kw, kh, 0, cw, True)
-            held(key, f"config3 code planes ({cost} {cw}, tiles of {t}", fargs, k,
-                 offs.shape[0] * t)
+        # the frame's sweep itself (census: on code planes), on both kernels
+        base, match, offs, t = sweep.frame_sweep_args(left, right, sx, sy, kw, kh, cost, cw)
+        fargs = (base, match, offs, t, sx, sy, kw, kh, cost, False, cw)
+        k = sweep._sweep_variant(cost, t, sx, sy, kw, kh, 0, cw, True)
+        held(key, f"config3 frame sweep ({cost} {cw}, tiles of {t}", fargs, k,
+             offs.shape[0] * t)
     args = (left, right, sx, sy, kw, kh, "abs")
     check("best_of_search", "config3 (abs)", cost_volume.best_of_search(*args),
           cost_volume.best_of_search_plain(*args))
@@ -789,7 +813,7 @@ def phase_kernels(dev):
         raise SystemExit("tiled_search: invalid disparities are not zeroed")
     for i, c in enumerate(speckle_cases()):
         code = _speckle_input(c, dev, 200 + i)
-        args = (code, c["half"], c["half"], c["t"], c["min_match"])
+        args = (code, c["hh"], c["hv"], c["t"], c["min_match"])
         k1 = speckle.speckle_keep_mask(*args)
         k0 = speckle.speckle_keep_mask_plain(*args)
         torch.cuda.synchronize()
@@ -934,8 +958,8 @@ def phase_main(dev):
             "mgm_bidir": 0, "mgm_fwd": 0, "scan_bidir/mgm_scan": 0, "mgm_bidir/mgm_scan": 0,
             "mgm_fwd/mgm_scan": 0, "scan_bidir/path_scan": 0, "mgm_bidir/cluster_scan": 0,
             "mgm_fwd/cluster_scan": 0}
-    # abs sweeps all on band_sweep_kernel, census on band_census_kernel;
-    # NCC on sweep_kernel
+    # abs and NCC sweeps all on band_sweep_kernel, census on
+    # band_census_kernel
     c3 = {"sweep": 1, "speckle": 0}
     c3_abs = {**c3, "sweep/band": 1}
     c3_census = {**c3, "sweep/census_band": 1}
@@ -971,9 +995,15 @@ def phase_main(dev):
                                                     cost_type="ternary_census",
                                                     census_window=7),
              {"sweep": 5, "sweep/census_band": 5}, H),
+            ("ncc", lambda: _bench_run(left, right, dev, cost_type="ncc"),
+             {"sweep": 5, "sweep/band": 5}, H),
+            ("ncc_lr", lambda: _bench_run(left, right, dev, cost_type="ncc",
+                                          consistency_threshold=2.0),
+             {"sweep": 6, "sweep/band": 6}, H),
             ("calc3_abs", lambda: _calc3_run(c3_left, c3_right, dev, "abs"), c3_abs,
              CALC3_OUT),
-            ("calc3_ncc", lambda: _calc3_run(c3_left, c3_right, dev, "ncc"), c3, CALC3_OUT),
+            ("calc3_ncc", lambda: _calc3_run(c3_left, c3_right, dev, "ncc"), c3_abs,
+             CALC3_OUT),
             ("calc3_census7", lambda: _calc3_run(c3_left, c3_right, dev, "census", 7),
              c3_census, CALC3_OUT),
             ("k6_best_of_search", lambda: _k6_run(c3_left, c3_right, dev), c3_abs, CALC3_OUT),
@@ -1153,6 +1183,12 @@ def phase_timings(dev):
         print(f"[time] frame {what}: {ms:.4f} ms, {frame[what]['mps']:.3f} Mp/s")
     _profile_frame(lambda: _bench_run(lt, rt, dev, **census), "config4",
                    frame["config4"]["ms"])
+    for what, kwargs in (("ncc", {"cost_type": "ncc"}),
+                         ("ncc_lr", {"cost_type": "ncc", "consistency_threshold": 2.0})):
+        ms = _time_ms(lambda: _bench_run(lt, rt, dev, **kwargs), reps=10)
+        frame[what] = {"ms": ms, "mps": H * W / (ms * 1e3)}
+        print(f"[time] frame {what}: {ms:.4f} ms, {frame[what]['mps']:.3f} Mp/s")
+    _profile_frame(lambda: _bench_run(lt, rt, dev, cost_type="ncc"), "ncc", frame["ncc"]["ms"])
     c3l, c3r = (torch.as_tensor(a, device=dev) for a in _calc3_pair())
     for cost, cw in (("abs", 5), ("ncc", 5), ("census", 7)):
         what = f"calc3_{cost}" + ("7" if cost == "census" else "")
@@ -1251,12 +1287,14 @@ def phase_timings(dev):
         *args[:8], "abs", False))
     for i, c in enumerate(speckle_cases()):
         code = _speckle_input(c, dev, 200 + i)
-        args = (code, c["half"], c["half"], c["t"], c["min_match"])
+        args = (code, c["hh"], c["hv"], c["t"], c["min_match"])
         ms = _time_ms(lambda: speckle.speckle_keep_mask(*args), reps=20)
+        dev_ms = _device_ms(lambda: speckle.speckle_keep_mask(*args),
+                            match=lambda k: "speckle" in k)
         plain_ms = _time_ms(lambda: speckle.speckle_keep_mask_plain(*args), reps=3, warmup=1)
         npx = c["h"] * c["w"]
-        ops = npx * (2 * c["half"] + 1) ** 2 * SPECKLE_OPS
-        rows[("speckle", c["name"])] = _row(ms, plain_ms, 8 * npx, ops)
+        ops = npx * (2 * c["hh"] + 1) * (2 * c["hv"] + 1) * SPECKLE_OPS
+        rows[("speckle", c["name"])] = {**_row(ms, plain_ms, 8 * npx, ops), "device_ms": dev_ms}
     from visionworkbench_torch.ops import _build, sgm_scan
     for i, c in enumerate(scan_cases()):
         inputs = _scan_inputs(c, dev, 300 + i)
@@ -1331,6 +1369,9 @@ def phase_timings(dev):
             extra += (f", device {dev_new} ({_band_name(r['cost'])}); "
                       f"{_old_kernel_name(r['cost'], r['cw'])} {r['sweep_kernel_ms']:.4f} ms, "
                       f"device {dev_old}")
+        elif "device_ms" in r:
+            extra += (", device " + ("not measured" if r["device_ms"] is None
+                                     else f"{r['device_ms']:.4f} ms"))
         print(f"[time] {k} {name}: {r['ms']:.4f} ms per launch, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}){extra}")
@@ -1364,11 +1405,13 @@ def _sweep_work(base, match, offs, tile, sx, sy, kw, kh, cost, want_patches,
     return nbytes, ops + npx * (per * n_ext + SWEEP_OPS_SELECT * n_int)
 
 
-def _device_ms(fn, reps=10, tries=3):
-    """Device time of one sweep launch of ``fn`` (a call launching one): the
-    mean over the launches the profiler recorded in ``reps`` calls. The
-    profiler may miss launches, or a whole session: tried ``tries`` times,
-    then None (not measured)."""
+def _device_ms(fn, reps=10, tries=3, match=None):
+    """Device time of one launch of ``fn`` (a call launching one kernel
+    whose name ``match`` accepts; a sweep kernel by default): the mean over
+    the launches the profiler recorded in ``reps`` calls. The profiler may
+    miss launches, or a whole session: tried ``tries`` times, then None (not
+    measured)."""
+    match = match or _is_sweep
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1380,7 +1423,7 @@ def _device_ms(fn, reps=10, tries=3):
                 fn()
             torch.cuda.synchronize()
         mine = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and _is_sweep(e.key)]
+                if e.device_type == DeviceType.CUDA and match(e.key)]
         n = sum(e.count for e in mine)
         if n:
             return sum(e.self_device_time_total for e in mine) / 1e3 / n
@@ -1536,8 +1579,8 @@ def main() -> int:
                       "calc_mgm_frame_ms": frame["calc_mgm"]["ms"],
                       "mgm_1024_frame_ms": frame["mgm_1024"]["ms"],
                       **{f"{k}_frame_ms": frame[k]["ms"] for k in
-                         ("config4", "config4_lr", "calc3_abs", "calc3_ncc",
-                          "calc3_census7")},
+                         ("config4", "config4_lr", "ncc", "ncc_lr", "calc3_abs",
+                          "calc3_ncc", "calc3_census7")},
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

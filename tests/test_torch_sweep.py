@@ -241,14 +241,154 @@ def test_band_census_kernel_runs_every_census_main_path_shape(shape):
     assert tsweep._sweep_variant(cost, tile, sx, sy, 21, 21, ring, window, codes_in) == 24
 
 
+# (tile, s_x, s_y) of every NCC sweep (no patch mode, so no ring): config 3's
+# calc_disparity (1010^2 output, 32x1 search), pyramid_correlate(cost_type=
+# "ncc") on the bench frame (levels 4 to 0, tile 64, and the level-0 R->L
+# pass) and its level 1 at a tile of 128
+NCC_MAIN_PATH_SHAPES = {
+    "config3": (tsweep.frame_tile(1010, 1010, 32, 1, 15, 15, "ncc"), 32, 1),
+    **{name: (tile, sx, sy) for name, (tile, sx, sy, _) in MAIN_PATH_SHAPES.items()
+       if name.startswith("level")},
+    "level1_tile128": (128, 11, 4),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(NCC_MAIN_PATH_SHAPES))
+def test_band_kernel_runs_every_ncc_main_path_shape(shape):
+    """NCC runs band_sweep_kernel<ncc, K> at every shape of its main paths
+    (sweep_kernel ran them all before), the larger instance past 16."""
+    tile, sx, sy = NCC_MAIN_PATH_SHAPES[shape]
+    assert tsweep._sweep_variant("ncc", tile, sx, sy, 15, 15, 0) == 16
+    assert tsweep._sweep_variant("ncc", tile, sx, sy, 21, 21, 0) == 24
+    assert tsweep._sweep_variant("ncc", tile, sx, sy, 24, 24, 0) == 24
+    assert tsweep._sweep_variant("ncc", tile, sx, sy, 25, 15, 0) is None
+
+
+@pytest.mark.parametrize("tile, sx, sy, kw, k", [
+    (64, 32, 1, 15, 16),       # config 3: the column-sum buffers hold the energies' sums
+    (64, 11, 8, 15, 16),       # level 0: the energies' column sums need more rows
+    (128, 11, 4, 21, 24),
+    (8, 40, 3, 3, 16),         # a wide window: right rows wider than the buffers
+])
+def test_band_geometry_sizes_ncc_planes(tile, sx, sy, kw, k):
+    """NCC's band block has, beyond the abs block, room in the column-sum
+    buffers for the right energies' column sums ((16 + sy - 1) x rw floats)
+    and a plane of right precisions ((16 + sy - 1) x an odd stride >= tile
+    + sx - 1), as csrc/sweep.cu lays them out."""
+    rows = _build.SWEEP_BAND_ROWS
+    bands, threads, plain = tsweep._band_geometry(tile, sx, sy, kw, 0, k)
+    assert (bands, threads) == tsweep._band_geometry(tile, sx, sy, kw, 0, k, True)[:2]
+    ncc = tsweep._band_geometry(tile, sx, sy, kw, 0, k, True)[2]
+    rw = tile + kw - 1 + sx - 1
+    sums = 2 * rows * ((tile + k - 1) | 1)
+    stride = (tile + sx - 1) | 1
+    assert stride % 2 == 1 and stride >= tile + sx - 1
+    assert ncc - plain == 4 * (max(0, (rows + sy - 1) * rw - sums) + (rows + sy - 1) * stride)
+
+
+def _ncc_band_model(base, match, offsets, tile, sx, sy, kw, kh, k):
+    """csrc/sweep.cu's band_sweep_kernel<ncc, k> on the CPU, band by band in
+    the kernel's index arithmetic and fp32 summation order (numpy float32
+    adds and products are IEEE, as the kernel's with --fmad=false; the root
+    of a float64 is rounded to the correctly rounded fp32 root). Returns
+    (disp, valid, best) planes."""
+    rows = _build.SWEEP_BAND_ROWS
+    nty, ntx = offsets.shape[:2]
+    lh, lw = tile + kh - 1, tile + kw - 1
+    rh, rw = lh + sy - 1, lw + sx - 1
+    nr, prows, pw = rows + k - 1, rows + sy - 1, tile + sx - 1
+    f32 = np.float32
+    disp = np.zeros((nty * tile, ntx * tile, 2), np.int32)
+    valid = np.zeros((nty * tile, ntx * tile), bool)
+    best_out = np.zeros((nty * tile, ntx * tile), f32)
+
+    def sums(terms, n):        # n sums of consecutive terms, top to bottom
+        acc = np.zeros((terms.shape[0] - n + 1,) + terms.shape[1:], f32)
+        for i in range(n):
+            acc = acc + terms[i:i + acc.shape[0]]
+        return acc
+
+    for ty in range(nty):
+        for tx in range(ntx):
+            off_x, off_y = (int(v) for v in offsets[ty, tx])
+            by0, bx0 = ty * tile, tx * tile
+            ry0 = min(max(by0 + off_y, 0), match.shape[0] - rh)
+            rx0 = min(max(bx0 + off_x, 0), match.shape[1] - rw)
+            for y0 in range(0, tile, rows):
+                R = np.zeros((nr + sy - 1, rw), f32)
+                n = min(nr + sy - 1, rh - y0)
+                R[:n] = match[ry0 + y0:ry0 + y0 + n, rx0:rx0 + rw]
+                lv = np.zeros((nr, lw), f32)
+                n = min(nr, lh - y0)
+                lv[:n] = base[by0 + y0:by0 + y0 + n, bx0:bx0 + lw]
+                E = sums(R * R, kh)[:prows]                       # (prows, rw)
+                rp = f32(1) / sums(E.T, kw).T[:, :pw]             # (prows, pw)
+                lp = f32(1) / sums(sums(lv * lv, kh)[:rows].T, kw).T[:, :tile]
+                best = np.full((rows, tile), -np.inf, f32)
+                worst = np.full((rows, tile), np.inf, f32)
+                arg = np.zeros((rows, tile), np.int32)
+                for ey in range(sy):
+                    for ex in range(sx):
+                        prod = lv * R[ey:ey + nr, ex:ex + lw]
+                        s = sums(sums(prod, kh)[:rows].T, kw).T[:, :tile]
+                        prec = lp * rp[ey:ey + rows, ex:ex + tile]
+                        m = s * np.sqrt(prec.astype(np.float64)).astype(f32)
+                        better = (m > best) | (np.isnan(m) & ~np.isnan(best))
+                        best = np.where(better, m, best)
+                        arg = np.where(better, ey * sx + ex, arg)
+                        worst = np.where(np.isnan(m) | (m < worst), m, worst)
+                v = best != worst
+                out = slice(by0 + y0, by0 + min(y0 + rows, tile))
+                n = out.stop - out.start
+                cols = slice(bx0, bx0 + tile)
+                valid[out, cols] = v[:n]
+                best_out[out, cols] = best[:n]
+                disp[out, cols, 0] = np.where(v, arg % sx, 0)[:n] + off_x
+                disp[out, cols, 1] = np.where(v, arg // sx, 0)[:n] + off_y
+    return disp, valid, best_out
+
+
+# (tile, kw, kh, s_x, s_y, nty, ntx, K): one band (16), two with the last
+# cut at the tile's edge (24), kw != kh, a 1-row window, the larger instance
+NCC_MODEL_CASES = [
+    (16, 5, 3, 4, 3, 2, 2, 16),
+    (24, 3, 7, 5, 2, 2, 1, 16),
+    (8, 9, 5, 6, 1, 1, 3, 16),
+    (16, 17, 19, 3, 2, 1, 2, 24),
+]
+
+
+@pytest.mark.parametrize("case", NCC_MODEL_CASES)
+def test_ncc_band_model_matches_plain(case):
+    """The NCC band decomposition (staged right rows, the energies' column
+    and window sums, the precisions' plane read at (o + ey, x + ex), the
+    left energies from the column threads' values) equals the plain version
+    bit for bit on off-grid noise with zero-energy blocks (NaN metrics)."""
+    tile, kw, kh, sx, sy, nty, ntx, k = case
+    assert tsweep._sweep_variant("ncc", tile, sx, sy, kw, kh, 0) == k
+    base, match, offsets = _band_inputs(19, ("ncc", tile, kw, kh, sx, sy, nty, ntx), 0,
+                                        False)
+    base[1:kh + 3, 2:kw + 5] = 0.0            # zero-energy left windows
+    match[3:kh + 9, 1:kw + 12] = 0.0
+    with np.errstate(divide="ignore", invalid="ignore"):   # the NaN metrics
+        model = _ncc_band_model(base, match, offsets, tile, sx, sy, kw, kh, k)
+    t = [torch.as_tensor(a) for a in (base, match, offsets)]
+    best = torch.empty(nty * tile, ntx * tile)
+    d, v, _ = tsweep.sweep_plain(*t, tile, sx, sy, kw, kh, "ncc", False, best_out=best)
+    assert np.isnan(model[2]).any() and model[1][np.isnan(model[2])].all()
+    np.testing.assert_array_equal(model[0], d.numpy())
+    np.testing.assert_array_equal(model[1], v.numpy())
+    np.testing.assert_array_equal(model[2], best.numpy())
+
+
 @pytest.mark.parametrize("cost, tile, sx, sy, kw, kh, ring", [
-    ("ncc", 64, 32, 1, 15, 15, 0),            # NCC keeps sweep_kernel
-    ("ncc", 128, 11, 4, 15, 15, 0),
     ("abs", 64, 11, 8, 25, 15, 1),            # kernel past the largest bound
     ("sq", 64, 11, 8, 15, 31, 0),
     ("census", 64, 11, 8, 15, 25, 1),
+    ("ncc", 64, 32, 1, 25, 25, 0),
     ("abs", 12, 4, 2, 5, 5, 0),               # tile not a multiple of 8
     ("ternary_census", 20, 4, 2, 5, 5, 0),
+    ("ncc", 12, 4, 2, 5, 5, 0),
     ("abs", 256, 4, 2, 5, 5, 0),              # 512 threads a block
     ("census", 256, 4, 2, 5, 5, 0),
     ("sq", 64, 2000, 4, 15, 15, 0),           # right rows past shared memory
@@ -301,7 +441,8 @@ def _band_inputs(seed, case, ring, grid):
 
 # (cost, tile, kw, kh, s_x, s_y, nty, ntx): odd kernels, tiles 8 to 128
 # (24: the band height does not divide it; 128: 256 threads), the larger
-# instance (21x17)
+# instance (21x17); NCC at config 3's shape (32x1 search), a pyramid level
+# 0's (11x8), K 24 (kernel 24x23) and a tile of 128
 BAND_CASES = [
     ("abs", 8, 5, 3, 6, 4, 2, 3),
     ("sq", 16, 7, 7, 11, 2, 2, 2),
@@ -310,22 +451,33 @@ BAND_CASES = [
     ("abs", 64, 15, 15, 11, 8, 2, 2),
     ("sq", 64, 21, 17, 5, 3, 1, 2),
     ("sq", 128, 15, 13, 4, 2, 1, 2),
+    ("ncc", 64, 15, 15, 32, 1, 2, 2),
+    ("ncc", 64, 15, 15, 11, 8, 2, 2),
+    ("ncc", 32, 24, 23, 5, 3, 2, 1),
+    ("ncc", 128, 15, 15, 11, 4, 1, 2),
 ]
+# NCC has no patch mode
+BAND_RUNS = [(case, want_patches) for case in BAND_CASES for want_patches in (False, True)
+             if not (case[0] == "ncc" and want_patches)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", [True, False], ids=["quantized", "off_grid"])
-@pytest.mark.parametrize("want_patches", [False, True])
-@pytest.mark.parametrize("case", BAND_CASES)
+@pytest.mark.parametrize("case, want_patches", BAND_RUNS)
 def test_band_kernel_matches_plain_and_sweep_kernel(cuda, case, want_patches, grid):
     """band_sweep_kernel equals the plain version and sweep_kernel bit for
     bit (disp, valid, patches, best), quantized or not; at a tile of 128
-    sweep_kernel runs the tile's pixels in rounds."""
+    sweep_kernel runs the tile's pixels in rounds. NCC's frames carry black
+    blocks: zero-energy windows give NaN metrics, which win and stay
+    valid."""
     cost, tile, kw, kh, sx, sy, nty, ntx = case
     k = tsweep._sweep_variant(cost, tile, sx, sy, kw, kh, int(want_patches))
     assert k is not None
-    t = [torch.as_tensor(a, device=cuda)
-         for a in _band_inputs(17, case, int(want_patches), grid)]
+    frames = _band_inputs(17, case, int(want_patches), grid)
+    if cost == "ncc":
+        frames[0][3:kh + 9, 5:kw + 20] = 0.0
+        frames[1][20:kh + 40, 2:kw + 30] = 0.0
+    t = [torch.as_tensor(a, device=cuda) for a in frames]
     args = (*t, tile, sx, sy, kw, kh, cost, want_patches, 5)
     best = [torch.empty(nty * tile, ntx * tile, device=cuda) for _ in range(3)]
     before = (tsweep.launches, tsweep.band_launches)
@@ -338,6 +490,8 @@ def test_band_kernel_matches_plain_and_sweep_kernel(cuda, case, want_patches, gr
         for a, b in zip(got, ref):
             if b is not None:
                 np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    if cost == "ncc":
+        assert bool(best[0].isnan().any()) and bool(got[1][best[0].isnan()].all())
 
 
 def test_band_limits_reach_nvcc(monkeypatch):
@@ -386,9 +540,9 @@ def test_tile128_matches_jax_tiled_search(case):
 @pytest.mark.parametrize("case", TILE128_CASES, ids=[c[0] for c in TILE128_CASES])
 def test_tile128_card_matches_plain(cuda, case):
     """sweep() at a tile of 128 runs on the card and equals the plain
-    version: NCC on sweep_kernel (its threads capped by its launch bound
-    and shared memory, the pixels in rounds), census on band_census_kernel and,
-    forced, on sweep_kernel."""
+    version: NCC on band_sweep_kernel, census on band_census_kernel, each
+    also forced on sweep_kernel (its threads capped by its launch bound and
+    shared memory, the pixels in rounds)."""
     cost, tile, kw, kh, sx, sy, nty, ntx = case
     base, match, offsets = _inputs(18, case, 0)
     if cost == "ncc":
@@ -397,12 +551,12 @@ def test_tile128_card_matches_plain(cuda, case):
     t = [torch.as_tensor(a, device=cuda) for a in (base, match, offsets)]
     args = (*t, tile, sx, sy, kw, kh, cost, False, 5)
     best = [torch.empty(nty * tile, ntx * tile, device=cuda) for _ in range(3)]
-    before = tsweep.census_band_launches
+    before = (tsweep.band_launches, tsweep.census_band_launches)
     got = (*tsweep.sweep(*args, best_out=best[0]), best[0])
-    assert tsweep.census_band_launches == before + int(cost == "census")
-    refs = [(*tsweep.sweep_plain(*args, best_out=best[1]), best[1])]
-    if cost == "census":
-        refs.append((*tsweep._sweep_cuda(*args, best[2], None), best[2]))
+    assert (tsweep.band_launches, tsweep.census_band_launches) == (
+        before[0] + int(cost == "ncc"), before[1] + int(cost == "census"))
+    refs = [(*tsweep.sweep_plain(*args, best_out=best[1]), best[1]),
+            (*tsweep._sweep_cuda(*args, best[2], None), best[2])]
     for ref in refs:
         for a, b in zip(got, ref):
             if b is not None:

@@ -40,14 +40,14 @@
 //     the patch holds exactly the sweep's costs) for the parabola fit.
 //
 // Three kernels; ops/sweep.py:_sweep_variant picks one by cost and shape:
-//   * band_sweep_kernel<cost, K>: abs and sq (every abs/sq sweep of the
-//     main paths);
+//   * band_sweep_kernel<cost, K>: abs, sq and NCC (every abs/sq/NCC sweep
+//     of the main paths);
 //   * band_census_kernel<n_words, K>: census and ternary census, codes
 //     from the float crops or code planes (every census sweep of the main
 //     paths);
-//   * sweep_kernel<cost, n_words>: NCC, and any shape past the band
-//     kernels' limits (a kernel past the largest K, a tile not a multiple of
-//     kSeg, more threads or shared memory than a block has).
+//   * sweep_kernel<cost, n_words>: any shape past the band kernels' limits
+//     (a kernel past the largest K, a tile not a multiple of kSeg, more
+//     threads or shared memory than a block has).
 //
 // band_sweep_kernel: one block per (tile, band of kBand output rows), so
 // even a pyramid's coarse levels launch enough blocks (level 2 of the bench
@@ -73,6 +73,18 @@
 // (kh per column sum, kw per window sum; ~60 instructions per pixel and
 // candidate in all, at about half the card's issue rate on the H100), not
 // loads or bytes.
+//
+// NCC on band_sweep_kernel: the column pass forms l * r, the row pass scales
+// each window sum by sqrtf(lprec * rprec) and keeps the max (NaN first), as
+// sweep_kernel does. Before the sweep the block makes its energies in the
+// same order: rprec = 1 / box(r * r) at each of the band's (kBand + sy - 1)
+// x (T + sx - 1) right positions, from the staged right rows (column sums
+// over kh into the column-sum buffers, then window sums over kw) into one
+// shared plane read per candidate; lprec = 1 / box(l * l) once per output
+// pixel, the column threads' l * l sums from their registers, the row
+// threads keeping their kSeg values in registers. Per pixel and candidate
+// NCC adds a product, a multiply and a correctly rounded square root (no
+// fast math) to the abs kernel's adds.
 //
 // band_census_kernel: the same grid, thread map, double buffer and patch
 // pass. Census sums are int32 and exact in any order, so both passes take
@@ -425,7 +437,7 @@ cudaError_t launch(const Args& a, int nty, int threads, size_t smem,
 }
 
 
-// ---- band_sweep_kernel: the abs and sq costs --------------------------------
+// ---- band_sweep_kernel: the abs, sq and NCC costs ---------------------------
 
 constexpr int kBand = VW_SWEEP_BAND_ROWS;     // output rows a block
 constexpr int kSeg = VW_SWEEP_SEG;            // output pixels a row thread
@@ -445,10 +457,30 @@ struct BandArgs {
   float* best;               // (nty*T, ntx*T) or null
 };
 
+// The kBand column sums of the terms d (band rows 0 .. kBand + K - 2), or
+// with ABS of their absolute values, over kh rows, each top to bottom,
+// stored cs apart from Cc.
+template <int K, bool ABS = false>
+__device__ __forceinline__ void band_sums(const float (&d)[kBand + K - 1], int kh,
+                                          float* Cc, int cs) {
+  float acc[kBand];
+#pragma unroll
+  for (int o = 0; o < kBand; ++o) acc[o] = 0.f;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < kh) {
+#pragma unroll
+      for (int o = 0; o < kBand; ++o) acc[o] += ABS ? fabsf(d[o + i]) : d[o + i];
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < kBand; ++o) Cc[o * cs] = acc[o];
+}
+
 // Column pass of one candidate for one column: lv holds the column's left
 // values (band rows 0 .. kBand + K - 2), Rc points at the staged right value
 // of band row 0 at the candidate, rw apart a row; writes the kBand column
-// sums over kh rows, each top to bottom, cs apart.
+// sums of the cost over kh rows, each top to bottom, cs apart.
 template <int COST, int K>
 __device__ __forceinline__ void band_columns(const float (&lv)[kBand + K - 1],
                                              const float* Rc, int rw, int kh,
@@ -457,21 +489,14 @@ __device__ __forceinline__ void band_columns(const float (&lv)[kBand + K - 1],
   float d[NR];
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
-    const float v = lv[r] - Rc[r * rw];
-    d[r] = COST == kSq ? v * v : v;
-  }
-  float acc[kBand];
-#pragma unroll
-  for (int o = 0; o < kBand; ++o) acc[o] = 0.f;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if (i < kh) {
-#pragma unroll
-      for (int o = 0; o < kBand; ++o) acc[o] += COST == kAbs ? fabsf(d[o + i]) : d[o + i];
+    if constexpr (COST == kNcc) {
+      d[r] = lv[r] * Rc[r * rw];
+    } else {
+      const float v = lv[r] - Rc[r * rw];
+      d[r] = COST == kSq ? v * v : v;
     }
   }
-#pragma unroll
-  for (int o = 0; o < kBand; ++o) Cc[o * cs] = acc[o];
+  band_sums<K, COST == kAbs>(d, kh, Cc, cs);
 }
 
 // Row pass: the kSeg window sums starting at Cr, each over kw column sums
@@ -494,13 +519,17 @@ __device__ __forceinline__ void band_windows(const float* Cr, int kw, float (&s)
 }
 
 // Shared memory, in order: the band's right rows ((kBand + K - 1 + sy_e - 1)
-// x rw, zero past the window), two buffers of kBand x cs column sums, then
-// the patch pass's bit set over the ring window's candidates. ops/sweep.py
-// (_band_geometry) sizes it and picks the threads: at least T + kw - 1
-// (column threads) and kBand * T / kSeg (row threads). K bounds kw and kh.
+// x rw, zero past the window), two buffers of kBand x cs column sums (for
+// NCC at least (kBand + sy - 1) x rw floats: they first hold the right
+// energies' column sums), the patch pass's bit set over the ring window's
+// candidates, then for NCC the right precisions ((kBand + sy - 1) x ps, ps =
+// (T + sx - 1) | 1). ops/sweep.py (_band_geometry) sizes it and picks the
+// threads: at least T + kw - 1 (column threads) and kBand * T / kSeg (row
+// threads). K bounds kw and kh.
 template <int COST, int K>
 __global__ void __launch_bounds__(kBandMaxThreads) band_sweep_kernel(const BandArgs a) {
   constexpr int NR = kBand + K - 1;
+  constexpr bool kMax = COST == kNcc;        // NCC: a max metric, no patch mode
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = a.T, kw = a.kw, kh = a.kh, sx = a.sx, sy = a.sy, ring = a.ring;
   const int sx_e = sx + 2 * ring, sy_e = sy + 2 * ring;
@@ -508,9 +537,13 @@ __global__ void __launch_bounds__(kBandMaxThreads) band_sweep_kernel(const BandA
   const int rh = lh + sy_e - 1, rw = lw + sx_e - 1;
   const int rrows = NR + sy_e - 1;
   const int cs = (T + K - 1) | 1;            // odd: row threads' loads do not conflict
+  const int prows = kBand + sy - 1, ps = (T + sx - 1) | 1;   // NCC's right precisions
+  const int n_ext = sx_e * sy_e;
   float* R = reinterpret_cast<float*>(smem);
   float* C = R + rrows * rw;
-  unsigned* need = reinterpret_cast<unsigned*>(C + 2 * kBand * cs);
+  unsigned* need = reinterpret_cast<unsigned*>(
+      C + (kMax ? max(2 * kBand * cs, prows * rw) : 2 * kBand * cs));
+  float* RP = reinterpret_cast<float*>(need + (n_ext + 31) / 32);
 
   const int tx = blockIdx.x, ty = blockIdx.y, y0 = blockIdx.z * kBand;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -524,7 +557,6 @@ __global__ void __launch_bounds__(kBandMaxThreads) band_sweep_kernel(const BandA
     const int r = i / rw, c = i - r * rw;
     R[i] = y0 + r < rh ? a.match[(size_t)(ry0 + y0 + r) * a.wm + rx0 + c] : 0.f;
   }
-  const int n_ext = sx_e * sy_e;
   for (int i = tid; i < (n_ext + 31) / 32; i += nt) need[i] = 0u;
   // column thread tid: its left column, in registers for the whole sweep
   const bool colt = tid < lw;
@@ -541,13 +573,49 @@ __global__ void __launch_bounds__(kBandMaxThreads) band_sweep_kernel(const BandA
   const bool outp = rowt && y0 + o < T;
   __syncthreads();
 
+  float lp[kSeg];                             // NCC: 1 / left window energy
+  if constexpr (kMax) {
+    // 1 / right window energy at each right position of the band, in the
+    // plain order: column sums of r * r over kh (top to bottom) into the
+    // column-sum buffers, then window sums over kw (left to right)
+    for (int i = tid; i < prows * rw; i += nt) {
+      const float* p = R + i;
+      float acc = 0.f;
+      for (int j = 0; j < kh; ++j) acc += p[j * rw] * p[j * rw];
+      C[i] = acc;
+    }
+    __syncthreads();
+    for (int i = tid; i < prows * (T + sx - 1); i += nt) {
+      const int r = i / (T + sx - 1), x = i - r * (T + sx - 1);
+      const float* p = C + r * rw + x;
+      float acc = 0.f;
+      for (int j = 0; j < kw; ++j) acc += p[j];
+      RP[r * ps + x] = 1.f / acc;
+    }
+    __syncthreads();
+    // 1 / left window energy of each output pixel: the l * l column sums
+    // into buffer 1 (the first candidate writes buffer 0)
+    if (colt) {
+      float d[NR];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) d[r] = lv[r] * lv[r];
+      band_sums<K>(d, kh, C + kBand * cs + tid, cs);
+    }
+    __syncthreads();
+    if (rowt) {
+      band_windows<K>(C + kBand * cs + o * cs + x0, kw, lp);
+#pragma unroll
+      for (int q = 0; q < kSeg; ++q) lp[q] = 1.f / lp[q];
+    }
+  }
+
   const float inf = __int_as_float(0x7f800000);
   float best[kSeg], worst[kSeg];
   int arg[kSeg];
 #pragma unroll
   for (int q = 0; q < kSeg; ++q) {
-    best[q] = inf;
-    worst[q] = -inf;
+    best[q] = kMax ? -inf : inf;
+    worst[q] = kMax ? inf : -inf;
     arg[q] = 0;
   }
   int k = 0;                                  // candidates run: buffer k & 1
@@ -560,13 +628,27 @@ __global__ void __launch_bounds__(kBandMaxThreads) band_sweep_kernel(const BandA
         float s[kSeg];
         band_windows<K>(Cb + o * cs + x0, kw, s);
         const int cand = (ey - ring) * sx + (ex - ring);
+        if constexpr (kMax) {
+          // NCC (ring 0): a NaN metric counts as greater than any number
+          const float* rp = RP + (o + ey) * ps + x0 + ex;
 #pragma unroll
-        for (int q = 0; q < kSeg; ++q) {
-          if (s[q] < best[q]) {
-            best[q] = s[q];
-            arg[q] = cand;
+          for (int q = 0; q < kSeg; ++q) {
+            const float m = s[q] * sqrtf(lp[q] * rp[q]);
+            if (m > best[q] || (isnan(m) && !isnan(best[q]))) {
+              best[q] = m;
+              arg[q] = cand;
+            }
+            if (isnan(m) || m < worst[q]) worst[q] = m;
           }
-          if (s[q] > worst[q]) worst[q] = s[q];
+        } else {
+#pragma unroll
+          for (int q = 0; q < kSeg; ++q) {
+            if (s[q] < best[q]) {
+              best[q] = s[q];
+              arg[q] = cand;
+            }
+            if (s[q] > worst[q]) worst[q] = s[q];
+          }
         }
       }
     }
@@ -586,7 +668,7 @@ __global__ void __launch_bounds__(kBandMaxThreads) band_sweep_kernel(const BandA
       if (a.best) a.best[p] = best[q];
     }
   }
-  if (!ring) return;                          // uniform over the block
+  if (kMax || !ring) return;                  // uniform over the block
   // Patch pass. The winner's window index (ax, ay) is the ring window's
   // index of its patch's top-left candidate.
   int px[kSeg], py[kSeg];
@@ -996,17 +1078,18 @@ extern "C" int vw_sweep(const void* base, int hb, int wb, const void* match,
   }
 }
 
-// The abs (cost 0) and sq (cost 1) sweep on band_sweep_kernel<cost, k>, k
-// one of VW_SWEEP_BAND_K (bounds kw and kh): bands blocks a tile of
-// threads, smem bytes (ops/sweep.py:_band_geometry). Arguments and return
-// as vw_sweep's.
+// The abs (cost 0), sq (cost 1) and NCC (cost 2, no ring) sweep on
+// band_sweep_kernel<cost, k>, k one of VW_SWEEP_BAND_K (bounds kw and kh):
+// bands blocks a tile of threads, smem bytes (ops/sweep.py:_band_geometry).
+// Arguments and return as vw_sweep's.
 extern "C" int vw_band_sweep(const float* base, int hb, int wb, const float* match,
                              int hm, int wm, const int* offsets, int nty, int ntx,
                              int T, int sx, int sy, int kw, int kh, int cost,
                              int ring, int k, int* disp, unsigned char* valid,
                              float* patches, float* best, int bands, int threads,
                              long long smem, void* stream) {
-  if (T % kSeg || kw > k || kh > k || threads > kBandMaxThreads) return -1;
+  if (T % kSeg || kw > k || kh > k || threads > kBandMaxThreads || (cost == kNcc && ring))
+    return -1;
   BandArgs a{};
   a.base = base; a.wb = wb;
   a.match = match; a.hm = hm; a.wm = wm;
@@ -1018,9 +1101,11 @@ extern "C" int vw_band_sweep(const float* base, int hb, int wb, const float* mat
   if (k == VW_SWEEP_BAND_K0) {
     if (cost == kAbs) return launch_band<kAbs, VW_SWEEP_BAND_K0>(a, nty, bands, threads, sm, s);
     if (cost == kSq) return launch_band<kSq, VW_SWEEP_BAND_K0>(a, nty, bands, threads, sm, s);
+    if (cost == kNcc) return launch_band<kNcc, VW_SWEEP_BAND_K0>(a, nty, bands, threads, sm, s);
   } else if (k == VW_SWEEP_BAND_K1) {
     if (cost == kAbs) return launch_band<kAbs, VW_SWEEP_BAND_K1>(a, nty, bands, threads, sm, s);
     if (cost == kSq) return launch_band<kSq, VW_SWEEP_BAND_K1>(a, nty, bands, threads, sm, s);
+    if (cost == kNcc) return launch_band<kNcc, VW_SWEEP_BAND_K1>(a, nty, bands, threads, sm, s);
   }
   return -1;
 }

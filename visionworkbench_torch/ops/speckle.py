@@ -10,8 +10,9 @@ agree within ``t`` in both fields. Any frame shape: the TPU dispatch's
 ``W % 128 == 0 and H % 8 == 0`` condition is dropped.
 
 What bounds the kernel on the H100, and what its design does about it: see
-the note at the top of ``csrc/speckle.cu`` (integer compares; tile + halo
-staged once per block in shared memory).
+the note at the top of ``csrc/speckle.cu`` (issuing the per-pair work: the
+fields unpacked once into floats at staging, five fp32 instructions a pair,
+a thread's strip of pixels sharing each staged neighbour it loads).
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from visionworkbench_torch.ops import _build
 # per launch of the CUDA kernel, and nowhere else).
 launches = 0
 
-_BLOCK = (32, 8)
 _lib = None
 
 
@@ -36,7 +36,7 @@ def _library():
     if _lib is None:
         lib = _build.load("speckle")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vw_speckle.argtypes = [p, i, i, i, i, i, i, p, i, i, p]
+        lib.vw_speckle.argtypes = [p, i, i, i, i, i, i, p, p]
         lib.vw_speckle.restype = i
         _lib = lib
     return _lib
@@ -84,8 +84,7 @@ def speckle_keep_mask(code, half_h: int, half_v: int, t: int, min_match: int):
     with torch.cuda.device(code.device):
         stream = torch.cuda.current_stream(code.device).cuda_stream
         err = lib.vw_speckle(code.data_ptr(), h, w, half_h, half_v, t,
-                             min_match, keep.data_ptr(), _BLOCK[0], _BLOCK[1],
-                             stream)
+                             min_match, keep.data_ptr(), stream)
     _build.check(err, "speckle")
     launches += 1
     return keep

@@ -19,17 +19,17 @@ planes (H, W, n_words) computed beforehand over whole frames
 (:func:`search_frame`, the path of ``best_of_search_convolution``).
 
 On the card (:func:`_sweep_variant` picks the kernel and its instance):
-the abs and sq costs run ``band_sweep_kernel``, census and ternary census
-``band_census_kernel`` (both one block per band of output rows of a
-tile), NCC and the shapes past the band kernels' limits ``sweep_kernel``.
-The abs/sq kernels sum every window in the plain version's order; the
-census kernel takes running sums, exact since census sums are integers.
-So every kernel agrees with the plain version, and with the others, bit
-for bit on any input. What bounds each on the H100, and what its design
-does about it: see the note at the top of ``csrc/sweep.cu`` (the abs/sq
-band kernel: the issue of the exact-order adds; the census band kernel:
-its column pass's popcounts, then making the codes; ``sweep_kernel``:
-shared-memory loads).
+the abs, sq and NCC costs run ``band_sweep_kernel``, census and ternary
+census ``band_census_kernel`` (both one block per band of output rows of
+a tile), the shapes past the band kernels' limits ``sweep_kernel``. The
+abs/sq/NCC kernels sum every window (NCC's energies too) in the plain
+version's order; the census kernel takes running sums, exact since census
+sums are integers. So every kernel agrees with the plain version, and with
+the others, bit for bit on any input. What bounds each on the H100, and
+what its design does about it: see the note at the top of
+``csrc/sweep.cu`` (the abs/sq/NCC band kernel: the issue of the
+exact-order adds; the census band kernel: its column pass's popcounts,
+then making the codes; ``sweep_kernel``: shared-memory loads).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from visionworkbench_torch.stereo.correlation import (
 
 # Kernel launches since the count was last set to 0 (the wrapper adds one
 # per launch of a CUDA kernel, and nowhere else), and of those the launches
-# of band_sweep_kernel (abs, sq) and of band_census_kernel (census,
+# of band_sweep_kernel (abs, sq, NCC) and of band_census_kernel (census,
 # ternary census); the rest ran sweep_kernel.
 launches = 0
 band_launches = 0
@@ -194,18 +194,25 @@ def _band_grid(tile: int, kw: int):
 
 
 def _band_geometry(tile: int, s_x: int, s_y: int, kw: int, ring: int,
-                   k: int):
+                   k: int, ncc: bool = False):
     """``(bands, threads, smem bytes)`` of one tile of
     ``band_sweep_kernel<., k>`` (:func:`_band_grid`); shared memory laid out
     as in ``csrc/sweep.cu``: the band's right rows, two buffers of column
-    sums (an odd row stride), the patch pass's bit set over the ring
-    window."""
+    sums (an odd row stride; for ``ncc`` at least the right energies'
+    column sums over the band's right positions), the patch pass's bit set
+    over the ring window, then for ``ncc`` the plane of right precisions
+    (an odd row stride)."""
     rows = _build.SWEEP_BAND_ROWS
     bands, threads = _band_grid(tile, kw)
     sx_e, sy_e = s_x + 2 * ring, s_y + 2 * ring
-    right = (rows + k - 1 + sy_e - 1) * (tile + kw - 1 + sx_e - 1)
-    cs = (tile + k - 1) | 1
-    return bands, threads, 4 * (right + 2 * rows * cs + -(-sx_e * sy_e // 32))
+    rw = tile + kw - 1 + sx_e - 1
+    right = (rows + k - 1 + sy_e - 1) * rw
+    sums = 2 * rows * ((tile + k - 1) | 1)
+    prec = 0
+    if ncc:
+        sums = max(sums, (rows + s_y - 1) * rw)
+        prec = (rows + s_y - 1) * ((tile + s_x - 1) | 1)
+    return bands, threads, 4 * (right + sums + -(-sx_e * sy_e // 32) + prec)
 
 
 def _census_band_geometry(tile: int, s_x: int, s_y: int, kw: int, kh: int,
@@ -246,15 +253,16 @@ def _sweep_variant(cost_type: str, tile: int, s_x: int, s_y: int, kw: int,
                    codes_in: bool = False):
     """The bound K of the band kernel instance that runs the shape (the
     smallest of ``_build.SWEEP_BAND_K`` that holds kw and kh):
-    ``band_sweep_kernel<cost, K>`` for abs and sq, ``band_census_kernel<
-    n_words, K>`` for census and ternary census (codes from the float crops,
-    or ``codes_in`` planes). None where ``sweep_kernel`` runs it: NCC, tiles
-    not a multiple of ``_build.SWEEP_SEG``, kernels past the largest bound,
-    and shapes that would need more than ``_build.SWEEP_BAND_MAX_THREADS``
-    threads or more shared memory than a block may have."""
+    ``band_sweep_kernel<cost, K>`` for abs, sq and NCC,
+    ``band_census_kernel<n_words, K>`` for census and ternary census (codes
+    from the float crops, or ``codes_in`` planes). None where
+    ``sweep_kernel`` runs it: tiles not a multiple of ``_build.SWEEP_SEG``,
+    kernels past the largest bound, and shapes that would need more than
+    ``_build.SWEEP_BAND_MAX_THREADS`` threads or more shared memory than a
+    block may have."""
     census = cost_type in CENSUS_COSTS
-    if (cost_type not in (ABSOLUTE_DIFFERENCE, SQUARED_DIFFERENCE) and not census
-            or tile % _build.SWEEP_SEG):
+    if (cost_type not in (ABSOLUTE_DIFFERENCE, SQUARED_DIFFERENCE, CROSS_CORRELATION)
+            and not census or tile % _build.SWEEP_SEG):
         return None
     k = next((b for b in _build.SWEEP_BAND_K if max(kw, kh) <= b), None)
     if k is None:
@@ -264,7 +272,8 @@ def _sweep_variant(cost_type: str, tile: int, s_x: int, s_y: int, kw: int,
             tile, s_x, s_y, kw, kh, ring, *_census_shape(cost_type, census_window),
             codes_in)
     else:
-        _, threads, smem = _band_geometry(tile, s_x, s_y, kw, ring, k)
+        _, threads, smem = _band_geometry(tile, s_x, s_y, kw, ring, k,
+                                          cost_type == CROSS_CORRELATION)
     if threads > _build.SWEEP_BAND_MAX_THREADS or smem > _MAX_SMEM:
         return None
     return k
@@ -300,9 +309,9 @@ def sweep(base, match, offsets, tile: int, s_x: int, s_y: int, kw: int,
 
 def _sweep_cuda(base, match, offsets, tile, s_x, s_y, kw, kh, cost_type,
                 want_patches, census_window, best_out, k):
-    """The card's :func:`sweep`: ``band_sweep_kernel<cost, k>`` (abs, sq) or
-    ``band_census_kernel<n_words, k>`` (census), or ``sweep_kernel`` where
-    ``k`` is None."""
+    """The card's :func:`sweep`: ``band_sweep_kernel<cost, k>`` (abs, sq,
+    NCC) or ``band_census_kernel<n_words, k>`` (census), or ``sweep_kernel``
+    where ``k`` is None."""
     global launches, band_launches, census_band_launches
     census, codes_in, n_words = _check_cost(cost_type, want_patches,
                                             census_window, base)
@@ -327,7 +336,8 @@ def _sweep_cuda(base, match, offsets, tile, s_x, s_y, kw, kh, cost_type,
             tile, s_x, s_y, kw, kh, ring, *_census_shape(cost_type, census_window),
             codes_in)
     elif k is not None:
-        bands, threads, smem = _band_geometry(tile, s_x, s_y, kw, ring, k)
+        bands, threads, smem = _band_geometry(tile, s_x, s_y, kw, ring, k,
+                                              cost_type == CROSS_CORRELATION)
     else:
         threads, smem = _sweep_block(lib, tile, s_x, s_y, kw, kh, ring, cost_type,
                                      n_words, codes_in, base.device)
