@@ -29,8 +29,10 @@ Phases (each raises on a mismatch; none catches its own failure):
    (black blocks too; the code planes' sweep also against
    ``sweep_kernel<3,2>``), a tile of 128 at level 1's shape (NCC with black
    blocks and census, on the band kernels and against ``sweep_kernel``,
-   which runs its pixels in rounds), and the entry points of the
-   first-generation sweeps (``ops/cost_volume.py``, on the band kernel);
+   which runs its pixels in rounds), the entry points of the
+   first-generation sweeps (``ops/cost_volume.py``, on the band kernel),
+   and the abs sweep at every level of the correlate CLI's frame (21x21:
+   ``band_sweep_kernel<abs, 24>``, level 0 without and with the ring);
    the speckle stencil at level 0's 11x11 window on 1024^2 and on an odd
    1000x777 frame, a coarse level's 3x3, a window with ``hh != hv`` and a
    frame smaller than a block -- and the three
@@ -66,11 +68,22 @@ Phases (each raises on a mismatch; none catches its own failure):
    ``calc_disparity`` at config 3 (``tools_bench_configs.py:150-164``:
    1024^2, 32x1 search, 15x15, the right frame edge-padded by 31 columns)
    with abs, ncc and census 7x7 costs; and the entry points of TPU kernels
-   6 and 7 on config 3's frames; apply ``bench.py``'s sanity check to each
-   (every abs and NCC sweep launch on ``band_sweep_kernel``, every census
-   one on ``band_census_kernel``, none on ``sweep_kernel``).
-4. Run the slices small on the card and on the CPU (plain versions) on
-   quantized inputs: BM at 256^2 with 2 levels (integer disparities and
+   6 and 7 on config 3's frames; then cli-log-1024, the correlate CLI's
+   defaults (``visionworkbench_tpu/tools/correlate.py:20-60``: 21x21
+   kernel, LoG prefilter of width 1.4, 5 levels, tile 64, speckle 5,
+   subpixel none) on the bench pair and search box, again with the
+   parabola, with ``keep_levels`` (six level maps of the right shapes, the
+   final map the plain run's), with ``blob_filter_area=64`` and with a
+   ``corr_timeout`` at the port's own measured s/op that degrades level 0
+   alone (printing each level's search and sweep kernel); apply
+   ``bench.py``'s sanity check to each (every abs and NCC sweep launch on
+   ``band_sweep_kernel``, every census one on ``band_census_kernel``, none
+   on ``sweep_kernel``).
+4. Run the slices small on the card and on the CPU (plain versions): the
+   CLI frame's path at 256^2 on the bench texture (the LoG-prefiltered
+   pyramids, whole LoG frames -- every level's map, also with the blob
+   filter -- and ``remove_small_blobs``, all equal); then on quantized
+   inputs: BM at 256^2 with 2 levels (integer disparities and
    validity equal, the parabola output allclose at atol 1e-4), the same BM
    run with left and right masks (integer disparities and validity equal;
    the mean fill of the masked pixels allclose at rtol 1e-6: its sum runs
@@ -91,7 +104,12 @@ Phases (each raises on a mismatch; none catches its own failure):
    device time), and profile one frame of each path, ``calc_disparity_sgm``'s
    too, for the device's idle share and its device time by kernel name (the
    three sweep kernels apart), ``calc_disparity_sgm(use_mgm=True)``'s and
-   the 1024^2 MGM frame's too.
+   the 1024^2 MGM frame's too; the CLI frame and its parabola variant
+   (median of 10 frames after 2 warm-ups, Mp/s, device time, idle share,
+   launches, the sweep launches by level), the LoG prefilter's device time
+   and launches over the frame's 12 pyramid levels, and the blob filter's
+   passes and time on the frame's level-0 validity (card against CPU) and
+   on a serpentine 1024^2 blob.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -117,6 +135,19 @@ SEARCH = (0, -4, 64, 8)      # x_min, y_min, width, height
 KERNEL = (15, 15)
 LEVELS = 4
 TILE = 64
+
+# The correlate CLI's defaults (visionworkbench_tpu/tools/correlate.py:20-60)
+# on the bench pair and search box: 21x21 kernel, the LoG prefilter of
+# width 1.4, 5 pyramid levels (levels 5-0 run), tile 64, speckle
+# half-kernel 5, subpixel none; the blob filter's area where it is on.
+CLI_KERNEL = (21, 21)
+CLI_LEVELS = 5
+CLI = dict(kernel_size=CLI_KERNEL, max_pyramid_levels=CLI_LEVELS, tile_size=TILE,
+           prefilter_mode="log", prefilter_width=1.4, filter_half_kernel=5)
+CLI_BLOB_AREA = 64
+# The CLI frame's level-0 sweeps: without the ring (subpixel none) and with
+# it (subpixel parabola).
+CLI_LEVEL0 = (("level0", 0, False), ("level0_patches", 1, False))
 
 # SGM configuration (tools_bench_configs.py:232-254, config 6): census 5x5
 # (the SGM default census window), default penalties P1 15 / P2 750.
@@ -367,16 +398,16 @@ def phase_build():
 
 # ---- phase 2 ----------------------------------------------------------------
 
-def sweep_cases():
+def sweep_cases(kernel=KERNEL, levels=LEVELS,
+                level0=(("level0_patches", 1, False), ("level0_rl", 0, True))):
     """The sweep's shapes on the main path, one per launch of the bench
     frame: levels 4 to 1, level 0 with the patch ring, and the level-0 R->L
-    pass (the L<->R check)."""
-    kw, kh = KERNEL
+    pass (the L<->R check); or, given the CLI's kernel, levels and
+    ``CLI_LEVEL0``, those of the CLI frame."""
+    kw, kh = kernel
     cases = []
-    for name, level, ring, rl in (("level4", 4, 0, False), ("level3", 3, 0, False),
-                                  ("level2", 2, 0, False), ("level1", 1, 0, False),
-                                  ("level0_patches", 0, 1, False),
-                                  ("level0_rl", 0, 0, True)):
+    for name, level, ring, rl in ([(f"level{lv}", lv, 0, False) for lv in range(levels, 0, -1)]
+                                  + [(n, 0, r, rl) for n, r, rl in level0]):
         s = 1 << level
         s_w, s_h = max(SEARCH[2] // s, 1), max(SEARCH[3] // s, 1)
         sx, sy = min(11, s_w), min(11, s_h)
@@ -391,8 +422,10 @@ def sweep_cases():
         else:
             mh = lb + s_h - 1 + 2 * ring
             mw = lb + s_w - 1 + 2 * ring
+        if level == levels:    # the coarsest level searches its whole range
+            sx, sy = s_w, s_h
         cases.append(dict(name=name, nt=nt, lb=lb, mh=mh, mw=mw, sx=sx, sy=sy,
-                          max_off=(s_w - sx, s_h - sy), ring=ring))
+                          max_off=(s_w - sx, s_h - sy), ring=ring, kernel=kernel))
     return cases
 
 
@@ -445,6 +478,9 @@ def sweep_mode_cases():
             "mh": lb + level1["mh"] - level1["lb"], "mw": lb + level1["mw"] - level1["lb"]}
     rows.append(("sweep_ncc", {**t128, "black": True}, "ncc", 5))
     rows.append(("sweep_census", t128, "census", CENSUS_WINDOW))
+    # the CLI frame's abs sweeps (21x21: band_sweep_kernel<abs, 24>)
+    for c in sweep_cases(CLI_KERNEL, CLI_LEVELS, CLI_LEVEL0):
+        rows.append(("sweep_cli", {**c, "name": "cli_" + c["name"]}, "abs", 5))
     return rows
 
 
@@ -453,7 +489,7 @@ def _band(case, cost, cw=5):
     (band_sweep_kernel for abs/sq/ncc, band_census_kernel for census), or
     None where sweep_kernel runs it."""
     from visionworkbench_torch.ops import sweep
-    kw, kh = KERNEL
+    kw, kh = case.get("kernel", KERNEL)
     return sweep._sweep_variant(cost, case.get("tile", TILE), case["sx"], case["sy"],
                                 kw, kh, case["ring"], cw)
 
@@ -730,7 +766,7 @@ def phase_kernels(dev):
     from visionworkbench_torch.ops import speckle, sweep
     kw, kh = KERNEL
     from visionworkbench_torch.ops import cost_volume
-    err = {k: 0.0 for k in ("sweep", "sweep_census", "sweep_ternary_census",
+    err = {k: 0.0 for k in ("sweep", "sweep_cli", "sweep_census", "sweep_ternary_census",
                             "sweep_ncc", "sweep_census_codes", "best_of_search",
                             "tiled_search", "speckle", "scan_bidir",
                             "scan_bidir_path_scan", "mgm_bidir", "mgm_fwd",
@@ -774,13 +810,13 @@ def phase_kernels(dev):
             if c.get("black"):     # zero-energy NCC windows
                 base[40:90, 100:180] = 0.0
                 match[50:110, 90:200] = 0.0
-            args = (base, match, offs, tile, c["sx"], c["sy"], kw, kh, cost,
+            args = (base, match, offs, tile, c["sx"], c["sy"], *c["kernel"], cost,
                     bool(c["ring"]), cw)
             # sq is band_sweep_kernel's other instance: its row is abs's
             row = "sweep" if key == "sweep_sq" else key
             held(row, f"{c['name']} ({cost} {cw}, {'texture' if texture else 'quantized'}, "
-                 f"tiles {c['nt']}x{c['nt']} of {tile}, window {c['sx']}x{c['sy']}",
-                 args, k, c["nt"] * tile)
+                 f"kernel {c['kernel']}, tiles {c['nt']}x{c['nt']} of {tile}, "
+                 f"window {c['sx']}x{c['sy']}", args, k, c["nt"] * tile)
     left, right = _frame_inputs(dev, 150)
     sx, sy = CALC3_SEARCH
     for key, cost, cw in (("sweep_ncc", "ncc", 5), ("sweep_census_codes", "census", 7)):
@@ -882,6 +918,52 @@ def _sanity(dm, what, h=H, w=W):
         raise SystemExit(f"{what}: sanity failed (valid {vc.mean():.3f}, correct {frac:.3f})")
 
 
+def _cli_run(left, right, dev, **kw):
+    """``pyramid_correlate`` with the correlate CLI's defaults on the bench
+    pair and search box (``CLI``); ``kw`` adds or overrides options."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    return pyramid_correlate(left, right, BBox2i(*SEARCH), device=dev, **{**CLI, **kw})
+
+
+def _cli_levels(corr_timeout=0.0, spo=None):
+    """The CLI frame's searches, coarsest first: ``(level, s_w_l, s_h_l,
+    s_x_eff, s_y_eff)``, as ``pyramid_correlate`` plans them (within a
+    ``corr_timeout`` budget at ``spo`` s/op when one is given)."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo.pyramid_correlation import (
+        level_searches, max_pyramid_levels_for)
+    levels = max_pyramid_levels_for(W, H, CLI_KERNEL, BBox2i(*SEARCH), CLI_LEVELS)
+    return level_searches(H, W, levels, SEARCH[2:], 11, None, corr_timeout, spo)
+
+
+def _level_pixels(level):
+    return -(-H // (1 << level)) * -(-W // (1 << level))
+
+
+def _cli_level_kernels(ring0=0, plan=None):
+    """The sweep kernel each level of the CLI frame runs (the wrapper's
+    pick at each level's shape)."""
+    from visionworkbench_torch.ops import sweep
+    out = []
+    for level, _, _, sx, sy in plan or _cli_levels():
+        ring = ring0 if level == 0 else 0
+        k = sweep._sweep_variant("abs", TILE, sx, sy, *CLI_KERNEL, ring)
+        out.append((level, sx, sy, "sweep_kernel<0,1>" if k is None
+                    else f"band_sweep_kernel<abs, {k}>"))
+    return out
+
+
+def _cli_budget(spo):
+    """A ``corr_timeout`` that leaves levels 5-1 whole and degrades level
+    0: their predicted times plus 40 s/op-pixels of level 0, so level 0's
+    (64, 8) search halves to (4, 8) (volume 32 <= 40 < 64)."""
+    from visionworkbench_torch.stereo import cost_model
+    spent = sum(cost_model.estimate_search_time(_level_pixels(lv), (sx, sy), spo)
+                for lv, _, _, sx, sy in _cli_levels() if lv > 0)
+    return spent + 40 * _level_pixels(0) * spo
+
+
 def _sgm_run(left, right, dev, algo):
     from visionworkbench_torch.math.bbox import BBox2i
     from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
@@ -948,6 +1030,63 @@ def _read_counts():
             **{f"{k}/cluster_scan": v for k, v in sgm_scan.cluster_scan_launches.items()}}
 
 
+def _cli_runs(left, right, dev):
+    """The CLI frame's main-path runs, as phase 3 drives them: ``(name, run,
+    expected launches, side)``. Measures the port's s/op on ``dev`` first
+    (its launches come before any run's counts are set to 0)."""
+    import torch
+    from visionworkbench_torch.stereo import cost_model
+    # the CLI frame: levels 5-0, each one abs sweep on band_sweep_kernel
+    # (K 24) and the speckle passes (two at levels 5-1, one at level 0)
+    cli = {"sweep": 6, "sweep/band": 6, "speckle": 11}
+    cli_out = {}
+    spo = cost_model.calc_seconds_per_op(device=dev)
+    budget = _cli_budget(spo)
+    plan = _cli_levels(budget, spo)
+    print(f"[main] cli_log_timeout: the port's s/op on the card {spo!r}; "
+          f"corr_timeout {budget!r} s; searches (level, size, window): "
+          + ", ".join(f"{lv}: {sw}x{sh} -> {sx}x{sy}" for lv, sw, sh, sx, sy in plan))
+    if plan[-1][3:] != (4, 8) or [p[3:] for p in plan[:-1]] != [
+            p[3:] for p in _cli_levels()[:-1]]:
+        raise SystemExit(f"cli_log_timeout: the budget should degrade level 0 "
+                         f"alone, to 4x8: {plan}")
+
+    def cli_plain():
+        cli_out["plain"] = _cli_run(left, right, dev)
+        return cli_out["plain"]
+
+    def cli_keep_levels():
+        res = _cli_run(left, right, dev, keep_levels=True)
+        shapes = [tuple(m.disparity.shape) for m in res.level_disparities]
+        want = [(-(-H // (1 << lv)), -(-W // (1 << lv)), 2) for lv in range(CLI_LEVELS, -1, -1)]
+        finite = all(bool(torch.isfinite(m.disparity.float()).all())
+                     for m in res.level_disparities)
+        same = (torch.equal(res.disparity.disparity, cli_out["plain"].disparity)
+                and torch.equal(res.disparity.valid, cli_out["plain"].valid))
+        print(f"[main] cli_log_keep_levels: {len(shapes)} level maps {shapes}, finite "
+              f"{finite}, final map equal to cli_log's: {same}")
+        if shapes != want or not finite or not same:
+            raise SystemExit(f"cli_log_keep_levels: level maps {shapes} (want {want}), "
+                             f"finite {finite}, final equal {same}")
+        return res.disparity
+
+    def cli_blob():
+        dm = _cli_run(left, right, dev, blob_filter_area=CLI_BLOB_AREA)
+        v0, v1 = cli_out["plain"].valid, dm.valid
+        print(f"[main] cli_log_blob: valid {int(v1.sum())} of {v1.numel()} (without the "
+              f"filter {int(v0.sum())}; {int((v0 & ~v1).sum())} dropped, "
+              f"{int((v1 & ~v0).sum())} gained through the coarse levels' offsets)")
+        return dm
+
+    return [
+        ("cli_log", cli_plain, cli, H),
+        ("cli_log_parabola", lambda: _cli_run(left, right, dev, subpixel="parabola"), cli, H),
+        ("cli_log_keep_levels", cli_keep_levels, cli, H),
+        ("cli_log_blob", cli_blob, cli, H),
+        ("cli_log_timeout", lambda: _cli_run(left, right, dev, corr_timeout=budget,
+                                             seconds_per_op=spo), cli, H)], plan
+
+
 def phase_main(dev):
     import torch
     left, right = _make_pair(H, W)
@@ -963,6 +1102,7 @@ def phase_main(dev):
     c3 = {"sweep": 1, "speckle": 0}
     c3_abs = {**c3, "sweep/band": 1}
     c3_census = {**c3, "sweep/census_band": 1}
+    cli_runs, plan = _cli_runs(left, right, dev)
     runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5, "sweep/band": 5}, H),
             ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
              {"sweep": 6, "sweep/band": 6}, H),
@@ -1007,7 +1147,10 @@ def phase_main(dev):
             ("calc3_census7", lambda: _calc3_run(c3_left, c3_right, dev, "census", 7),
              c3_census, CALC3_OUT),
             ("k6_best_of_search", lambda: _k6_run(c3_left, c3_right, dev), c3_abs, CALC3_OUT),
-            ("k7_tiled_search", lambda: _k7_run(c3_left, c3_right, dev), c3_abs, CALC3_OUT))
+            ("k7_tiled_search", lambda: _k7_run(c3_left, c3_right, dev), c3_abs, CALC3_OUT),
+            # the correlate CLI's defaults (cli-log-1024), its parabola and
+            # the options at full width
+            *cli_runs)
     counts = {}
     for what, run, want, hw in runs:
         want = {**none, "speckle": 9, **want}
@@ -1020,6 +1163,12 @@ def phase_main(dev):
             print(f"[main] {what}: of {counts[what]['sweep']} sweep launches "
                   f"{counts[what]['sweep/band']} on band_sweep_kernel, "
                   f"{counts[what]['sweep/census_band']} on band_census_kernel")
+        if what.startswith("cli_log"):
+            lv_plan = plan if what == "cli_log_timeout" else None
+            ring0 = int(what == "cli_log_parabola")
+            print(f"[main] {what}: sweep kernel by level (level, window, kernel): "
+                  + ", ".join(f"{lv}: {sx}x{sy} {k}"
+                              for lv, sx, sy, k in _cli_level_kernels(ring0, lv_plan)))
         _sanity(dm, what, hw, hw)
         if counts[what] != want:
             raise SystemExit(f"{what}: expected launches {want}, got {counts[what]}")
@@ -1053,10 +1202,69 @@ def _check_mean_fill(img, mask, dev):
         raise SystemExit(f"slice: mean fill differs GPU vs CPU: {fills}")
 
 
+def _log_pyramid(img, levels):
+    """The CLI frame's pyramid of one image: edge-extended by the kernel's
+    half width at the coarsest scale, blurred and halved ``levels`` times,
+    each level LoG-prefiltered (as ``pyramid_correlate`` builds it)."""
+    from visionworkbench_torch.image.edge import crop_extended
+    from visionworkbench_torch.stereo.prefilter import prefilter_image
+    from visionworkbench_torch.stereo.pyramid_correlation import _blur_downsample
+    pad = CLI_KERNEL[0] // 2 << levels
+    h, w = img.shape
+    pyr = [crop_extended(img, -pad, -pad, w + 2 * pad, h + 2 * pad)]
+    for _ in range(levels):
+        pyr.append(_blur_downsample(pyr[-1]))
+    return [prefilter_image(p, CLI["prefilter_mode"], CLI["prefilter_width"]) for p in pyr]
+
+
+def _cli_vs_cpu(dev):
+    """The CLI frame's path at 256^2 on the card and on the CPU (plain
+    versions), on the bench texture (off the 1/256 grid, as the LoG images
+    are): the prefiltered pyramids, ``remove_small_blobs`` and whole LoG
+    frames (every level's map with the blob filter and keep_levels), all
+    bit for bit."""
+    import torch
+    from visionworkbench_torch.image.morphology import remove_small_blobs
+    left, right = _make_pair(256, 256)
+    for name, img in (("left", left), ("right", right)):
+        g = _log_pyramid(torch.as_tensor(img, device=dev), 3)
+        c = _log_pyramid(torch.as_tensor(img), 3)
+        diff = [int((a.cpu() != b).sum()) for a, b in zip(g, c)]
+        print(f"[slice] cli LoG pyramid ({name}, levels {[tuple(a.shape) for a in c]}): "
+              f"pixels differing card vs cpu {diff}")
+        if any(diff):
+            raise SystemExit("slice cli: the prefiltered pyramids differ card vs CPU")
+    outs = {}
+    for what, kw in (("log", {}),
+                     ("log blob+keep_levels", dict(blob_filter_area=CLI_BLOB_AREA,
+                                                    keep_levels=True))):
+        res = [_cli_run(left, right, d, **kw) for d in (dev, "cpu")]
+        maps = [r.level_disparities + [r.disparity] if "keep" in what else [r]
+                for r in res]
+        outs[what] = res
+        for i, (g, c) in enumerate(zip(*maps)):
+            (dg, vg), (dc, vc) = g.to_numpy(), c.to_numpy()
+            print(f"[slice] cli {what} 256^2 map {i}: valid {vg.mean():.4f}, validity "
+                  f"differs at {int((vg != vc).sum())} pixels, max |gpu - cpu| "
+                  f"{float(np.abs(dg - dc).max())}")
+            if not (np.array_equal(vg, vc) and np.array_equal(dg, dc)):
+                raise SystemExit(f"slice cli {what}: GPU and CPU outputs differ")
+    mask = outs["log"][1].valid
+    for conn in (4, 8):
+        kg = remove_small_blobs(mask.to(dev), CLI_BLOB_AREA, conn).cpu()
+        kc = remove_small_blobs(mask, CLI_BLOB_AREA, conn)
+        print(f"[slice] remove_small_blobs 256^2 ({conn}-connected, area "
+              f"{CLI_BLOB_AREA}): keeps {int(kc.sum())} of {int(mask.sum())}, differs "
+              f"card vs cpu at {int((kg != kc).sum())} pixels")
+        if not torch.equal(kg, kc):
+            raise SystemExit("slice cli: remove_small_blobs differs card vs CPU")
+
+
 def phase_slice_vs_cpu(dev):
     import torch
     from visionworkbench_torch.math.bbox import BBox2i
     from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    _cli_vs_cpu(dev)
     left, right = _make_pair(256, 256)
     left = np.round(left * 256) / 256
     right = np.round(right * 256) / 256
@@ -1175,6 +1383,7 @@ def phase_timings(dev):
         frame[what] = {"ms": ms, "mps": H * W / (ms * 1e3)}
         print(f"[time] frame {what}: {ms:.4f} ms, {H * W / (ms * 1e3):.3f} Mp/s")
     _profile_frame(lambda: _bench_run(lt, rt, dev), "bm", frame["plain"]["ms"])
+    _time_cli(lt, rt, dev, frame)
     census = {"cost_type": "census", "census_window": CENSUS_WINDOW}
     for what, kwargs in (("config4", census),
                          ("config4_lr", {**census, "consistency_threshold": 2.0})):
@@ -1246,8 +1455,8 @@ def phase_timings(dev):
 
     for i, (key, c, cost, cw) in enumerate(sweep_mode_cases()):
         base, match, offs = _sweep_inputs(c, dev, 100 + i)
-        args = (base, match, offs, c.get("tile", TILE), c["sx"], c["sy"], kw, kh, cost,
-                bool(c["ring"]), cw)
+        args = (base, match, offs, c.get("tile", TILE), c["sx"], c["sy"], *c["kernel"],
+                cost, bool(c["ring"]), cw)
         k = _band(c, cost, cw)
         turns = band_in_turns(key, c["name"], args, k) if k is not None else {}
         ms = turns.get("ms") or _time_ms(lambda: sweep.sweep(*args), reps=20)
@@ -1378,6 +1587,82 @@ def phase_timings(dev):
     return frame, rows
 
 
+def _time_cli(lt, rt, dev, frame):
+    """The CLI frame (cli-log-1024) and its parabola variant: median ms over
+    10 frames after 2 warm-ups, Mp/s, device time, idle share and launches;
+    the LoG prefilter's device time and launches over the frame's 12
+    pyramid levels (its share of the frame's device time); the blob
+    filter's passes and ms on the frame's level-0 validity (card against
+    CPU, the kept mask a subset)."""
+    import torch
+    from visionworkbench_torch.image import morphology
+    from visionworkbench_torch.stereo.prefilter import prefilter_image
+    for what, kw in (("cli_log", {}), ("cli_log_parabola", {"subpixel": "parabola"})):
+        ms = _time_ms(lambda: _cli_run(lt, rt, dev, **kw), reps=10)
+        frame[what] = {"ms": ms, "mps": H * W / (ms * 1e3)}
+        print(f"[time] frame {what} (CLI defaults, {H}^2, kernel {CLI_KERNEL}, LoG "
+              f"{CLI['prefilter_width']}, {CLI_LEVELS} levels): {ms:.4f} ms, "
+              f"{frame[what]['mps']:.3f} Mp/s")
+        busy, n = _profile_frame(lambda: _cli_run(lt, rt, dev, **kw), what, ms)
+        frame[what].update(device_ms=busy, launches=n)
+    # the prefilter alone, on the frame's pyramids (levels 5-0 of both images)
+    from visionworkbench_torch.stereo.pyramid_correlation import _blur_downsample
+    from visionworkbench_torch.image.edge import crop_extended
+    # the base frames' sizes as pyramid_correlate pads them (CLI_LEVELS = the
+    # level count at 1024^2, 21x21 and the 64x8 search)
+    up = 1 << CLI_LEVELS
+    pad = CLI_KERNEL[0] // 2 * up
+    bw, bh = (n + 2 * pad + (-(n + 2 * pad)) % up + up for n in (W, H))
+    pyr = []
+    for img, (ew, eh) in ((lt, (0, 0)), (rt, SEARCH[2:])):
+        fw, fh = bw + ew, bh + eh
+        pyr.append(crop_extended(img, -pad, -pad, fw + (-fw) % up, fh + (-fh) % up))
+        for _ in range(CLI_LEVELS):
+            pyr.append(_blur_downsample(pyr[-1]))
+
+    def prefilter_all():
+        return [prefilter_image(p, "log", CLI["prefilter_width"]) for p in pyr]
+    pre_ms = _time_ms(prefilter_all, reps=10)
+    pre_dev, pre_n = _profile_frame(prefilter_all, "cli_log prefilter (12 levels)", pre_ms)
+    busy = frame["cli_log"]["device_ms"]
+    share = None if busy is None or pre_dev is None else pre_dev / busy
+    print(f"[time] cli_log prefilter: {pre_ms:.4f} ms between events, device "
+          f"{pre_dev} ms, {pre_n} launches, share of the frame's device time {share}")
+    frame["cli_log"].update(prefilter_device_ms=pre_dev, prefilter_launches=pre_n,
+                            prefilter_share=share)
+    # the blob filter on the frame's level-0 validity
+    mask = _cli_run(lt, rt, dev).valid
+    labels, passes = morphology._blob_labels(mask)
+    torch.cuda.synchronize()
+    blob_ms = _time_ms(lambda: morphology.remove_small_blobs(mask, CLI_BLOB_AREA), reps=10)
+    keep = morphology.remove_small_blobs(mask, CLI_BLOB_AREA)
+    keep_cpu = morphology.remove_small_blobs(mask.cpu(), CLI_BLOB_AREA)
+    n_blobs = int(torch.unique(labels[labels >= 0]).numel())
+    print(f"[time] cli_log blob filter (area {CLI_BLOB_AREA}, 4-connected) on the level-0 "
+          f"validity ({int(mask.sum())} valid, {n_blobs} blobs): {passes} passes, "
+          f"{blob_ms:.4f} ms; keeps {int(keep.sum())}; card vs cpu differ at "
+          f"{int((keep.cpu() != keep_cpu).sum())} pixels")
+    if not torch.equal(keep.cpu(), keep_cpu) or bool((keep & ~mask).any()):
+        raise SystemExit("cli_log blob filter: the kept mask differs card vs CPU or is "
+                         "not a subset of the validity")
+    frame["cli_log"].update(blob_passes=passes, blob_ms=blob_ms)
+    # a harder mask for the label propagation: one serpentine blob of 512
+    # one-pixel rows over 1024^2 (its passes grow with the rows)
+    snake = torch.zeros((H, W), dtype=torch.bool)
+    snake[0::2] = True
+    snake[1::4, -1] = True
+    snake[3::4, 0] = True
+    snake = snake.to(dev)
+    labels, passes = morphology._blob_labels(snake)
+    snake_ms = _time_ms(lambda: morphology._blob_labels(snake), reps=3, warmup=1)
+    same = torch.equal(labels.cpu(), morphology.blob_index(snake.cpu()))
+    print(f"[time] blob_index on a {H}x{W} serpentine blob: {passes} passes, "
+          f"{snake_ms:.4f} ms; labels card vs cpu equal: {same}")
+    if not same or int(labels[snake].max()) != 0:
+        raise SystemExit("blob_index: the serpentine blob's labels are wrong")
+    frame["cli_log"].update(snake_passes=passes, snake_ms=snake_ms)
+
+
 def _sweep_work(base, match, offs, tile, sx, sy, kw, kh, cost, want_patches,
                 census_window=5):
     """(bytes, operations) of one sweep: each input read once, each output
@@ -1445,7 +1730,7 @@ def _profile_frame(run, what, frame_ms, frames=3):
     if not events:
         print(f"[profile] {what}: the profiler saw no device time: busy share "
               "not measured")
-        return
+        return None, None
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / frames
     n_kernels = sum(e.count for e in events) / frames
     print(f"[profile] {what}: device busy {busy_ms:.4f} ms per frame of "
@@ -1476,7 +1761,15 @@ def _profile_frame(run, what, frame_ms, frames=3):
     if per_frame:
         print(f"[profile] {what} sweep launches of a frame, in order: "
               + ", ".join(f"{e.time_range.elapsed_us() / 1e3:.4f}"
-                          for e in launches[-per_frame:]) + " ms")
+                          for e in launches[-per_frame:]) + " ms ("
+              + ", ".join(_kernel_name(e.name) for e in launches[-per_frame:]) + ")")
+    return busy_ms, n_kernels
+
+
+def _kernel_name(name):
+    """``band_sweep_kernel<0, 24>`` of a profiler's kernel signature."""
+    m = re.search(r"\w+_kernel<[^>]*>", name)
+    return m.group(0) if m else name[:40]
 
 
 def _is_sweep(name):
@@ -1510,6 +1803,7 @@ def main() -> int:
     sweep_tpu = "visionworkbench_tpu/ops/sweep.py:603"
     table = {
         "sweep": ("level0_patches", "plain", sweep_cu, sweep_tpu),
+        "sweep_cli": ("cli_level0", "cli_log", sweep_cu, sweep_tpu),
         "sweep_census": ("level0_patches", "config4", sweep_cu, sweep_tpu),
         "sweep_ternary_census": ("level0_patches", "config4_ternary7", sweep_cu, sweep_tpu),
         "sweep_ncc": ("config3", "calc3_ncc", sweep_cu, sweep_tpu),
@@ -1580,7 +1874,12 @@ def main() -> int:
                       "mgm_1024_frame_ms": frame["mgm_1024"]["ms"],
                       **{f"{k}_frame_ms": frame[k]["ms"] for k in
                          ("config4", "config4_lr", "ncc", "ncc_lr", "calc3_abs",
-                          "calc3_ncc", "calc3_census7")},
+                          "calc3_ncc", "calc3_census7", "cli_log", "cli_log_parabola")},
+                      "cli_log_frame_mps": frame["cli_log"]["mps"],
+                      **{f"cli_log_{k}": frame["cli_log"][k] for k in
+                         ("device_ms", "launches", "prefilter_device_ms",
+                          "prefilter_launches", "prefilter_share", "blob_passes",
+                          "blob_ms", "snake_passes", "snake_ms")},
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

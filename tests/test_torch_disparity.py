@@ -3,7 +3,9 @@ stereo/disparity.py``, ``stereo/subpixel.py``) against the JAX package on
 the CPU, on the same numpy inputs.
 
 Tolerances: exact for the integer and mask operations (packing, upsample,
-masks, L<->R check, two-pass cleanup); ``_fit_parabola`` allclose at
+masks, L<->R check, two-pass cleanup), the float speckle filter and
+cleanup, the disparity range, subsample and transform; ``std_dev_image``
+allclose at rtol 1e-5 / atol 1e-5 (see its test); ``_fit_parabola`` allclose at
 rtol 1e-4 / atol 2e-4, the pin the JAX package keeps between its own planes
 and stack forms (fp32 summation order differs).
 """
@@ -18,7 +20,6 @@ from visionworkbench_tpu.math.bbox import BBox2i as JBBox2i
 from visionworkbench_tpu.stereo import disparity as jdisp
 from visionworkbench_tpu.stereo import subpixel as jsub
 from visionworkbench_tpu.stereo.correlation import DisparityMap as JDM
-from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.math.bbox import BBox2i
 from visionworkbench_torch.stereo import disparity as tdisp
 from visionworkbench_torch.stereo import subpixel as tsub
@@ -108,10 +109,81 @@ def test_cleanup_using_thresh_matches_jax():
         jdisp.disparity_cleanup_using_thresh(j, 5, 5, 3.0, 0.5, integer_disparities=True))
 
 
-def test_float_speckle_filter_is_not_ported():
-    t, _ = _both(*_dm(39, 8, 8))
-    with pytest.raises(ArgumentErr):
-        tdisp.rm_outliers_using_thresh(t, 1, 1, 3.0, 0.5)
+def _float_dm(seed, h, w, p_valid=0.85):
+    """Subpixel disparities near (5, 1) with outliers, 1/8-grid and
+    off-grid values, and some threshold-exact neighbour gaps."""
+    rng = np.random.default_rng(seed)
+    disp = np.stack([5 + rng.normal(0, 1.2, (h, w)), 1 + rng.normal(0, 0.8, (h, w))],
+                    -1).astype(np.float32)
+    disp[::3, ::2] = np.round(disp[::3, ::2] * 8) / 8
+    disp[5:9, 10:14] = [5 + 3.0, 1.0]                      # exactly 3 px off
+    disp[rng.random((h, w)) < 0.05] = [40.0, -9.0]          # outliers
+    valid = rng.random((h, w)) < p_valid
+    return np.where(valid[..., None], disp, 0).astype(np.float32), valid
+
+
+@pytest.mark.parametrize("half,thr,rej", [((5, 5), 3.0, 0.5), ((1, 1), 3.0, 0.2),
+                                          ((2, 4), 0.5, 0.6), ((3, 1), 1.25, 1.0)])
+def test_float_speckle_filter_matches_jax(half, thr, rej):
+    """``integer_disparities=False``: the float form (plain tensor work),
+    exact."""
+    t, j = _both(*_float_dm(42, 29, 37))
+    _assert_dm_equal(tdisp.rm_outliers_using_thresh(t, *half, thr, rej),
+                     jdisp.rm_outliers_using_thresh(j, *half, thr, rej))
+
+
+def test_float_cleanup_and_integer_forms_agree_with_jax():
+    """The float two-pass cleanup, exact; on integer disparities the float
+    and the packed-code forms give the same map."""
+    t, j = _both(*_float_dm(43, 33, 41))
+    _assert_dm_equal(tdisp.disparity_cleanup_using_thresh(t, 5, 5, 3.0, 0.5),
+                     jdisp.disparity_cleanup_using_thresh(j, 5, 5, 3.0, 0.5))
+    ti, _ = _both(*_dm(44, 33, 41, lo=(3, 0), hi=(8, 2)))
+    a = tdisp.disparity_cleanup_using_thresh(ti, 5, 5, 3.0, 0.5, integer_disparities=True)
+    b = tdisp.disparity_cleanup_using_thresh(ti, 5, 5, 3.0, 0.5)
+    np.testing.assert_array_equal(a.valid.numpy(), b.valid.numpy())
+    np.testing.assert_array_equal(a.disparity.numpy(), b.disparity.numpy())
+
+
+@pytest.mark.parametrize("float_disp", [False, True])
+def test_get_disparity_range_matches_jax(float_disp):
+    t, j = _both(*(_float_dm(45, 11, 13) if float_disp else _dm(45, 11, 13)))
+    got, ref = tdisp.get_disparity_range(t), jdisp.get_disparity_range(j)
+    assert (got.min_x, got.min_y, got.max_x, got.max_y) == \
+        (ref.min_x, ref.min_y, ref.max_x, ref.max_y)
+    empty = tdisp.get_disparity_range(DisparityMap(t.disparity, t.valid & False))
+    assert (empty.width, empty.height) == (0, 0)
+
+
+@pytest.mark.parametrize("shape", [(17, 23), (16, 16), (1, 5)])
+def test_disparity_subsample_matches_jax(shape):
+    for disp, valid in (_dm(46, *shape), _float_dm(47, *shape, p_valid=0.4)):
+        t, j = _both(disp, valid)
+        _assert_dm_equal(tdisp.disparity_subsample(t), jdisp.disparity_subsample(j))
+
+
+def test_std_dev_image_allclose_to_jax():
+    """Allclose at rtol 1e-5 / atol 1e-5: the JAX package takes the
+    window sums as prefix-sum differences on frames of 64^2 or more, the
+    port as direct sums; exact on a small quantized frame (both direct)."""
+    rng = np.random.default_rng(48)
+    img = (rng.random((70, 66)) * 4).astype(np.float32)
+    for kw, kh in [(5, 5), (7, 3)]:
+        np.testing.assert_allclose(tdisp.std_dev_image(torch.as_tensor(img), kw, kh).numpy(),
+                                   np.asarray(jdisp.std_dev_image(jnp.asarray(img), kw, kh)),
+                                   rtol=1e-5, atol=1e-5)
+    q = (rng.integers(0, 256, (20, 24)) / 256).astype(np.float32)
+    np.testing.assert_array_equal(tdisp.std_dev_image(torch.as_tensor(q), 5, 3).numpy(),
+                                  np.asarray(jdisp.std_dev_image(jnp.asarray(q), 5, 3)))
+
+
+def test_transform_disparities_matches_jax():
+    t, j = _both(*_float_dm(49, 12, 15))
+
+    def affine(x, y):
+        return 1.25 * x - 0.5 * y + 3.0, 0.75 * y + 0.125 * x - 1.0
+    _assert_dm_equal(tdisp.transform_disparities(t, affine),
+                     jdisp.transform_disparities(j, affine))
 
 
 @pytest.mark.parametrize("form", ["planes", "stack"])

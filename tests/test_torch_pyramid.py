@@ -17,6 +17,10 @@ Tolerances, each with its reason:
 * multi-level ``pyramid_correlate``: >= 99.5 % equal integer disparities
   among pixels valid in both and <= 0.5 % validity mismatch — blur rounding
   at coarse levels may flip near-tied winners there.
+* the options (LoG and mean-subtract prefilters, the blob filter,
+  ``keep_levels``, ``corr_timeout``, MGM with LoG): the floor is the same
+  99.5 %, but each measured exact, so equality is asserted (each test
+  states its measurement); the parabola output as above.
 """
 
 import jax.numpy as jnp
@@ -73,7 +77,7 @@ def test_crop_and_edge_extend_match_jax(mode, dtype):
         tedge.edge_extend(torch.as_tensor(img), (2, 3), 1, mode).numpy(),
         np.asarray(jedge.edge_extend(jnp.asarray(img), (2, 3), 1, mode)))
     with pytest.raises(ArgumentErr):
-        tedge.crop_extended(torch.as_tensor(img), 0, 0, 2, 2, "periodic")
+        tedge.crop_extended(torch.as_tensor(img), 0, 0, 2, 2, "mirror")
 
 
 def test_pyramid_kernel_and_level_count_match_jax():
@@ -173,14 +177,12 @@ def test_multi_level_agreement(kw):
     # census and NCC run (tests/test_torch_pyramid_census.py); a census
     # window with no variant and an unknown cost are still rejected
     dict(cost_type="census", census_window=4), dict(cost_type="xx"),
-    # SGM/MGM run (test_sgm_mgm_small_frame_matches_jax); these options
-    # are still rejected in SGM mode
+    # SGM/MGM run (test_sgm_mgm_small_frame_matches_jax), the prefilters,
+    # corr_timeout, the blob filter and keep_levels too (the option tests
+    # below); these are still rejected
     dict(stereo_algorithm="sgm", subpixel="affine"),
-    dict(stereo_algorithm="mgm", prefilter_mode="log"),
-    dict(stereo_algorithm="xx"), dict(prefilter_mode="log"),
-    dict(prefilter_mode="meansub"), dict(subpixel="affine"),
-    dict(subpixel="xx"), dict(corr_timeout=1.0), dict(blob_filter_area=10),
-    dict(keep_levels=True), dict(engine="xla"), dict(kernel_size=(4, 5)),
+    dict(stereo_algorithm="xx"), dict(subpixel="affine"), dict(subpixel="xx"),
+    dict(prefilter_mode="xx"), dict(engine="xla"), dict(kernel_size=(4, 5)),
 ])
 def test_options_not_in_this_slice_raise(kw):
     left, right = _pair(64, 16, 16)
@@ -198,6 +200,165 @@ def test_sgm_mgm_small_frame_matches_jax(algo):
     np.testing.assert_array_equal(tv, jv)
     np.testing.assert_array_equal(td, jd)
     assert (td[tv] == [6, 1]).all(-1).mean() > 0.95
+
+
+# ---- the options (prefilters, corr_timeout, blob filter, keep_levels) --------
+#
+# One JAX run per configuration, shared through module-scoped fixtures
+# (the JAX package's compiles are most of these tests' time).
+
+OPTS = dict(kernel_size=(7, 7), tile_size=16, max_pyramid_levels=3,
+            prefilter_mode="log")
+OPTS_SEARCH = (0, -2, 32, 4)
+# corr_timeout: at 1e-6 s/op a 0.5 s budget leaves levels 3-1 whole and
+# degrades level 0's 11x4 window to 4x4 (the R->L pass charged too).
+TIMEOUT = dict(corr_timeout=0.5, seconds_per_op=1e-6, consistency_threshold=2.0,
+               keep_levels=True)
+
+
+def _noisy_pair(seed):
+    """A 128^2 pair (true shift (11, 1)) whose right frame holds a block
+    of fresh noise: the block's matches fail in scattered small blobs."""
+    left, right = _pair(seed, 128, 128, shift=(11, 1))
+    right[70:110, 20:70] = quantized(np.random.default_rng(seed + 1), (40, 50))
+    return left, right
+
+
+def _run_pair(left, right, search, **kw):
+    t = tpyr.pyramid_correlate(left, right, BBox2i(*search), device="cpu", **kw)
+    j = jpyr.pyramid_correlate(jnp.asarray(left), jnp.asarray(right),
+                               JBBox2i(*search), **kw)
+    return t, j
+
+
+def _assert_same(t, j):
+    td, tv = t.to_numpy()
+    np.testing.assert_array_equal(tv, np.asarray(j.valid))
+    np.testing.assert_array_equal(td, np.asarray(j.disparity))
+
+
+@pytest.fixture(scope="module")
+def log_runs():
+    """The LoG BM pyramid at 3 levels: plain, and with the blob filter."""
+    left, right = _noisy_pair(68)
+    return {"plain": _run_pair(left, right, OPTS_SEARCH, **OPTS),
+            "blob": _run_pair(left, right, OPTS_SEARCH, blob_filter_area=200, **OPTS),
+            "pair": (left, right)}
+
+
+@pytest.fixture(scope="module")
+def timeout_run():
+    left, right = _pair(69, 128, 128, shift=(11, 1))
+    return _run_pair(left, right, OPTS_SEARCH, **OPTS, **TIMEOUT)
+
+
+def test_log_three_level_pyramid_matches_jax(log_runs):
+    """``prefilter_mode="log"`` on a 3-level BM pyramid (128^2, 7x7, tile
+    16). The LoG images leave the 1/256 grid, so window sums may differ in
+    the last ulp and flip a near-tied winner; the floor is 99.5 %
+    agreement. Measured: integer disparities and validity equal at every
+    pixel (100 %), so equality is asserted."""
+    t, j = log_runs["plain"]
+    _assert_same(t, j)
+    td, tv = t.to_numpy()
+    top = np.s_[8:60, 8:-16]              # away from the noise block
+    assert tv[top].mean() > 0.95
+    assert (td[top][tv[top]] == [11, 1]).all(-1).mean() > 0.95   # 0.981
+
+
+def test_blob_filter_matches_jax(log_runs):
+    """``blob_filter_area=200`` (25 at level 3, 200 at level 0): equal to
+    the JAX package's, and it removed valid pixels the plain run keeps."""
+    t, j = log_runs["blob"]
+    _assert_same(t, j)
+    plain_valid = log_runs["plain"][0].valid.numpy()
+    assert (plain_valid & ~t.valid.numpy()).sum() > 0
+
+
+def test_keep_levels_matches_jax(timeout_run):
+    """``keep_levels=True``: a ``PyramidCorrResult`` with one map per level,
+    coarsest first, of the JAX package's shapes and values."""
+    t, j = timeout_run
+    assert isinstance(t, tpyr.PyramidCorrResult)
+    assert len(t.level_disparities) == len(j.level_disparities) == 4
+    for level, (tl, jl) in zip(range(3, -1, -1), zip(t.level_disparities,
+                                                     j.level_disparities)):
+        side = -(-128 // (1 << level))
+        assert tuple(tl.disparity.shape) == (side, side, 2)
+        _assert_same(tl, jl)
+
+
+def test_corr_timeout_matches_jax(timeout_run):
+    """``corr_timeout`` with the same ``seconds_per_op`` in both packages:
+    the same capped searches (level 0 degraded to 4x4) and the same
+    result; the degraded window still holds the true shift."""
+    plan = tpyr.level_searches(128, 128, 3, (32, 4), 11, None, 0.5, 1e-6, True)
+    assert [p[3:] for p in plan] == [(4, 1), (8, 1), (11, 2), (4, 4)]
+    t, j = timeout_run
+    _assert_same(t.disparity, j.disparity)
+    td, tv = t.disparity.to_numpy()
+    core = np.s_[8:-8, 8:-16]
+    assert (td[core][tv[core]] == [11, 1]).all(-1).mean() > 0.9    # 0.961
+
+
+def test_cost_model_matches_jax():
+    """The budget arithmetic is the JAX package's; the measured s/op is the
+    port's own, kept per device type."""
+    from visionworkbench_tpu.stereo import cost_model as jcm
+    from visionworkbench_torch.stereo import cost_model as tcm
+    for pixels, vol, budget, spo in [(1000, (8, 4), 0.0, 1.0), (10, (8, 4), 1e9, 1e-9),
+                                     (1000, (8, 4), 1.0, 1.0), (10, (8, 4), 161, 1.0),
+                                     (4096, (32, 2), 0.05, 1e-6), (7, (1, 9), 20, 1.0)]:
+        assert (tcm.budget_search_volume(pixels, vol, budget, spo)
+                == jcm.budget_search_volume(pixels, vol, budget, spo))
+        assert (tcm.estimate_search_time(pixels, vol, spo)
+                == jcm.estimate_search_time(pixels, vol, spo))
+    spo = tcm.calc_seconds_per_op(0.0, device="cpu")
+    assert 0 < spo < 1e-3
+    assert tcm.seconds_per_op("cpu") == spo
+
+
+def test_corr_timeout_without_seconds_per_op_measures_the_device():
+    """With no ``seconds_per_op`` the budget uses the s/op measured on the
+    run's device (the CPU here, kept per device type); a budget no search
+    fits degrades every level to a 1x1 search, which still runs: one
+    candidate is best and worst at once, so every pixel is invalid, with
+    disparity 0 (the JAX package's degraded run too)."""
+    from visionworkbench_torch.stereo import cost_model as tcm
+    left, right = _pair(70, 64, 64, shift=(5, 1))
+    dm = tpyr.pyramid_correlate(left, right, BBox2i(0, 0, 16, 4), kernel_size=(7, 7),
+                                tile_size=16, max_pyramid_levels=1, corr_timeout=1e-12,
+                                device="cpu")
+    assert "cpu" in tcm._seconds_per_op
+    d, v = dm.to_numpy()
+    assert d.shape == (64, 64, 2)
+    assert not v.any() and not d.any()
+
+
+def test_meansub_ncc_parabola_matches_jax():
+    """``prefilter_mode="meansub"`` with NCC and the parabola at one level:
+    the re-evaluation prefilters the full-resolution images again.
+    Measured: integer disparities and validity equal everywhere; the
+    parabola output allclose at rtol 1e-4 / atol 2e-4 (the JAX package's
+    own pin; 8.1e-6 measured)."""
+    left, right = _pair(62, 48, 56)
+    kw = dict(kernel_size=(7, 5), tile_size=16, max_pyramid_levels=0, cost_type="ncc",
+              prefilter_mode="meansub")
+    t, j = _run_pair(left, right, (-8, -2, 16, 4), subpixel="parabola", **kw)
+    td, tv = t.to_numpy()
+    np.testing.assert_array_equal(tv, np.asarray(j.valid))
+    np.testing.assert_allclose(td, np.asarray(j.disparity), rtol=1e-4, atol=2e-4)
+    assert (np.abs(td[tv] - [5, 1]) < 0.5).all(-1).mean() > 0.9    # 0.975
+
+
+def test_mgm_log_small_frame_matches_jax():
+    """MGM with the LoG prefilter at 64^2 and one level: equal to the JAX
+    package's (the census codes of equal LoG images are equal)."""
+    left, right = _pair(67, 64, 64, shift=(6, 1))
+    t, j = _run_pair(left, right, (0, -1, 12, 3), stereo_algorithm="mgm",
+                     max_pyramid_levels=0, tile_size=32, prefilter_mode="log")
+    _assert_same(t, j)
+    assert t.valid.numpy().mean() > 0.5
 
 
 def test_default_device_is_the_card():
@@ -243,3 +404,20 @@ def test_card_matches_cpu(cuda, kw):
     cd, cv = tpyr.pyramid_correlate(*args, device="cpu", **opts).to_numpy()
     np.testing.assert_array_equal(gv, cv)
     np.testing.assert_allclose(gd, cd, rtol=0, atol=1e-4 if "subpixel" in kw else 0)
+
+
+@pytest.mark.cuda
+def test_card_options_match_cpu(cuda):
+    """The LoG pyramid with the blob filter and ``keep_levels`` on the card
+    against the CPU: every level's integer disparities and validity
+    equal."""
+    left, right = _noisy_pair(68)
+    opts = dict(OPTS, blob_filter_area=200, keep_levels=True)
+    g = tpyr.pyramid_correlate(left, right, BBox2i(*OPTS_SEARCH), device=cuda, **opts)
+    c = tpyr.pyramid_correlate(left, right, BBox2i(*OPTS_SEARCH), device="cpu", **opts)
+    for gl, cl in zip(g.level_disparities + [g.disparity],
+                      c.level_disparities + [c.disparity]):
+        gd, gv = gl.to_numpy()
+        cd, cv = cl.to_numpy()
+        np.testing.assert_array_equal(gv, cv)
+        np.testing.assert_array_equal(gd, cd)

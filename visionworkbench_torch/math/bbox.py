@@ -19,6 +19,12 @@ class BBox2i:
         self.max_x = min_x + width
         self.max_y = min_y + height
 
+    @classmethod
+    def from_bounds(cls, min_x, min_y, max_x, max_y) -> "BBox2i":
+        b = cls()
+        b.min_x, b.min_y, b.max_x, b.max_y = min_x, min_y, max_x, max_y
+        return b
+
     @property
     def width(self):
         return self.max_x - self.min_x

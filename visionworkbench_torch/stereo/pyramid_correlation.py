@@ -19,6 +19,14 @@ window, tile offsets are centered on the previous level's tile medians,
 per-pixel seeds bound each pixel's search to ``seed +- sgm_search_buffer``,
 and the SGM subpixel mode is applied inside the last level.
 
+Options, as in the JAX package: every level of both pyramids is
+prefiltered (``none``, ``meansub`` or ``log``) after the blur-downsample;
+``corr_timeout`` shrinks each level's search up front until its predicted
+time fits the remaining budget (``stereo/cost_model.py``);
+``blob_filter_area`` drops valid blobs smaller than the area (divided by
+the level's scale) after each level's speckle pass; ``keep_levels``
+returns every level's disparity map too.
+
 On the card every BM sweep runs the CUDA kernel of ``ops/sweep.py``, every
 SGM/MGM aggregation scan a CUDA kernel of ``ops/sgm_scan.py`` and every
 speckle pass the CUDA kernel of ``ops/speckle.py``; the rest is plain tensor
@@ -28,7 +36,7 @@ work. With ``device="cpu"`` the same code runs the kernels' plain versions.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,8 +44,10 @@ from visionworkbench_torch.core.device import as_tensor, resolve_device
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.edge import crop_extended
 from visionworkbench_torch.image.filters import generate_pyramid_smoothing_kernel
+from visionworkbench_torch.image.morphology import remove_small_blobs
 from visionworkbench_torch.math.bbox import BBox2i
 from visionworkbench_torch.ops.sweep import sweep
+from visionworkbench_torch.stereo import cost_model
 from visionworkbench_torch.stereo.correlation import (
     ABSOLUTE_DIFFERENCE, CROSS_CORRELATION, DisparityMap, check_cost_type,
 )
@@ -194,8 +204,7 @@ def _mean_fill(img, mask, frame_h: int, frame_w: int):
 
 
 def _check_slice_options(cost_type, census_window, prefilter_mode,
-                         stereo_algorithm, subpixel, corr_timeout,
-                         blob_filter_area, keep_levels, engine):
+                         stereo_algorithm, subpixel, engine):
     """Options of the JAX signature that this port does not run yet raise,
     naming the slice that brings them. In SGM/MGM mode the cost is census
     (``cost_type`` only selects ternary census), so the BM cost check does
@@ -208,24 +217,70 @@ def _check_slice_options(cost_type, census_window, prefilter_mode,
     else:
         check_cost_type(cost_type, census_window)
         if subpixel in ("affine", "em"):
-            raise ArgumentErr(f"subpixel {subpixel!r} is not ported yet "
-                              "(quality-subpixel slice)")
+            raise ArgumentErr(f"subpixel {subpixel!r} is not ported yet (it "
+                              "needs stereo/subpixel_refine.py: the "
+                              "quality-subpixel slice)")
         if subpixel not in ("none", "parabola"):
             raise ArgumentErr(f"unknown subpixel mode {subpixel!r}")
     check_prefilter_mode(prefilter_mode)
-    if corr_timeout > 0:
-        raise ArgumentErr("corr_timeout is not ported yet (it needs "
-                          "stereo/cost_model.py, quality-subpixel slice)")
-    if blob_filter_area > 0:
-        raise ArgumentErr("blob_filter_area is not ported yet (it needs "
-                          "image/morphology.remove_small_blobs, image-"
-                          "substrate slice)")
-    if keep_levels:
-        raise ArgumentErr("keep_levels is not ported yet (a later slice)")
     if engine != "auto":
         raise ArgumentErr(f"engine {engine!r}: the port has one engine (the "
                           "CUDA kernels on the card, their plain versions "
                           "on the CPU); pass engine='auto'")
+
+
+class PyramidCorrResult(NamedTuple):
+    """``pyramid_correlate(..., keep_levels=True)``: the final map and each
+    level's map (coarsest first; relative disparities, before the search
+    minimum is added)."""
+    disparity: DisparityMap
+    level_disparities: List[DisparityMap]
+
+
+def level_searches(h: int, w: int, levels: int, search_size: Tuple[int, int],
+                   refine_window: int, sgm_search_buffer: Optional[int] = None,
+                   corr_timeout: float = 0.0, sec_per_op: Optional[float] = None,
+                   consistency: bool = False, device=None):
+    """Each level's search, coarsest first, as ``pyramid_correlate`` runs
+    it: ``(level, s_w_l, s_h_l, s_x_eff, s_y_eff)`` — the level's search
+    size (CorrelationView.cc:391-395) and the window searched (the whole
+    size at the coarsest level, then the refine window, or for SGM/MGM
+    ``2 * sgm_search_buffer + 1``). With ``corr_timeout > 0`` each level's
+    window is capped by ``cost_model.budget_search_volume`` on what remains
+    of the budget after the earlier levels' predicted times (the R->L pass
+    at level 0 charged too when ``consistency``), as the JAX package does
+    (ref m_corr_timeout, CorrelationView.cc:621-637)."""
+    s_w, s_h = int(search_size[0]), int(search_size[1])
+    spo = None
+    if corr_timeout > 0:
+        spo = (float(sec_per_op) if sec_per_op is not None
+               else cost_model.seconds_per_op(device))
+    spent = 0.0
+    plan = []
+    for level in range(levels, -1, -1):
+        scaling = 1 << level
+        s_w_l, s_h_l = max(s_w // scaling, 1), max(s_h // scaling, 1)
+        pixels = (-(-h // scaling)) * (-(-w // scaling))
+        cap_x, cap_y = s_w_l, s_h_l
+        if corr_timeout > 0:
+            rem = corr_timeout - spent
+            cap_x, cap_y = ((1, 1) if rem <= 0 else
+                            cost_model.budget_search_volume(pixels, (s_w_l, s_h_l),
+                                                            rem, spo))
+        if level == levels:
+            window = (s_w_l, s_h_l)
+        elif sgm_search_buffer is not None:
+            window = (2 * int(sgm_search_buffer) + 1,) * 2
+        else:
+            window = (int(refine_window),) * 2
+        s_x_eff = min(window[0], s_w_l, cap_x)
+        s_y_eff = min(window[1], s_h_l, cap_y)
+        if corr_timeout > 0:
+            passes = 2 if level == 0 and consistency else 1
+            spent += passes * cost_model.estimate_search_time(
+                pixels, (s_x_eff, s_y_eff), spo)
+        plan.append((level, s_w_l, s_h_l, s_x_eff, s_y_eff))
+    return plan
 
 
 def pyramid_correlate(left, right, search_region: BBox2i,
@@ -248,7 +303,7 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                       corr_timeout: float = 0.0,
                       seconds_per_op: Optional[float] = None,
                       keep_levels: bool = False,
-                      device=None) -> DisparityMap:
+                      device=None):
     """Full coarse-to-fine correlator (ref ``PyramidCorrelationView``,
     CorrelationView.cc:273-886), with the JAX package's signature plus
     ``device`` (``None`` = the card; raises when there is none).
@@ -256,9 +311,11 @@ def pyramid_correlate(left, right, search_region: BBox2i,
 
     Returns a :class:`DisparityMap` of torch tensors the size of ``left``,
     whose (dx, dy) are absolute right-image offsets (``search_region.min``
-    added). In BM mode ``subpixel='parabola'`` refines them with the 9-point
-    quadratic fit on the level-0 sweep's cost patches, or for NCC on the
-    absolute costs ``parabola_subpixel`` re-evaluates.
+    added), or with ``keep_levels`` a :class:`PyramidCorrResult` that also
+    holds each level's map. In BM mode ``subpixel='parabola'`` refines them
+    with the 9-point quadratic fit on the level-0 sweep's cost patches, or
+    for NCC on the absolute costs ``parabola_subpixel`` re-evaluates (on
+    the prefiltered full-resolution images).
 
     ``stereo_algorithm``: ``'bm'`` with any of the five costs (``abs``,
     ``sq``, ``ncc``, ``census`` and ``ternary_census`` of ``census_window``)
@@ -266,13 +323,16 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     ``CorrelationAlgorithm``, CorrelationView.h:45) with census costs of
     ``census_window`` (``cost_type='ternary_census'`` for ternary), any SGM
     subpixel mode applied inside the last level, and
-    ``sgm_search_buffer``. Only the ``none`` prefilter is ported; the other
-    options raise :class:`ArgumentErr` naming the slice that brings them.
-    ``seconds_per_op`` and ``prefilter_width`` only matter for those.
+    ``sgm_search_buffer``. ``prefilter_mode`` ``none``/``meansub``/``log``
+    of ``prefilter_width`` conditions every pyramid level. ``corr_timeout``
+    (seconds, 0 disables) degrades each level's search up front to fit the
+    budget, at ``seconds_per_op`` or the s/op measured on the device
+    (``stereo/cost_model.py``). ``blob_filter_area`` > 0 drops valid blobs
+    smaller than it (scaled per level). ``subpixel='affine'|'em'`` raises
+    :class:`ArgumentErr` naming the slice that brings it.
     """
     _check_slice_options(cost_type, census_window, prefilter_mode,
-                         stereo_algorithm, subpixel, corr_timeout,
-                         blob_filter_area, keep_levels, engine)
+                         stereo_algorithm, subpixel, engine)
     dev = resolve_device(device)
     left = as_tensor(left, torch.float32, dev)
     right = as_tensor(right, torch.float32, dev)
@@ -362,21 +422,26 @@ def pyramid_correlate(left, right, search_region: BBox2i,
         right_pyr.append(_blur_downsample(right_pyr[-1]))
         lmask_pyr.append(_mask_downsample(lmask_pyr[-1]))
         rmask_pyr.append(_mask_downsample(rmask_pyr[-1]))
+    # every level of both pyramids, after the blur-downsample and the mean
+    # fill (JAX pyramid_correlation.py:530-531)
     left_pyr = [prefilter_image(im, prefilter_mode, prefilter_width)
                 for im in left_pyr]
     right_pyr = [prefilter_image(im, prefilter_mode, prefilter_width)
                  for im in right_pyr]
 
+    # Each level's search (max-exclusive: d_abs in [min, min+size)), capped
+    # up front by the time budget.
+    plan = level_searches(h, w, levels, (s_w, s_h), refine_window,
+                          int(sgm_search_buffer) if sgm_mode else None,
+                          corr_timeout, seconds_per_op,
+                          consistency_threshold >= 0, dev)
+    level_results = [] if keep_levels else None
     dm: Optional[DisparityMap] = None
     patches = None
     t = int(tile_size)
-    for level in range(levels, -1, -1):
+    for level, s_w_l, s_h_l, s_x_eff, s_y_eff in plan:
         scaling = 1 << level
         on_last = level == 0
-        # Search size at this level (CorrelationView.cc:391-395); disparities
-        # are max-exclusive: d_abs in [min, min+size).
-        s_w_l = max(s_w // scaling, 1)
-        s_h_l = max(s_h // scaling, 1)
         out_h = -(-h // scaling)
         out_w = -(-w // scaling)
         region_off_x = off_x // scaling
@@ -385,7 +450,6 @@ def pyramid_correlate(left, right, search_region: BBox2i,
 
         if level == levels:
             offsets = torch.zeros((nty, ntx, 2), dtype=torch.int32, device=dev)
-            s_x_eff, s_y_eff = s_w_l, s_h_l
         else:
             prior = disparity_upsample(dm)
             pr_d = _pad_to(prior.disparity[:out_h, :out_w], nty * t, ntx * t)
@@ -393,14 +457,10 @@ def pyramid_correlate(left, right, search_region: BBox2i,
             if sgm_mode:
                 # SGM refines +-sgm_search_buffer around the seed (ref
                 # SGM.h:113); BM uses the wider refine window
-                rw = 2 * int(sgm_search_buffer) + 1
-                s_x_eff, s_y_eff = min(rw, s_w_l), min(rw, s_h_l)
                 offsets = _tile_offsets_centered(
                     pr_d, pr_v, t, int(sgm_search_buffer), s_w_l - s_x_eff,
                     s_h_l - s_y_eff, value_bounds=(s_w_l, s_h_l))
             else:
-                s_x_eff = min(int(refine_window), s_w_l)
-                s_y_eff = min(int(refine_window), s_h_l)
                 offsets = _tile_offsets(pr_d, pr_v, t, 2,
                                         s_w_l - s_x_eff, s_h_l - s_y_eff)
 
@@ -509,6 +569,15 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                 dm = disparity_mask(dm, lmask_pyr[level][:out_h, :out_w],
                                     rmask_pyr[level])
 
+        # Isolated-blob removal, the area scaled by the level (ref
+        # disparity_blob_filter, CorrelationView.cc:241-280).
+        if blob_filter_area > 0 and blob_filter_area // scaling >= 1:
+            keep = remove_small_blobs(dm.valid, blob_filter_area // scaling)
+            dm = DisparityMap(torch.where(keep[..., None], dm.disparity,
+                                          torch.zeros_like(dm.disparity)), keep)
+        if keep_levels:
+            level_results.append(dm)
+
     # Absolute disparities (CorrelationView.cc: final offset add).
     smin = torch.tensor([smin_x, smin_y], dtype=dm.disparity.dtype, device=dev)
     final = DisparityMap(torch.where(dm.valid[..., None], dm.disparity + smin,
@@ -521,4 +590,6 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     elif subpixel == "parabola" and not sgm_mode:
         final = parabola_subpixel(final, left, right, (kw, kh), prefilter_mode,
                                   prefilter_width)
+    if keep_levels:
+        return PyramidCorrResult(final, level_results)
     return final

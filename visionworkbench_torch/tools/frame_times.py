@@ -6,7 +6,9 @@ Runs each named frame of ``chip_smoke.py`` (bm: the bench configuration;
 config4: the bench frame with census 5x5 costs; ncc: with NCC costs;
 calc3_ncc: config 3's NCC ``calc_disparity``; sgm, mgm: config 6 at 512^2;
 calc_sgm, calc_mgm: ``calc_disparity_sgm`` at the 64x8 search on 256^2
-without and with ``use_mgm``; mgm_1024: config 6's MGM pyramid at 1024^2)
+without and with ``use_mgm``; mgm_1024: config 6's MGM pyramid at 1024^2;
+cli_log: the correlate CLI's defaults on the bench pair -- 21x21, the LoG
+prefilter, 5 levels, subpixel none)
 and two single kernel launches (speckle_1024: the speckle stencil at level
 0's 11x11 window on 1024^2; speckle_512: a coarse level's 3x3 on 512^2),
 and prints, with the card's name and power limit, its median time between
@@ -15,7 +17,9 @@ device time per frame from torch.profiler (the sum of every kernel's time
 over three frames, divided by three). It calls only the package's public
 entry points and ``chip_smoke.py``'s frame pairs, so it also runs against
 an older checkout: copy it there and run it from that checkout's root, to
-compare two trees in turns (parent, change, change, parent) in one call.
+compare two trees in turns (parent, change, change, parent) in one call
+(name the frames with ``--frames`` there: a checkout without the LoG
+prefilter cannot run cli_log).
 Needs one CUDA card and nvcc.
 """
 
@@ -67,6 +71,7 @@ def _frames(dev):
             "mgm": pyramid(small, "mgm", cs.SGM_SEARCH, (5, 5)),
             "calc_sgm": sgm_call(False), "calc_mgm": sgm_call(True),
             "mgm_1024": pyramid(big, "mgm", cs.SGM_SEARCH, (5, 5)),
+            "cli_log": lambda: cs._cli_run(*big, dev),
             "speckle_1024": speckle(cs.H, 5, 61), "speckle_512": speckle(cs.SGM_HW, 1, 2)}
 
 
@@ -94,7 +99,7 @@ def main() -> int:
 
     import chip_smoke as cs
     frames = ("bm", "config4", "ncc", "calc3_ncc", "sgm", "mgm", "calc_sgm", "calc_mgm",
-              "mgm_1024", "speckle_1024", "speckle_512")
+              "mgm_1024", "cli_log", "speckle_1024", "speckle_512")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--frames", nargs="+", choices=frames, default=list(frames))
