@@ -75,12 +75,23 @@ Phases (each raises on a mismatch; none catches its own failure):
    parabola, with ``keep_levels`` (six level maps of the right shapes, the
    final map the plain run's), with ``blob_filter_area=64`` and with a
    ``corr_timeout`` at the port's own measured s/op that degrades level 0
-   alone (printing each level's search and sweep kernel); apply
-   ``bench.py``'s sanity check to each (every abs and NCC sweep launch on
-   ``band_sweep_kernel``, every census one on ``band_census_kernel``, none
-   on ``sweep_kernel``).
+   alone (printing each level's search and sweep kernel); config7-em-1024,
+   the repo's config 7 (``tools_bench_configs.py:256-275``: census 5x5,
+   7x7, 4 levels, tile 64, the Bayes-EM refiner) on its texture in
+   ``bench.py``'s orientation, and its ``subpixel="affine"`` variant;
+   cli-em-1024, the port's correlate CLI (``tools/correlate.py``) with
+   ``--subpixel em`` on the bench pair written as TIFFs, the output TIFF
+   read back (its wall time printed); apply ``bench.py``'s sanity check to
+   each (every abs and NCC sweep launch on ``band_sweep_kernel``, every
+   census one on ``band_census_kernel``, none on ``sweep_kernel``).
 4. Run the slices small on the card and on the CPU (plain versions): the
-   CLI frame's path at 256^2 on the bench texture (the LoG-prefiltered
+   quality-subpixel slice at 256^2 (config 7's frame with the EM and the
+   affine refiner and ``bayes_em_subpixel`` over its own 2-level pyramid:
+   validity agreeing on >= 99.5 % of pixels and a share of pixels within a
+   bound, the pyramid's beside its one-ulp sensitivity on the CPU;
+   ``lk_subpixel``, ``phase_subpixel``, ``corr_eval``, ``interpolate`` in
+   three modes and the decimation, equal or within 1e-4); the CLI frame's
+   path at 256^2 on the bench texture (the LoG-prefiltered
    pyramids, whole LoG frames -- every level's map, also with the blob
    filter -- and ``remove_small_blobs``, all equal); then on quantized
    inputs: BM at 256^2 with 2 levels (integer disparities and
@@ -109,7 +120,11 @@ Phases (each raises on a mismatch; none catches its own failure):
    launches, the sweep launches by level), the LoG prefilter's device time
    and launches over the frame's 12 pyramid levels, and the blob filter's
    passes and time on the frame's level-0 validity (card against CPU) and
-   on a serpentine 1024^2 blob.
+   on a serpentine 1024^2 blob; config7-em-1024 and its affine variant
+   (frame, device time, idle share, launches, peak memory, and the
+   refiner alone: its ms, device time, launches and share) and
+   cli-em-1024 (the CLI's wall time with its TIFF IO, device time,
+   launches).
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -122,9 +137,11 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -171,6 +188,20 @@ CALC3_OUT = H - KERNEL[1] + 1
 K7_WINDOW = (11, 1)
 K7_OFFSET = (12, 0)
 
+# Config 7 (tools_bench_configs.py:256-275): the pyramid correlator with
+# census 5x5 costs, a 7x7 kernel, 4 levels (levels 4-0), tile 64 and the
+# Bayes-EM refiner (subpixel "em"; also run with "affine") on config 7's
+# 1024^2 texture (seed 11) in bench.py's orientation: left(p) == right(p +
+# (16, 0)). (tools_bench_configs.py:96-104 slices the pair the other way
+# round, d = -16, outside the search box.)
+CONFIG7 = dict(kernel_size=(7, 7), cost_type="census", census_window=5,
+               max_pyramid_levels=4, tile_size=TILE)
+CONFIG7_SEED = 11
+# The correlate CLI's arguments for cli-em-1024: its defaults (21x21, LoG
+# 1.4, 5 levels, tile 64) with the Bayes-EM refiner, on the bench search
+# box as cli-log-1024.
+CLI_EM_ARGS = ["--subpixel", "em", "--yoffset", str(SEARCH[1])]
+
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM rate and fp32
 # rate outside the tensor cores. int32 ALU work is counted at the fp32 rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -203,9 +234,10 @@ SCAN_OPS = 13
 MGM_OPS = 26
 
 
-def _make_pair(h, w):
-    """bench.py's pair: left(p) == right(p + (16, 0))."""
-    rng = np.random.default_rng(7)
+def _make_pair(h, w, seed=7):
+    """bench.py's pair: left(p) == right(p + (16, 0)) (config 7's texture
+    with ``seed`` 11)."""
+    rng = np.random.default_rng(seed)
     ys, xs = np.mgrid[0:h, 0:w + 80].astype(np.float32)
     tex = (np.sin(xs * 0.21) * np.cos(ys * 0.17)
            + 0.5 * np.sin(xs * 0.047 + ys * 0.031)
@@ -1002,6 +1034,53 @@ def _k7_run(left, right, dev):
     return DisparityMap(d[:CALC3_OUT, :CALC3_OUT], v[:CALC3_OUT, :CALC3_OUT])
 
 
+def _config7_run(left, right, dev, subpixel="em"):
+    """Config 7's frame (``CONFIG7``) with ``subpixel``."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    return pyramid_correlate(left, right, BBox2i(*SEARCH), subpixel=subpixel,
+                             device=dev, **CONFIG7)
+
+
+def _config7_refiner(dm, left, right, subpixel):
+    """The refiner of config 7's frame alone, on the frame's integer map,
+    as ``pyramid_correlate`` calls it."""
+    from visionworkbench_torch.stereo.subpixel_refine import bayes_em_subpixel
+    return bayes_em_subpixel(dm, left, right, CONFIG7["kernel_size"],
+                             em_iters=2 if subpixel == "em" else 0,
+                             max_pyramid_levels=0, outer_iters=3)
+
+
+def _write_pair(left, right, folder):
+    """The pair as float32 TIFFs in ``folder``: (left path, right path)."""
+    import os
+    from visionworkbench_torch.fileio import write_tiff
+    paths = [os.path.join(folder, f"{name}.tif") for name in ("left", "right")]
+    for path, img in zip(paths, (left, right)):
+        write_tiff(path, np.asarray(img, np.float32))
+    return paths
+
+
+def _cli_em_run(paths, dev, folder):
+    """cli-em-1024: the port's correlate CLI on the pair's TIFFs
+    (``CLI_EM_ARGS``), the output TIFF read back: (DisparityMap, the CLI's
+    wall seconds, IO included)."""
+    import os
+    import torch
+    from visionworkbench_torch.fileio import read_tiff
+    from visionworkbench_torch.stereo.correlation import DisparityMap
+    from visionworkbench_torch.tools import correlate
+    prefix = os.path.join(folder, "disparity")
+    t0 = time.perf_counter()
+    if correlate.main([*paths, "-o", prefix, *CLI_EM_ARGS], device=dev) != 0:
+        raise SystemExit("cli_em: the correlate CLI failed")
+    wall = time.perf_counter() - t0
+    out, info = read_tiff(prefix + ".tif")
+    if out.shape != (H, W, 3) or not info.tiled:
+        raise SystemExit(f"cli_em: output TIFF {out.shape}, tiled {info.tiled}")
+    return DisparityMap(torch.as_tensor(out[..., :2]), torch.as_tensor(out[..., 2] > 0.5)), wall
+
+
 def _reset_counts():
     from visionworkbench_torch.ops import sgm_scan, speckle, sweep
     sweep.launches = 0
@@ -1103,6 +1182,15 @@ def phase_main(dev):
     c3_abs = {**c3, "sweep/band": 1}
     c3_census = {**c3, "sweep/census_band": 1}
     cli_runs, plan = _cli_runs(left, right, dev)
+    c7_left, c7_right = (torch.as_tensor(a, device=dev)
+                         for a in _make_pair(H, W, CONFIG7_SEED))
+    folder = tempfile.mkdtemp(prefix="chip_smoke_cli_em_")
+    paths = _write_pair(left, right, folder)
+
+    def cli_em():
+        dm, wall = _cli_em_run(paths, dev, folder)
+        print(f"[main] cli_em: the CLI's wall time (TIFF IO included) {wall:.4f} s")
+        return dm
     runs = (("plain", lambda: _bench_run(left, right, dev), {"sweep": 5, "sweep/band": 5}, H),
             ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
              {"sweep": 6, "sweep/band": 6}, H),
@@ -1150,7 +1238,15 @@ def phase_main(dev):
             ("k7_tiled_search", lambda: _k7_run(c3_left, c3_right, dev), c3_abs, CALC3_OUT),
             # the correlate CLI's defaults (cli-log-1024), its parabola and
             # the options at full width
-            *cli_runs)
+            *cli_runs,
+            # config 7: the census sweep at levels 4-0 on band_census_kernel,
+            # then the Bayes-EM / affine refiner (plain tensor work)
+            ("config7_em", lambda: _config7_run(c7_left, c7_right, dev, "em"),
+             {"sweep": 5, "sweep/census_band": 5}, H),
+            ("config7_affine", lambda: _config7_run(c7_left, c7_right, dev, "affine"),
+             {"sweep": 5, "sweep/census_band": 5}, H),
+            # cli-em-1024: the CLI frame's kernels, then the refiner at 21x21
+            ("cli_em", cli_em, {"sweep": 6, "sweep/band": 6, "speckle": 11}, H))
     counts = {}
     for what, run, want, hw in runs:
         want = {**none, "speckle": 9, **want}
@@ -1172,6 +1268,7 @@ def phase_main(dev):
         _sanity(dm, what, hw, hw)
         if counts[what] != want:
             raise SystemExit(f"{what}: expected launches {want}, got {counts[what]}")
+    shutil.rmtree(folder)
     return counts
 
 
@@ -1260,10 +1357,134 @@ def _cli_vs_cpu(dev):
             raise SystemExit("slice cli: remove_small_blobs differs card vs CPU")
 
 
+def _diff(a, b):
+    """(share of pixels whose validity agrees, |da - db| on pixels valid in
+    both) of two disparity maps."""
+    (da, va), (db, vb) = a.to_numpy(), b.to_numpy()
+    return (va == vb).mean(), np.abs(da - db).max(-1)[va & vb]
+
+
+def _describe(agree, dd, within):
+    return (f"validity agrees {agree:.6f}, |d| on pixels valid in both: median "
+            f"{float(np.median(dd))!r}, p99 {float(np.percentile(dd, 99))!r}, max "
+            f"{float(dd.max())!r}, within {within}: {(dd <= within).mean():.6f}")
+
+
+def _held(what, card, cpu, valid_share, within, share, ulp=None, max_median=None):
+    """Card against CPU of a refined map: validity agreeing on at least
+    ``valid_share`` of the pixels and, on pixels valid in both, at least
+    ``share`` of them within ``within`` px (and their median |d| at most
+    ``max_median``). ``ulp``: the CPU's map for the left image times
+    (1 + 2^-23), printed beside as the refiner's own sensitivity to a
+    one-ulp change of its input."""
+    agree, dd = _diff(card, cpu)
+    print(f"[slice] {what}: valid {cpu.valid.float().mean().item():.4f}, gpu vs cpu "
+          f"{_describe(agree, dd, within)} (held: validity >= {valid_share}, >= {share} "
+          f"within {within}" + ("" if max_median is None else f", median <= {max_median}")
+          + ")")
+    if ulp is not None:
+        print(f"[slice] {what}: cpu vs cpu with left * (1 + 2^-23) "
+              f"{_describe(*_diff(ulp, cpu), within)}")
+    if (agree < valid_share or (dd <= within).mean() < share
+            or (max_median is not None and not np.median(dd) <= max_median)):
+        raise SystemExit(f"slice {what}: card and CPU disagree")
+
+
+def _quality_vs_cpu(dev):
+    """The quality-subpixel slice at 256^2 on the card and on the CPU:
+    config 7's frame with subpixel em and affine, ``bayes_em_subpixel`` over
+    its own pyramid (2 levels), ``lk_subpixel``, ``phase_subpixel``,
+    ``corr_eval`` (both metrics), ``interpolate`` (three modes) and the
+    refiner pyramid's decimation. The iterative refiners are held to a
+    validity agreement of 99.5 % and a share of pixels within a bound (the
+    card's ``exp`` and its sums' order are not the CPU's, and the stop rules
+    flip on last-ulp differences); interpolation and decimation exactly."""
+    import torch
+    from visionworkbench_torch.image.interpolation import METHODS, interpolate
+    from visionworkbench_torch.stereo import correval, subpixel_refine as refine
+    from visionworkbench_torch.stereo.correlation import DisparityMap
+    n = 256
+    left, right = _make_pair(n, n, CONFIG7_SEED)
+    runs = {sp: [_config7_run(left, right, d, sp) for d in (dev, "cpu")]
+            for sp in ("em", "affine", "none")}
+    _held("config7 em 256^2", *runs["em"], 0.995, 1e-3, 0.98)
+    _held("config7 affine 256^2", *runs["affine"], 0.995, 1e-4, 0.99)
+    integer = runs["none"][1]
+
+    def on(d, dm):
+        return DisparityMap(dm.disparity.to(d), dm.valid.to(d))
+    ulp = np.float32(1 + 2**-23)
+    # a smooth texture in [0, 1] at known subpixel shifts (the CPU tests'
+    # scene)
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64)
+
+    def tex(x, y):
+        v = (np.sin(0.55 * x) * np.cos(0.43 * y) + 0.5 * np.sin(0.21 * x + 0.33 * y)
+             + 0.3 * np.sin(1.3 * x) * np.sin(1.1 * y))
+        return ((v + 1.8) / 3.6).astype(np.float32)
+    zero = DisparityMap(torch.zeros((n, n, 2), dtype=torch.int32),
+                        torch.ones((n, n), dtype=torch.bool))
+    # The refiner's pyramid (defaults: 10 outer iterations a level) moves
+    # ~0.2 px at p99 on a one-ulp change of its input, so its card-vs-CPU
+    # bound is the median (1e-4 px) and half the pixels within 1e-3 px.
+    left_t, right_t = tex(xx, yy), tex(xx - 2.3, yy - 1.25)
+    seed = DisparityMap(torch.stack([torch.full((n, n), 2), torch.full((n, n), 1)], -1)
+                        .to(torch.int32), zero.valid)
+
+    g, c, u = [refine.bayes_em_subpixel(on(d, seed), lt, right_t, (7, 7),
+                                        max_pyramid_levels=2)
+               for d, lt in ((dev, left_t), ("cpu", left_t), ("cpu", left_t * ulp))]
+    _held("bayes_em_subpixel(max_pyramid_levels=2) 256^2, smooth scene", g, c, 0.995,
+          1e-3, 0.5, u, max_median=1e-4)
+    # on config 7's texture (not normalized; the EM mixture poisons pixels)
+    # the same call is ill-conditioned: printed beside its one-ulp envelope
+    agree, dd = _diff(*[refine.bayes_em_subpixel(on(d, integer), left, right, (7, 7),
+                                                 max_pyramid_levels=2)
+                        for d in (dev, "cpu")])
+    env = _diff(refine.bayes_em_subpixel(integer, left * ulp, right, (7, 7),
+                                         max_pyramid_levels=2),
+                refine.bayes_em_subpixel(integer, left, right, (7, 7), max_pyramid_levels=2))
+    print(f"[slice] bayes_em_subpixel(max_pyramid_levels=2) 256^2, config 7's texture "
+          f"(not held): gpu vs cpu {_describe(agree, dd, 1e-3)}; cpu vs cpu with left * "
+          f"(1 + 2^-23) {_describe(*env, 1e-3)}")
+    left_t, right_t = tex(xx, yy), tex(xx - 0.3, yy + 0.2)
+    _held("lk_subpixel 256^2 (7x7, 5 iterations)", *[
+        refine.lk_subpixel(on(d, zero), left_t, right_t, (7, 7)) for d in (dev, "cpu")], 1.0, 1e-4, 1.0)
+    left_t, right_t = tex(xx, yy), tex(xx - 0.5, yy - 0.25)
+    _held("phase_subpixel 256^2 (window 32, stride 8, upsample 8)", *[
+        refine.phase_subpixel(on(d, zero), left_t, right_t) for d in (dev, "cpu")], 1.0, 1e-5, 0.99)
+    for metric in ("ncc", "stddev"):
+        qg, qc = [correval.corr_eval(on(d, integer), left, right, (7, 7), metric).cpu()
+                  for d in (dev, "cpu")]
+        e = float((qg - qc).abs()[32:-32, 32:-32].max())
+        print(f"[slice] corr_eval {metric} 256^2 (7x7, config 7's integer map): max "
+              f"|gpu - cpu| in the core {e!r}, over the frame "
+              f"{float((qg - qc).abs().max())!r} (held: core within 1e-4)")
+        if not e <= 1e-4:
+            raise SystemExit(f"slice corr_eval {metric}: card and CPU disagree")
+    rng = np.random.default_rng(72)
+    img = rng.random((n, n, 3)).astype(np.float32)
+    x = (rng.random((n, n)) * (n + 8) - 4).astype(np.float32)
+    y = (rng.random((n, n)) * (n + 8) - 4).astype(np.float32)
+    for method in METHODS:
+        for im in (img, img[..., 0]):
+            g, c = [interpolate(torch.as_tensor(im, device=d), x, y, method).cpu()
+                    for d in (dev, "cpu")]
+            diff = int((g != c).sum())
+            print(f"[slice] interpolate {method} {im.shape}: {diff} values differ card vs cpu")
+            if diff:
+                raise SystemExit(f"slice interpolate {method}: card and CPU differ")
+    g = refine._decimate2(torch.as_tensor(img[..., 0], device=dev)).cpu()
+    if not torch.equal(g, refine._decimate2(torch.as_tensor(img[..., 0]))):
+        raise SystemExit("slice _decimate2: card and CPU differ")
+    print("[slice] _decimate2 256^2: equal card vs cpu")
+
+
 def phase_slice_vs_cpu(dev):
     import torch
     from visionworkbench_torch.math.bbox import BBox2i
     from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    _quality_vs_cpu(dev)
     _cli_vs_cpu(dev)
     left, right = _make_pair(256, 256)
     left = np.round(left * 256) / 256
@@ -1384,6 +1605,7 @@ def phase_timings(dev):
         print(f"[time] frame {what}: {ms:.4f} ms, {H * W / (ms * 1e3):.3f} Mp/s")
     _profile_frame(lambda: _bench_run(lt, rt, dev), "bm", frame["plain"]["ms"])
     _time_cli(lt, rt, dev, frame)
+    _time_quality(lt, rt, dev, frame)
     census = {"cost_type": "census", "census_window": CENSUS_WINDOW}
     for what, kwargs in (("config4", census),
                          ("config4_lr", {**census, "consistency_threshold": 2.0})):
@@ -1663,6 +1885,48 @@ def _time_cli(lt, rt, dev, frame):
     frame["cli_log"].update(snake_passes=passes, snake_ms=snake_ms)
 
 
+def _time_quality(lt, rt, dev, frame):
+    """config7-em-1024 and its affine variant: median ms over 10 frames
+    after 2 warm-ups, Mp/s, device time, idle share, launches and peak
+    memory; the refiner alone on the frame's integer map (its ms, device
+    time, launches and share of the frame's device time). cli-em-1024: the
+    CLI's wall time (TIFF IO included; median of 3 runs after one), device
+    time and launches of one run."""
+    import torch
+    c7l, c7r = (torch.as_tensor(a, device=dev) for a in _make_pair(H, W, CONFIG7_SEED))
+    integer = _config7_run(c7l, c7r, dev, "none")
+    for what, sp in (("config7_em", "em"), ("config7_affine", "affine")):
+        ms = _time_ms(lambda: _config7_run(c7l, c7r, dev, sp), reps=10)
+        torch.cuda.reset_peak_memory_stats()
+        _config7_run(c7l, c7r, dev, sp)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        print(f"[time] frame {what} (config 7, {H}^2, census 5x5, 7x7, 4 levels, subpixel "
+              f"{sp}): {ms:.4f} ms, {H * W / (ms * 1e3):.3f} Mp/s, peak memory {peak:.1f} MiB")
+        busy, n = _profile_frame(lambda: _config7_run(c7l, c7r, dev, sp), what, ms)
+        ref_ms = _time_ms(lambda: _config7_refiner(integer, c7l, c7r, sp), reps=5)
+        ref_busy, ref_n = _profile_frame(lambda: _config7_refiner(integer, c7l, c7r, sp),
+                                         f"{what} refiner", ref_ms, frames=1)
+        share = None if busy is None or ref_busy is None else ref_busy / busy
+        print(f"[time] {what} refiner alone: {ref_ms:.4f} ms, device {ref_busy} ms, "
+              f"{ref_n} launches, share of the frame's device time {share}")
+        frame[what] = {"ms": ms, "mps": H * W / (ms * 1e3), "device_ms": busy,
+                       "launches": n, "peak_mib": peak, "refiner_ms": ref_ms,
+                       "refiner_device_ms": ref_busy, "refiner_launches": ref_n,
+                       "refiner_share": share}
+    folder = tempfile.mkdtemp(prefix="chip_smoke_cli_em_")
+    paths = _write_pair(lt.cpu().numpy(), rt.cpu().numpy(), folder)
+    walls = [_cli_em_run(paths, dev, folder)[1] for _ in range(4)][1:]
+    wall = statistics.median(walls)
+    busy, n = _profile_frame(lambda: _cli_em_run(paths, dev, folder), "cli_em",
+                             wall * 1e3, frames=1)
+    shutil.rmtree(folder)
+    print(f"[time] cli_em (the correlate CLI, {' '.join(CLI_EM_ARGS)}, {H}^2, TIFF IO "
+          f"included): wall {', '.join(f'{t:.4f}' for t in walls)} s, median {wall:.4f} s, "
+          f"{H * W / (wall * 1e6):.3f} Mp/s; device {busy} ms, {n} launches")
+    frame["cli_em"] = {"ms": wall * 1e3, "mps": H * W / (wall * 1e6), "device_ms": busy,
+                       "launches": n}
+
+
 def _sweep_work(base, match, offs, tile, sx, sy, kw, kh, cost, want_patches,
                 census_window=5):
     """(bytes, operations) of one sweep: each input read once, each output
@@ -1852,9 +2116,12 @@ def main() -> int:
             # the scans: launches of the register-carry kernel on the path
             launches = (c[f"{k}/mgm_scan"] if f"{k}/mgm_scan" in c
                         else c[k if k in c else "sweep"])
+        # launches per config-7 frame of the kernels its path runs
+        c7 = {"sweep_census": "sweep", "speckle": "speckle"}.get(k)
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
+            **({"config7_launches": counts["config7_em"][c7]} if c7 else {}),
             "max_abs_err": err[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
@@ -1880,6 +2147,9 @@ def main() -> int:
                          ("device_ms", "launches", "prefilter_device_ms",
                           "prefilter_launches", "prefilter_share", "blob_passes",
                           "blob_ms", "snake_passes", "snake_ms")},
+                      **{f"{what}_{k}": v for what in ("config7_em", "config7_affine",
+                                                       "cli_em")
+                         for k, v in frame[what].items()},
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

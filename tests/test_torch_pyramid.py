@@ -179,9 +179,10 @@ def test_multi_level_agreement(kw):
     dict(cost_type="census", census_window=4), dict(cost_type="xx"),
     # SGM/MGM run (test_sgm_mgm_small_frame_matches_jax), the prefilters,
     # corr_timeout, the blob filter and keep_levels too (the option tests
-    # below); these are still rejected
+    # below), and subpixel affine / em in BM mode
+    # (tests/test_torch_subpixel_pyramid.py); these are still rejected
     dict(stereo_algorithm="sgm", subpixel="affine"),
-    dict(stereo_algorithm="xx"), dict(subpixel="affine"), dict(subpixel="xx"),
+    dict(stereo_algorithm="xx"), dict(subpixel="bayes"), dict(subpixel="xx"),
     dict(prefilter_mode="xx"), dict(engine="xla"), dict(kernel_size=(4, 5)),
 ])
 def test_options_not_in_this_slice_raise(kw):

@@ -1,1 +1,1 @@
-"""Core utilities of the port: exceptions and device policy."""
+"""Core utilities of the port: exceptions, device policy and timers."""

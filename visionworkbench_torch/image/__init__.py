@@ -1,1 +1,2 @@
-"""Image substrate of the port (the parts the correlator uses)."""
+"""Image substrate of the port (the parts the correlator and the refiners
+use)."""

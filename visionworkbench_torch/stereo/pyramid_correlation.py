@@ -10,7 +10,9 @@ fixed tile grid with per-tile search offsets taken from the upsampled
 previous level, speckle-filter every level, and at level 0 optionally run
 the L<->R consistency check and the parabola fit: on the sweep's 3x3 cost
 patches for the abs, sq and census costs, through ``parabola_subpixel``'s
-re-evaluation for NCC, which has no patch mode.
+re-evaluation for NCC, which has no patch mode; or, with subpixel
+``affine`` / ``em``, refine the final map with the dense affine / Bayes-EM
+refiner of ``stereo/subpixel_refine.py`` (plain tensor work).
 
 With ``stereo_algorithm="sgm"``/``"mgm"`` each level runs semi-global
 matching (``stereo/sgm.py:sgm_relative_search``) over census costs of
@@ -62,6 +64,7 @@ from visionworkbench_torch.stereo.sgm import (
     SUBPIXEL_MODES, default_penalties, sgm_relative_search,
 )
 from visionworkbench_torch.stereo.subpixel import _fit_parabola, parabola_subpixel
+from visionworkbench_torch.stereo.subpixel_refine import bayes_em_subpixel
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -203,10 +206,9 @@ def _mean_fill(img, mask, frame_h: int, frame_w: int):
     return torch.where(mask, img, mean)
 
 
-def _check_slice_options(cost_type, census_window, prefilter_mode,
-                         stereo_algorithm, subpixel, engine):
-    """Options of the JAX signature that this port does not run yet raise,
-    naming the slice that brings them. In SGM/MGM mode the cost is census
+def _check_options(cost_type, census_window, prefilter_mode,
+                   stereo_algorithm, subpixel, engine):
+    """Raise on an unknown option. In SGM/MGM mode the cost is census
     (``cost_type`` only selects ternary census), so the BM cost check does
     not apply, and every SGM subpixel mode is accepted."""
     if stereo_algorithm not in ("bm", "sgm", "mgm"):
@@ -216,11 +218,7 @@ def _check_slice_options(cost_type, census_window, prefilter_mode,
             raise ArgumentErr(f"unknown SGM subpixel mode {subpixel!r}")
     else:
         check_cost_type(cost_type, census_window)
-        if subpixel in ("affine", "em"):
-            raise ArgumentErr(f"subpixel {subpixel!r} is not ported yet (it "
-                              "needs stereo/subpixel_refine.py: the "
-                              "quality-subpixel slice)")
-        if subpixel not in ("none", "parabola"):
+        if subpixel not in ("none", "parabola", "affine", "em"):
             raise ArgumentErr(f"unknown subpixel mode {subpixel!r}")
     check_prefilter_mode(prefilter_mode)
     if engine != "auto":
@@ -319,7 +317,10 @@ def pyramid_correlate(left, right, search_region: BBox2i,
 
     ``stereo_algorithm``: ``'bm'`` with any of the five costs (``abs``,
     ``sq``, ``ncc``, ``census`` and ``ternary_census`` of ``census_window``)
-    and subpixel ``none``/``parabola``, or ``'sgm'``/``'mgm'`` (ref
+    and subpixel ``none``, ``parabola``, ``affine`` (the weighted affine
+    Gauss-Newton refiner) or ``em`` (the Bayes-EM refiner, the reference's
+    quality mode; both ``stereo/subpixel_refine.py`` at full resolution, 3
+    outer iterations), or ``'sgm'``/``'mgm'`` (ref
     ``CorrelationAlgorithm``, CorrelationView.h:45) with census costs of
     ``census_window`` (``cost_type='ternary_census'`` for ternary), any SGM
     subpixel mode applied inside the last level, and
@@ -328,11 +329,10 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     (seconds, 0 disables) degrades each level's search up front to fit the
     budget, at ``seconds_per_op`` or the s/op measured on the device
     (``stereo/cost_model.py``). ``blob_filter_area`` > 0 drops valid blobs
-    smaller than it (scaled per level). ``subpixel='affine'|'em'`` raises
-    :class:`ArgumentErr` naming the slice that brings it.
+    smaller than it (scaled per level).
     """
-    _check_slice_options(cost_type, census_window, prefilter_mode,
-                         stereo_algorithm, subpixel, engine)
+    _check_options(cost_type, census_window, prefilter_mode,
+                   stereo_algorithm, subpixel, engine)
     dev = resolve_device(device)
     left = as_tensor(left, torch.float32, dev)
     right = as_tensor(right, torch.float32, dev)
@@ -590,6 +590,16 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     elif subpixel == "parabola" and not sgm_mode:
         final = parabola_subpixel(final, left, right, (kw, kh), prefilter_mode,
                                   prefilter_width)
+    elif subpixel in ("affine", "em"):   # BM only (not an SGM mode)
+        # The JAX package's production setting (its
+        # pyramid_correlation.py:771-790): the integer correlator seeds every
+        # pixel within ~0.5 px, so 3 outer iterations at full resolution,
+        # no refiner pyramid.
+        final = bayes_em_subpixel(final, left, right, (kw, kh),
+                                  em_iters=2 if subpixel == "em" else 0,
+                                  prefilter_mode=prefilter_mode,
+                                  prefilter_width=prefilter_width,
+                                  max_pyramid_levels=0, outer_iters=3)
     if keep_levels:
         return PyramidCorrResult(final, level_results)
     return final

@@ -1,3 +1,4 @@
-"""Measurement tools of the port, run on a CUDA card from the repository
-root: ``mgm_scan_ablation`` (what each part of the register-carry SGM/MGM
-kernel costs)."""
+"""Tools of the port: the correlate CLI (``python -m
+visionworkbench_torch.tools.correlate``), and measurement tools run on a
+CUDA card from the repository root (``frame_times`` and the kernel
+ablations)."""
