@@ -83,8 +83,21 @@ Phases (each raises on a mismatch; none catches its own failure):
    ``--subpixel em`` on the bench pair written as TIFFs, the output TIFF
    read back (its wall time printed); apply ``bench.py``'s sanity check to
    each (every abs and NCC sweep launch on ``band_sweep_kernel``, every
-   census one on ``band_census_kernel``, none on ``sweep_kernel``).
+   census one on ``band_census_kernel``, none on ``sweep_kernel``); then
+   config5-mosaic-1024, the repo's config 5 (``tools_bench_configs.py:
+   184-230``: four 614^2 sources of the texture of seed 11 at their
+   diagonal georefs, reprojected into a 1024^2 canvas at scale 0.01 and
+   multiband-blended over 4 levels, plans made once) through
+   ``mosaic.geomosaic.reproject_mosaic``: no kernel of ``csrc/`` launched,
+   every source on the 1-D coordinate route, ``valid`` equal to the union
+   of the plans' masks, the mosaic finite and, wherever one source alone
+   covers every pixel within 2^(levels + 2) px, equal to that source's
+   warp within 1e-4.
 4. Run the slices small on the card and on the CPU (plain versions): the
+   mosaic slice at 256^2 (config 5: ``valid`` equal, values within 1e-5;
+   ``warp_from_grid`` on both coordinate routes and ``transform`` with a
+   rotation within 1e-5; the device grassfire of config 5's masks at
+   1024^2 and 256^2 equal to ``grassfire_np``); the
    quality-subpixel slice at 256^2 (config 7's frame with the EM and the
    affine refiner and ``bayes_em_subpixel`` over its own 2-level pyramid:
    validity agreeing on >= 99.5 % of pixels and a share of pixels within a
@@ -124,7 +137,9 @@ Phases (each raises on a mismatch; none catches its own failure):
    (frame, device time, idle share, launches, peak memory, and the
    refiner alone: its ms, device time, launches and share) and
    cli-em-1024 (the CLI's wall time with its TIFF IO, device time,
-   launches).
+   launches); config5-mosaic-1024 (the plan's host ms, the first frame on
+   fresh plans apart, then the frame: median of 10 after 2 warm-ups,
+   canvas Mp/s, device time, idle share, launches, peak memory).
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -201,6 +216,13 @@ CONFIG7_SEED = 11
 # 1.4, 5 levels, tile 64) with the Bayes-EM refiner, on the bench search
 # box as cli-log-1024.
 CLI_EM_ARGS = ["--subpixel", "em", "--yoffset", str(SEARCH[1])]
+# Config 5 (tools_bench_configs.py:184-230): four sources of 0.6 n square
+# (614^2 at n = 1024) cut from the texture of seed 11, each at its own
+# diagonal georef, reprojected into an n^2 canvas at scale 0.01 and
+# multiband-blended over 4 levels; plans made once, as the config makes them.
+C5_LEVELS = 4
+C5_SPECS = ((0.0102, -0.05, 1.05), (0.0098, 0.45, 1.04), (0.0101, -0.04, 0.56),
+            (0.0099, 0.46, 0.55))    # (scale, x0 / (n 0.01), y0 / (n 0.01))
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM rate and fp32
 # rate outside the tensor cores. int32 ALU work is counted at the fp32 rate.
@@ -234,14 +256,19 @@ SCAN_OPS = 13
 MGM_OPS = 26
 
 
+def _texture(h, w, seed):
+    """``tools_bench_configs.py:96-101``'s texture, (h, w + 80)."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w + 80].astype(np.float32)
+    return (np.sin(xs * 0.21) * np.cos(ys * 0.17)
+            + 0.5 * np.sin(xs * 0.047 + ys * 0.031)
+            + 0.3 * rng.random(xs.shape)).astype(np.float32)
+
+
 def _make_pair(h, w, seed=7):
     """bench.py's pair: left(p) == right(p + (16, 0)) (config 7's texture
     with ``seed`` 11)."""
-    rng = np.random.default_rng(seed)
-    ys, xs = np.mgrid[0:h, 0:w + 80].astype(np.float32)
-    tex = (np.sin(xs * 0.21) * np.cos(ys * 0.17)
-           + 0.5 * np.sin(xs * 0.047 + ys * 0.031)
-           + 0.3 * rng.random(xs.shape)).astype(np.float32)
+    tex = _texture(h, w, seed)
     return tex[:, 16:16 + w], tex[:, :w]
 
 
@@ -1269,6 +1296,98 @@ def phase_main(dev):
         if counts[what] != want:
             raise SystemExit(f"{what}: expected launches {want}, got {counts[what]}")
     shutil.rmtree(folder)
+    # config5-mosaic-1024: plain tensor work, no kernel of csrc/
+    counts["config5"] = _config5_main(dev)
+    return counts
+
+
+def _config5(n):
+    """(sources, their georefs, the canvas georef) of config 5 at n^2."""
+    from visionworkbench_torch.cartography.georeference import GeoReference
+
+    def georef(scale, x0, y0):
+        return GeoReference(transform=np.array([[scale, 0.0, x0], [0.0, -scale, y0],
+                                                [0.0, 0.0, 1.0]]))
+    tex = _texture(n, n, CONFIG7_SEED)
+    sh = int(n * 0.6)
+    srcs = [tex[:sh, i * 7:i * 7 + sh] + np.float32(i * 1e-4) for i in range(4)]
+    specs = [(sc, x * n * 0.01, y * n * 0.01) for sc, x, y in C5_SPECS]
+    return srcs, [georef(*sp) for sp in specs], georef(0.01, 0.0, n * 0.01)
+
+
+def _config5_plans(georefs, dst, n):
+    from visionworkbench_torch.mosaic.geomosaic import plan_reproject_grids
+    return plan_reproject_grids(georefs, dst, (n, n))
+
+
+def _config5_run(srcs, georefs, dst, plans, n, dev):
+    from visionworkbench_torch.mosaic.geomosaic import reproject_mosaic
+    return reproject_mosaic(srcs, georefs, dst, (n, n), levels=C5_LEVELS, plans=plans,
+                            device=dev)
+
+
+def _config5_check(srcs, plans, out, valid, n, dev):
+    """Phase 3's checks of a config-5 mosaic: ``valid`` is the union of the
+    plans' masks, the mosaic is finite, and wherever one source alone
+    covers every pixel within 2^(levels + 2) px (the reach of the pyramid's
+    blurs and upsamples; the canvas's outside counts as not covered) the
+    mosaic equals that source's warp within 1e-4."""
+    import torch
+    import torch.nn.functional as F
+    from visionworkbench_torch.image.transform import warp_route, warp_with
+    prepared = [p.prepare(s.shape, (n, n), "bilinear", dev) for s, p in zip(srcs, plans)]
+    routes = [warp_route(*p) for p in plans]
+    print(f"[main] config5 {n}^2: coordinate routes {routes}, grid steps "
+          f"{[p[2] for p in plans]}")
+    union = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    cover = torch.zeros((n, n), dtype=torch.int32, device=dev)
+    for _, mask, _ in prepared:
+        union |= mask
+        cover += mask.to(torch.int32)
+    if not torch.equal(valid, union):
+        raise SystemExit(f"config5 {n}^2: valid differs from the union of the plans' masks "
+                         f"at {int((valid != union).sum())} pixels")
+    if not bool(torch.isfinite(out).all()):
+        raise SystemExit(f"config5 {n}^2: the mosaic has non-finite values")
+    r = 2 ** (C5_LEVELS + 2)
+    cores, err = [], 0.0
+    for src, (coords, mask, _) in zip(srcs, prepared):
+        bad = F.pad((~(mask & (cover == 1))).to(torch.float32)[None, None], (r, r, r, r),
+                    value=1.0)
+        bad = F.max_pool2d(F.max_pool2d(bad, (1, 2 * r + 1), 1), (2 * r + 1, 1), 1)[0, 0]
+        core = bad == 0
+        warp = warp_with(torch.as_tensor(src, device=dev), coords, "bilinear", "zero")
+        cores.append(int(core.sum()))
+        if cores[-1]:
+            err = max(err, float((out - warp).abs()[core].max()))
+    print(f"[main] config5 {n}^2: valid {valid.float().mean().item():.4f}; pixels with "
+          f"one source alone within {r} px, per source: {cores}; max |mosaic - that "
+          f"source's warp| there {err}")
+    if not all(cores) or err > 1e-4:
+        raise SystemExit(f"config5 {n}^2: the mosaic differs from a lone source's warp "
+                         f"({err}) or a source has no such pixel ({cores})")
+    return routes
+
+
+def _config5_main(dev, n=H):
+    """config5-mosaic-1024: the launch counts around one mosaic (no kernel
+    of csrc/ is on this path), then phase 3's checks."""
+    import torch
+    srcs, georefs, dst = _config5(n)
+    plans = _config5_plans(georefs, dst, n)
+    srcs = [torch.as_tensor(s, device=dev) for s in srcs]
+    _reset_counts()
+    out, valid = _config5_run(srcs, georefs, dst, plans, n, dev)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    print(f"[main] config5: launches {counts}")
+    if any(counts.values()):
+        raise SystemExit(f"config5: a kernel of csrc/ ran on the mosaic's path: {counts}")
+    if tuple(out.shape) != (n, n):
+        raise SystemExit(f"config5: mosaic of shape {tuple(out.shape)}")
+    routes = _config5_check(srcs, plans, out, valid, n, dev)
+    if n >= 1024 and set(routes) != {"separable"}:
+        raise SystemExit(f"config5 {n}^2: expected the 1-D route for every source: {routes}")
     return counts
 
 
@@ -1480,10 +1599,59 @@ def _quality_vs_cpu(dev):
     print("[slice] _decimate2 256^2: equal card vs cpu")
 
 
+def _config5_vs_cpu(dev, n=256):
+    """The mosaic slice on the card against the plain CPU path: config 5
+    at n^2 (``valid`` equal, values within 1e-5), ``warp_from_grid`` on both
+    coordinate routes, ``transform`` with a rotation (within 1e-5), and the
+    device grassfire of config 5's masks at 1024^2 and n^2 against
+    ``grassfire_np`` (equal)."""
+    import torch
+    from visionworkbench_torch.image.morphology import grassfire, grassfire_np
+    from visionworkbench_torch.image.transform import (
+        reverse_map_grid, transform, warp_from_grid, warp_route)
+    from visionworkbench_torch.math.transform2d import RotateTransform
+    srcs, georefs, dst = _config5(n)
+    plans = _config5_plans(georefs, dst, n)
+    (go, gv), (co, cv) = (_config5_run(srcs, georefs, dst, plans, n, d) for d in (dev, "cpu"))
+    e = float((go.cpu() - co).abs().max())
+    print(f"[slice] config5 {n}^2: valid {cv.float().mean().item():.4f}, validity differs at "
+          f"{int((gv.cpu() != cv).sum())} pixels, max |gpu - cpu| {e}")
+    if not torch.equal(gv.cpu(), cv) or e > 1e-5:
+        raise SystemExit(f"slice config5 {n}^2: GPU and CPU mosaics differ")
+    img = _texture(n, n, CONFIG7_SEED)[:, :n]
+    maps = {"separable": lambda x, y: (0.93 * x + 3.2, 1.07 * y - 2.1),
+            "grid": lambda x, y: (0.98 * x + 0.05 * y + 1.0 + 1e-4 * x * y,
+                                  -0.04 * x + 1.01 * y - 0.5)}
+    for route, fn in maps.items():
+        grid = reverse_map_grid(fn, (n, n + 7), 16)
+        if warp_route(*grid) != route:
+            raise SystemExit(f"slice warp_from_grid: expected the {route} route")
+        for interp in ("bilinear", "bicubic"):
+            g, c = (warp_from_grid(img, *grid, (n, n + 7), interp, device=d) for d in (dev, "cpu"))
+            e = float((g.cpu() - c).abs().max())
+            print(f"[slice] warp_from_grid {route} {interp} {n}x{n + 7}: max |gpu - cpu| {e}")
+            if e > 1e-5:
+                raise SystemExit(f"slice warp_from_grid {route} {interp}: GPU and CPU differ")
+    g, c = (transform(img, RotateTransform(0.3, (n / 2, n / 3)), None, "bicubic", device=d)
+            for d in (dev, "cpu"))
+    e = float((g.cpu() - c).abs().max())
+    print(f"[slice] transform (rotation 0.3, bicubic) {n}^2: max |gpu - cpu| {e}")
+    if e > 1e-5:
+        raise SystemExit("slice transform: GPU and CPU differ")
+    for m in (H, n):
+        srcs, georefs, dst = _config5(m)
+        for s, p in zip(srcs, _config5_plans(georefs, dst, m)):
+            mask = p.prepare(s.shape, (m, m), "bilinear", "cpu")[1].numpy()
+            if not np.array_equal(grassfire(mask, device=dev).cpu().numpy(), grassfire_np(mask)):
+                raise SystemExit(f"slice grassfire {m}^2: the card differs from grassfire_np")
+        print(f"[slice] grassfire of config 5's four masks at {m}^2: card = grassfire_np")
+
+
 def phase_slice_vs_cpu(dev):
     import torch
     from visionworkbench_torch.math.bbox import BBox2i
     from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    _config5_vs_cpu(dev)
     _quality_vs_cpu(dev)
     _cli_vs_cpu(dev)
     left, right = _make_pair(256, 256)
@@ -1606,6 +1774,7 @@ def phase_timings(dev):
     _profile_frame(lambda: _bench_run(lt, rt, dev), "bm", frame["plain"]["ms"])
     _time_cli(lt, rt, dev, frame)
     _time_quality(lt, rt, dev, frame)
+    _time_config5(dev, frame)
     census = {"cost_type": "census", "census_window": CENSUS_WINDOW}
     for what, kwargs in (("config4", census),
                          ("config4_lr", {**census, "consistency_threshold": 2.0})):
@@ -1927,6 +2096,38 @@ def _time_quality(lt, rt, dev, frame):
                        "launches": n}
 
 
+def _time_config5(dev, frame, n=H):
+    """config5-mosaic-1024: the plan's host ms; the first frame on fresh
+    plans (host clock, each source's mask, alpha and coordinates made),
+    apart from the steady frame (median of 10 after 2 warm-ups, canvas Mp/s
+    = n^2 / t as the config divides); device time, idle share and launches
+    (profiler); peak memory."""
+    import torch
+    srcs, georefs, dst = _config5(n)
+    srcs = [torch.as_tensor(s, device=dev) for s in srcs]
+    t0 = time.perf_counter()
+    plans = _config5_plans(georefs, dst, n)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _config5_run(srcs, georefs, dst, plans, n, dev)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ms = _time_ms(lambda: _config5_run(srcs, georefs, dst, plans, n, dev), reps=10)
+    torch.cuda.reset_peak_memory_stats()
+    _config5_run(srcs, georefs, dst, plans, n, dev)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    busy, launches = _profile_frame(lambda: _config5_run(srcs, georefs, dst, plans, n, dev),
+                                    "config5", ms)
+    print(f"[time] frame config5 (reproject + multiband mosaic, 4 sources of "
+          f"{srcs[0].shape[0]}^2 into {n}^2, {C5_LEVELS} levels): {ms:.4f} ms, "
+          f"{n * n / (ms * 1e3):.3f} canvas Mp/s, peak memory {peak:.1f} MiB; plan (host) "
+          f"{plan_ms:.4f} ms; first frame on fresh plans {first_ms:.4f} ms")
+    frame["config5"] = {"ms": ms, "mps": n * n / (ms * 1e3), "device_ms": busy,
+                        "launches": launches, "peak_mib": peak, "plan_ms": plan_ms,
+                        "first_ms": first_ms}
+
+
 def _sweep_work(base, match, offs, tile, sx, sy, kw, kh, cost, want_patches,
                 census_window=5):
     """(bytes, operations) of one sweep: each input read once, each output
@@ -2148,7 +2349,7 @@ def main() -> int:
                           "prefilter_launches", "prefilter_share", "blob_passes",
                           "blob_ms", "snake_passes", "snake_ms")},
                       **{f"{what}_{k}": v for what in ("config7_em", "config7_affine",
-                                                       "cli_em")
+                                                       "cli_em", "config5")
                          for k, v in frame[what].items()},
                       "card": smi}))
     print(smi)

@@ -24,3 +24,20 @@ def resolve_device(device=None) -> torch.device:
             "visionworkbench_torch: no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def as_f32(x, like=None) -> torch.Tensor:
+    """``x`` as a float32 tensor for the coordinate math of transforms,
+    projections and georeferences: a tensor keeps its device; anything else
+    (NumPy arrays, scalars) goes to ``like``'s device, or to the CPU, where
+    the warps' reverse-map grids are planned."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    dev = like.device if isinstance(like, torch.Tensor) else "cpu"
+    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+
+def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
+    """The IEEE quotient ``c / t`` (PyTorch computes ``float / tensor`` as a
+    reciprocal times ``c``: two roundings)."""
+    return torch.tensor(c, dtype=t.dtype, device=t.device) / t
