@@ -92,7 +92,27 @@ Phases (each raises on a mismatch; none catches its own failure):
    every source on the 1-D coordinate route, ``valid`` equal to the union
    of the plans' masks, the mosaic finite and, wherever one source alone
    covers every pixel within 2^(levels + 2) px, equal to that source's
-   warp within 1e-4.
+   warp within 1e-4; then config1-1024 (``tools_bench_configs.py:113-126``:
+   the Gaussian blur of sigma 1.5 and 4 blur-downsamples on the texture of
+   seed 11; no ``csrc/`` launch, card = CPU bit for bit at every level),
+   config2-1024 (``:128-148``: upright single-scale Harris, 512 points,
+   threshold 1e-8, upright sgrad, ratio 0.8, on both images of the pair
+   shifted by 16 px; no ``csrc/`` launch; >= 0.9 of the ok matches within
+   0.5 px of the shift; card against CPU: ``_peaks_to_points`` on one
+   response map equal, >= 0.99 of the CPU's points within 1e-3 px, ok match
+   counts within 1 %) and cli-match-1024, the chain a user runs on the bench
+   pair with the right image rotated by 1 degree, as float32 TIFFs:
+   ``tools/ipfind.py`` (harris, single scale), ``tools/ipmatch.py``
+   (similarity RANSAC) and ``tools/correlate.py --match-file`` (the CLI
+   frame's sweeps on ``band_sweep_kernel`` and speckle, counted), >= 0.9 of
+   the valid interior within 0.5 px of the true map's disparity (0 after a
+   true pre-alignment) and the fitted pre-alignment within 0.3 px of the
+   true map; the CLI once more on an exact match file (200
+   correspondences, 50 outliers: 200 inliers printed, pre-alignment within
+   0.05 px); and the chain on ipmatch's (left, right) file, which the
+   pre-alignment followed from the JAX package does not align (ROADMAP
+   section 3): it must fail the 0.9 gate, so the check fails once that
+   defect is fixed.
 4. Run the slices small on the card and on the CPU (plain versions): the
    mosaic slice at 256^2 (config 5: ``valid`` equal, values within 1e-5;
    ``warp_from_grid`` on both coordinate routes and ``transform`` with a
@@ -139,7 +159,12 @@ Phases (each raises on a mismatch; none catches its own failure):
    cli-em-1024 (the CLI's wall time with its TIFF IO, device time,
    launches); config5-mosaic-1024 (the plan's host ms, the first frame on
    fresh plans apart, then the frame: median of 10 after 2 warm-ups,
-   canvas Mp/s, device time, idle share, launches, peak memory).
+   canvas Mp/s, device time, idle share, launches, peak memory);
+   config1-1024 and config2-1024 (median of 10 frames after 2 warm-ups,
+   Mp/s, device time by kernel, idle share, launches, peak memory, host
+   time by operator) and cli-match-1024 (each tool's wall time with its
+   TIFF IO, median of 3 chains; the chain's device time, launches and host
+   time by operator).
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -223,6 +248,36 @@ CLI_EM_ARGS = ["--subpixel", "em", "--yoffset", str(SEARCH[1])]
 C5_LEVELS = 4
 C5_SPECS = ((0.0102, -0.05, 1.05), (0.0098, 0.45, 1.04), (0.0101, -0.04, 0.56),
             (0.0099, 0.46, 0.55))    # (scale, x0 / (n 0.01), y0 / (n 0.01))
+# Config 1 (tools_bench_configs.py:113-126): a Gaussian blur of sigma 1.5,
+# then 4 blur-downsamples (a 5-level pyramid), on the texture of seed 11.
+C1_SIGMA = 1.5
+C1_LEVELS = 4
+# Config 2 (tools_bench_configs.py:128-148): on both images of the pair
+# tex[:, :n], tex[:, 16:16 + n] (seed 11), upright single-scale Harris (512
+# points, threshold 1e-8), upright sgrad descriptors, matching at ratio 0.8.
+C2_POINTS = 512
+C2_THRESHOLD = 1e-8
+C2_RATIO = 0.8
+# cli-match-1024: the bench pair's right image rotated by 1 degree about
+# its centre; ipfind, ipmatch (similarity RANSAC) and correlate
+# --match-file. The pre-alignment (visionworkbench_tpu/tools/correlate.py:
+# 94-106, followed exactly) warps by the inverse of the homography fitted
+# from the file's second list to its first, which aligns the right image
+# when the file lists the right image's points first: ipmatch runs on
+# (right, left). (With (left, right) it applies the map twice: a 2-degree
+# residual, on which the coarse levels lock onto the bench texture's
+# half-period alias; the smoke runs that chain too and requires it to fail
+# the gate.) The search box holds the residual in its interior. The
+# pre-alignment's map stays within MATCH_PREALIGN_BOUND px of the true one
+# (the bench shift, then the rotation) over the frame on ipmatch's file,
+# within MATCH_EXACT_BOUND px on the exact file.
+MATCH_ROTATION_DEG = 1.0
+MATCH_IPFIND = ["--interest-operator", "harris", "--single-scale"]
+MATCH_SEARCH = (-8, -8, 16, 16)
+MATCH_CORRELATE = ["--xoffset", str(MATCH_SEARCH[0]), "--yoffset", str(MATCH_SEARCH[1]),
+                   "--xrange", str(MATCH_SEARCH[2]), "--yrange", str(MATCH_SEARCH[3])]
+MATCH_PREALIGN_BOUND = 0.3
+MATCH_EXACT_BOUND = 0.05
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM rate and fp32
 # rate outside the tensor cores. int32 ALU work is counted at the fp32 rate.
@@ -458,21 +513,22 @@ def phase_build():
 # ---- phase 2 ----------------------------------------------------------------
 
 def sweep_cases(kernel=KERNEL, levels=LEVELS,
-                level0=(("level0_patches", 1, False), ("level0_rl", 0, True))):
+                level0=(("level0_patches", 1, False), ("level0_rl", 0, True)), search=SEARCH):
     """The sweep's shapes on the main path, one per launch of the bench
     frame: levels 4 to 1, level 0 with the patch ring, and the level-0 R->L
     pass (the L<->R check); or, given the CLI's kernel, levels and
-    ``CLI_LEVEL0``, those of the CLI frame."""
+    ``CLI_LEVEL0``, those of the CLI frame (with ``MATCH_SEARCH``, those of
+    cli-match's correlation)."""
     kw, kh = kernel
     cases = []
     for name, level, ring, rl in ([(f"level{lv}", lv, 0, False) for lv in range(levels, 0, -1)]
                                   + [(n, 0, r, rl) for n, r, rl in level0]):
         s = 1 << level
-        s_w, s_h = max(SEARCH[2] // s, 1), max(SEARCH[3] // s, 1)
+        s_w, s_h = max(search[2] // s, 1), max(search[3] // s, 1)
         sx, sy = min(11, s_w), min(11, s_h)
         out = -(-H // s)
         if rl:
-            out = min(out + SEARCH[2], H + SEARCH[3])
+            out = min(out + search[2], H + search[3])
         nt = -(-out // TILE)
         lb = nt * TILE + kw - 1
         if rl:      # left frame with the (S-1 + max_off) margin
@@ -537,9 +593,13 @@ def sweep_mode_cases():
             "mh": lb + level1["mh"] - level1["lb"], "mw": lb + level1["mw"] - level1["lb"]}
     rows.append(("sweep_ncc", {**t128, "black": True}, "ncc", 5))
     rows.append(("sweep_census", t128, "census", CENSUS_WINDOW))
-    # the CLI frame's abs sweeps (21x21: band_sweep_kernel<abs, 24>)
+    # the CLI frame's abs sweeps (21x21: band_sweep_kernel<abs, 24>), and
+    # those of cli-match's correlation (its 16x16 search box: windows 2x2 to
+    # 11x11 over levels 3-0, no ring)
     for c in sweep_cases(CLI_KERNEL, CLI_LEVELS, CLI_LEVEL0):
         rows.append(("sweep_cli", {**c, "name": "cli_" + c["name"]}, "abs", 5))
+    for c in sweep_cases(CLI_KERNEL, _match_levels(), (("level0", 0, False),), MATCH_SEARCH):
+        rows.append(("sweep_cli", {**c, "name": "match_" + c["name"]}, "abs", 5))
     return rows
 
 
@@ -1298,6 +1358,11 @@ def phase_main(dev):
     shutil.rmtree(folder)
     # config5-mosaic-1024: plain tensor work, no kernel of csrc/
     counts["config5"] = _config5_main(dev)
+    # configs 1 and 2: plain tensor work; cli-match-1024: the CLI frame's
+    # kernels after the pre-alignment
+    counts["config1"] = _config1_main(dev)
+    counts["config2"] = _config2_main(dev)
+    counts["cli_match"] = _cli_match_main(dev)
     return counts
 
 
@@ -1388,6 +1453,313 @@ def _config5_main(dev, n=H):
     routes = _config5_check(srcs, plans, out, valid, n, dev)
     if n >= 1024 and set(routes) != {"separable"}:
         raise SystemExit(f"config5 {n}^2: expected the 1-D route for every source: {routes}")
+    return counts
+
+
+# ---- configs 1 and 2, cli-match-1024 ------------------------------------------
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _config1_run(img, dev):
+    """Config 1: the Gaussian blur, then the pyramid's blur-downsamples."""
+    import torch
+    from visionworkbench_torch.image.filters import gaussian_filter
+    from visionworkbench_torch.stereo.pyramid_correlation import _blur_downsample
+    out = [gaussian_filter(torch.as_tensor(img, device=dev), C1_SIGMA)]
+    for _ in range(C1_LEVELS):
+        out.append(_blur_downsample(out[-1]))
+    return out
+
+
+def _config1_main(dev, n=H):
+    """config1-1024: the launch counts around one pyramid (no kernel of
+    csrc/ is on this path), its shapes, and card = CPU bit for bit (every
+    tap a multiply and an add of its own)."""
+    import torch
+    img = _texture(n, n, CONFIG7_SEED)[:, :n]
+    t = torch.as_tensor(img, device=dev)
+    _reset_counts()
+    out = _config1_run(t, dev)
+    _sync(dev)
+    counts = _read_counts()
+    print(f"[main] config1: launches {counts}")
+    if any(counts.values()):
+        raise SystemExit(f"config1: a kernel of csrc/ ran on the pyramid's path: {counts}")
+    shapes = [tuple(o.shape) for o in out]
+    want = [(-(-n // (1 << i)),) * 2 for i in range(C1_LEVELS + 1)]
+    cpu = _config1_run(img, "cpu")
+    same = [torch.equal(a.cpu(), b) for a, b in zip(out, cpu)]
+    print(f"[main] config1 {n}^2: levels {shapes}; card = CPU per level: {same}")
+    if shapes != want or not all(same):
+        raise SystemExit(f"config1: shapes {shapes} (want {want}) or card != CPU {same}")
+    return counts
+
+
+def _config2_pair(n):
+    """Config 2's pair: tex[:, :n] and tex[:, 16:16 + n] of the texture of
+    seed 11, so a left point at x matches the right one at x - 16."""
+    tex = _texture(n, n, CONFIG7_SEED)
+    return tex[:, :n].copy(), tex[:, 16:16 + n].copy()
+
+
+def _config2_run(a, b, dev):
+    """Config 2: upright single-scale Harris (512 points, threshold 1e-8),
+    upright sgrad descriptors, ratio-test matching."""
+    from visionworkbench_torch.interest import describe, detect_points, match_points
+    pa = describe(a, detect_points(a, "harris", max_points=C2_POINTS,
+                                   threshold=C2_THRESHOLD, device=dev), upright=True)
+    pb = describe(b, detect_points(b, "harris", max_points=C2_POINTS,
+                                   threshold=C2_THRESHOLD, device=dev), upright=True)
+    return pa, pb, match_points(pa, pb, ratio=C2_RATIO)
+
+
+def _point_share(ref, got, tol=1e-3):
+    """Share of ``ref``'s valid points with a ``got`` point within ``tol`` px."""
+    r, g = ref.to_numpy(), got.to_numpy()
+    a = np.stack([r["x"], r["y"]], -1)
+    b = np.stack([g["x"], g["y"]], -1)
+    near = np.full(len(a), np.inf)
+    for i in range(0, len(a), 256):
+        near[i:i + 256] = np.sqrt(((a[i:i + 256, None] - b[None]) ** 2).sum(-1)).min(1)
+    return float((near <= tol).mean()), len(a)
+
+
+def _config2_main(dev, n=H):
+    """config2-1024: the launch counts around one pair (no kernel of csrc/),
+    the sanity of the matches (>= 0.9 of them within 0.5 px of the pair's
+    shift), then card against CPU: ``_peaks_to_points`` on one shared
+    response map (the whole tuple equal), the point sets by share (>= 0.99
+    of the CPU's points within 1e-3 px) and the ok match counts within 1 %."""
+    import torch
+    from visionworkbench_torch.interest import detector, harris_interest
+    from visionworkbench_torch.interest.matcher import matched_coordinates
+    a, b = _config2_pair(n)
+    ta, tb = (torch.as_tensor(x, device=dev) for x in (a, b))
+    _reset_counts()
+    pa, pb, m = _config2_run(ta, tb, dev)
+    _sync(dev)
+    counts = _read_counts()
+    print(f"[main] config2: launches {counts}")
+    if any(counts.values()):
+        raise SystemExit(f"config2: a kernel of csrc/ ran on the matcher's path: {counts}")
+    c1, c2 = matched_coordinates(pa, pb, m)
+    d = c1 - c2
+    good = (np.abs(d[:, 0] - 16.0) <= 0.5) & (np.abs(d[:, 1]) <= 0.5)
+    share = float(good.mean()) if len(d) else 0.0
+    print(f"[main] config2 {n}^2: {pa.count()} and {pb.count()} points, {len(d)} ok "
+          f"matches, {share:.4f} of them within 0.5 px of (16, 0)")
+    if len(d) < 50 or share < 0.9:
+        raise SystemExit(f"config2: {len(d)} matches, {share:.4f} within 0.5 px of the shift")
+    resp = harris_interest(a, device="cpu")
+    for k in (C2_POINTS, ((n + 1) // 2) ** 2):
+        cpu = detector._peaks_to_points(resp, C2_THRESHOLD, k)
+        card = detector._peaks_to_points(resp.to(dev), C2_THRESHOLD, k)
+        same = [torch.equal(x, y.cpu()) for x, y in zip(cpu, card)]
+        print(f"[slice] config2 _peaks_to_points on one response, {k} slots: card = CPU "
+              f"(x, y, interest, valid): {same}")
+        if not all(same):
+            raise SystemExit("config2: _peaks_to_points differs card vs CPU")
+    qa, qb, mc = _config2_run(a, b, "cpu")
+    shares = [_point_share(c, g) for c, g in ((qa, pa), (qb, pb))]
+    ok_gpu, ok_cpu = int(m.valid.sum()), int(mc.valid.sum())
+    print(f"[slice] config2 {n}^2: CPU points with a card point within 1e-3 px "
+          f"{shares}; ok matches card {ok_gpu}, CPU {ok_cpu}")
+    if min(s for s, _ in shares) < 0.99 or abs(ok_gpu - ok_cpu) > 0.01 * ok_cpu:
+        raise SystemExit("config2: card and CPU point sets or match counts differ")
+    return counts
+
+
+def _rotation(n, degrees=MATCH_ROTATION_DEG):
+    from visionworkbench_torch.math.transform2d import RotateTransform
+    return RotateTransform(np.radians(degrees), ((n - 1) / 2.0, (n - 1) / 2.0))
+
+
+def _cli_match_files(n, dev, folder):
+    """cli-match's pair as float32 TIFFs: the bench pair's left image and its
+    right image rotated by MATCH_ROTATION_DEG about its centre
+    (``image/transform.rotate``); also the exact match file, right points
+    first (see ``MATCH_ORDER``): 200 correspondences under the true map
+    (left -> rotated right: the shift, then the rotation) and 50 right
+    points at least 50 px off it."""
+    import os
+    import torch
+    from visionworkbench_torch.fileio import write_tiff
+    from visionworkbench_torch.image.transform import rotate
+    from visionworkbench_torch.interest.io import write_binary_match_file
+    left, right = _make_pair(n, n)
+    right = rotate(torch.as_tensor(right, device=dev), np.radians(MATCH_ROTATION_DEG))
+    paths = [os.path.join(folder, f) for f in ("left.tif", "right.tif", "exact.match")]
+    write_tiff(paths[0], left)
+    write_tiff(paths[1], right.cpu().numpy())
+    rng = np.random.default_rng(17)
+    p_left = rng.random((250, 2)) * (n - 1)
+    q = np.hstack([p_left + [16.0, 0.0], np.ones((250, 1))]) @ _rotation(n).matrix.T
+    p_right = q[:, :2] / q[:, 2:]
+    off = rng.random((50, 2)) * 60 + 40                     # >= 56 px off
+    p_right[200:] += off * rng.choice([-1.0, 1.0], (50, 2))
+    write_binary_match_file(paths[2], {"x": p_right[:, 0], "y": p_right[:, 1]},
+                            {"x": p_left[:, 0], "y": p_left[:, 1]})
+    return paths
+
+
+def _tool(main, argv, dev):
+    """(exit code, printed text, wall seconds) of one of the port's CLIs."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv, device=dev)
+    wall = time.perf_counter() - t0
+    return rc, buf.getvalue(), wall
+
+
+def _cli_match_chain(paths, dev, folder, match=None, first=1):
+    """ipfind (harris, single scale) on both images, ipmatch (similarity
+    RANSAC) on image ``first`` and then the other (1: right first, the order
+    the pre-alignment aligns; 0: left first, as ipmatch is usually run),
+    then correlate --match-file (``match``: the exact file instead of
+    ipmatch's): {tool: (printed text, wall s)}, the DisparityMap read back
+    from the output TIFF, and the match file."""
+    import os
+    import torch
+    from visionworkbench_torch.fileio import read_tiff
+    from visionworkbench_torch.stereo.correlation import DisparityMap
+    from visionworkbench_torch.tools import correlate, ipfind, ipmatch
+    out = {}
+    if match is None:
+        order = [paths[first], paths[1 - first]]
+        for name, main, argv in (
+                ("ipfind", ipfind.main, [*paths[:2], *MATCH_IPFIND]),
+                ("ipmatch", ipmatch.main, [*order, "--output-prefix",
+                                           os.path.join(folder, "")])):
+            rc, text, wall = _tool(main, argv, dev)
+            if rc != 0:
+                raise SystemExit(f"cli_match: {name} failed: {text}")
+            out[name] = (text, wall)
+        stems = (os.path.splitext(os.path.basename(p))[0] for p in order)
+        match = os.path.join(folder, "__".join(stems) + ".match")
+    prefix = os.path.join(folder, "disparity")
+    rc, text, wall = _tool(correlate.main, [*paths[:2], "--match-file", match, "-o", prefix,
+                                            *MATCH_CORRELATE], dev)
+    if rc != 0:
+        raise SystemExit(f"cli_match: correlate failed: {text}")
+    out["correlate"] = (text, wall)
+    disp, _ = read_tiff(prefix + ".tif")
+    return out, DisparityMap(torch.as_tensor(disp[..., :2]), torch.as_tensor(disp[..., 2] > 0.5)), match
+
+
+def _inliers(text):
+    m = re.search(r"Pre-alignment homography from (\d+) inliers", text)
+    if m is None:
+        raise SystemExit(f"cli_match: correlate printed no pre-alignment: {text}")
+    return int(m.group(1))
+
+
+def _prealign_error(match, n, dev):
+    """The largest distance over the frame between the pre-alignment that
+    ``match`` gives and the true map: |T^-1(R(x + s)) - x|, T the homography
+    correlate fits (the same ransac call), R the rotation and s the bench
+    shift (the warp samples the rotated right image at T x, and left(x) =
+    rotated(R(x + s)))."""
+    from visionworkbench_torch.interest.io import read_binary_match_file
+    from visionworkbench_torch.math.ransac import ransac
+    d1, d2 = read_binary_match_file(match)
+    t, _ = ransac(np.stack([d2["x"], d2["y"]], -1), np.stack([d1["x"], d1["y"]], -1),
+                  "homography", 10.0, 100, device=dev)
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64)
+    r = _rotation(n).matrix
+    q = np.stack([xx + 16.0, yy, np.ones_like(xx)], -1) @ r.T @ np.linalg.inv(t.matrix).T
+    d = np.stack([q[..., 0] / q[..., 2] - xx, q[..., 1] / q[..., 2] - yy], -1)
+    return float(np.sqrt((d ** 2).sum(-1)).max())
+
+
+def _true_share(dm, n):
+    """The interior's (a margin of n / 16) valid share, and the share of its
+    valid pixels whose disparity is within 0.5 px of the true map's in both
+    components: 0, since the true pre-alignment leaves left(x) = warped(x)."""
+    d, v = dm.to_numpy()
+    m = n // 16
+    core = np.s_[m:-m, m:-m]
+    ok = (np.abs(d) <= 0.5).all(-1)[core][v[core]]
+    return float(v[core].mean()), float(ok.mean()) if ok.size else 0.0
+
+
+def _check_chain(dm, match, n, dev, what, bound):
+    """>= 0.9 of the valid interior within 0.5 px of the true disparity, and
+    the pre-alignment within ``bound`` px of the true map."""
+    valid, share = _true_share(dm, n)
+    err = _prealign_error(match, n, dev)
+    print(f"[main] {what} {n}^2: pre-alignment within {err:.4f} px of the true map "
+          f"(bound {bound}); interior valid {valid:.4f}, within 0.5 px of the true "
+          f"disparity {share:.4f}")
+    if valid < 0.5 or share < 0.9 or err > bound:
+        raise SystemExit(f"{what}: {share:.4f} of the valid interior within 0.5 px, "
+                         f"pre-alignment {err:.4f} px off the true map")
+
+
+def _match_levels(n=H):
+    """The coarsest level of correlate --match-file's frame (the CLI's
+    defaults on MATCH_SEARCH)."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo.pyramid_correlation import max_pyramid_levels_for
+    return max_pyramid_levels_for(n, n, CLI_KERNEL, BBox2i(*MATCH_SEARCH), CLI_LEVELS)
+
+
+def _match_launches(n=H):
+    """The launches of correlate --match-file's frame: one abs sweep a level
+    on band_sweep_kernel (levels as the CLI's defaults and MATCH_SEARCH
+    give them), two speckle passes a level above 0 and one at 0."""
+    from visionworkbench_torch.ops import sweep
+    from visionworkbench_torch.stereo.pyramid_correlation import level_searches
+    levels = _match_levels(n)
+    plan = level_searches(n, n, levels, MATCH_SEARCH[2:], 11, None, 0.0, None)
+    print("[main] cli_match: sweep kernel by level (level, window, kernel): " + ", ".join(
+        f"{lv}: {sx}x{sy} band_sweep_kernel<abs, {sweep._sweep_variant('abs', TILE, sx, sy, *CLI_KERNEL, 0)}>"
+        for lv, _, _, sx, sy in plan))
+    return {"sweep": levels + 1, "sweep/band": levels + 1, "speckle": 2 * levels + 1}
+
+
+def _cli_match_main(dev, n=H):
+    """cli-match-1024: the chain a user runs (ipfind -> ipmatch -> correlate
+    --match-file) with the launch counts set to 0 before it (only the
+    correlation launches kernels of csrc/), then the CLI once more on the
+    exact match file (its printed inlier count 200), each held against the
+    true map; then the chain on ipmatch's (left, right) file, which must
+    fail the gate while the pre-alignment is the JAX package's."""
+    folder = tempfile.mkdtemp(prefix="chip_smoke_cli_match_")
+    paths = _cli_match_files(n, dev, folder)
+    _reset_counts()
+    out, dm, match = _cli_match_chain(paths, dev, folder)
+    _sync(dev)
+    counts = _read_counts()
+    print(f"[main] cli_match: launches {counts}; " + "; ".join(
+        f"{k} {w:.4f} s: {t.strip().splitlines()[-1]}" for k, (t, w) in out.items()))
+    want = {**{k: 0 for k in counts}, **_match_launches(n)}
+    if counts != want:
+        raise SystemExit(f"cli_match: expected launches {want}, got {counts}")
+    _check_chain(dm, match, n, dev, "cli_match", MATCH_PREALIGN_BOUND)
+    out2, dm2, _ = _cli_match_chain(paths, dev, folder, paths[2])
+    k = _inliers(out2["correlate"][0])
+    print(f"[main] cli_match exact file (200 correspondences, 50 outliers): {k} inliers")
+    if k != 200:
+        raise SystemExit(f"cli_match: {k} inliers printed on the exact file, not 200")
+    _check_chain(dm2, paths[2], n, dev, "cli_match exact", MATCH_EXACT_BOUND)
+    _, dm3, match3 = _cli_match_chain(paths, dev, folder, first=0)
+    valid, share = _true_share(dm3, n)
+    print(f"[main] cli_match left-first ({match3.rsplit('/', 1)[-1]}; ROADMAP section 3): "
+          f"pre-alignment within {_prealign_error(match3, n, dev):.4f} px of the true "
+          f"map; interior valid {valid:.4f}, within 0.5 px of the true disparity "
+          f"{share:.4f} (must stay under 0.9)")
+    if share >= 0.9:
+        raise SystemExit("cli_match left-first: the pre-alignment now aligns an ipmatch "
+                         "(left, right) file; the fault in ROADMAP section 3 is fixed: "
+                         "update this check and that entry")
+    shutil.rmtree(folder)
     return counts
 
 
@@ -1775,6 +2147,7 @@ def phase_timings(dev):
     _time_cli(lt, rt, dev, frame)
     _time_quality(lt, rt, dev, frame)
     _time_config5(dev, frame)
+    _time_interest(dev, frame)
     census = {"cost_type": "census", "census_window": CENSUS_WINDOW}
     for what, kwargs in (("config4", census),
                          ("config4_lr", {**census, "consistency_threshold": 2.0})):
@@ -2128,6 +2501,58 @@ def _time_config5(dev, frame, n=H):
                         "first_ms": first_ms}
 
 
+def _host_ops(run, what, top=10):
+    """The host's self time per frame by PyTorch operator (torch.profiler,
+    CPU activity), the largest first: where a host-bound frame spends its
+    time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
+    print(f"[profile] {what} host self time by operator: " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in ops))
+
+
+def _time_interest(dev, frame, n=H):
+    """config1-1024 and config2-1024: median ms over 10 frames after 2
+    warm-ups, Mp/s (n^2 / t for config 1; 2 n^2 / t for config 2, as the
+    config divides), device time by kernel, idle share, launches and peak
+    memory. cli-match-1024: each tool's wall time (TIFF IO included;
+    median of 3 chains after one), and the chain's device time and
+    launches (profiler, one chain)."""
+    import torch
+    img = torch.as_tensor(_texture(n, n, CONFIG7_SEED)[:, :n], device=dev)
+    a, b = (torch.as_tensor(x, device=dev) for x in _config2_pair(n))
+    for what, run, px in (("config1", lambda: _config1_run(img, dev), n * n),
+                          ("config2", lambda: _config2_run(a, b, dev), 2 * n * n)):
+        ms = _time_ms(run, reps=10)
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        busy, launches = _profile_frame(run, what, ms)
+        _host_ops(run, what)
+        print(f"[time] frame {what} ({n}^2): {ms:.4f} ms, {px / (ms * 1e3):.3f} Mp/s, "
+              f"peak memory {peak:.1f} MiB")
+        frame[what] = {"ms": ms, "mps": px / (ms * 1e3), "device_ms": busy,
+                       "launches": launches, "peak_mib": peak}
+    folder = tempfile.mkdtemp(prefix="chip_smoke_cli_match_")
+    paths = _cli_match_files(n, dev, folder)
+    _cli_match_chain(paths, dev, folder)
+    walls = [{k: w for k, (_, w) in _cli_match_chain(paths, dev, folder)[0].items()}
+             for _ in range(3)]
+    med = {k: statistics.median(w[k] for w in walls) for k in walls[0]}
+    chain_ms = sum(med.values()) * 1e3
+    busy, launches = _profile_frame(lambda: _cli_match_chain(paths, dev, folder), "cli_match",
+                                    chain_ms, frames=1)
+    _host_ops(lambda: _cli_match_chain(paths, dev, folder), "cli_match", top=14)
+    shutil.rmtree(folder)
+    print(f"[time] cli_match (ipfind on both {n}^2 images, ipmatch, correlate --match-file; "
+          f"TIFF IO included): median wall " + ", ".join(f"{k} {v:.4f} s" for k, v in med.items())
+          + f"; chain {chain_ms / 1e3:.4f} s; device {busy} ms, {launches} launches")
+    frame["cli_match"] = {**{f"{k}_s": v for k, v in med.items()}, "ms": chain_ms,
+                          "device_ms": busy, "launches": launches}
+
+
 def _sweep_work(base, match, offs, tile, sx, sy, kw, kh, cost, want_patches,
                 census_window=5):
     """(bytes, operations) of one sweep: each input read once, each output
@@ -2317,12 +2742,15 @@ def main() -> int:
             # the scans: launches of the register-carry kernel on the path
             launches = (c[f"{k}/mgm_scan"] if f"{k}/mgm_scan" in c
                         else c[k if k in c else "sweep"])
-        # launches per config-7 frame of the kernels its path runs
+        # launches per config-7 frame and per cli-match correlation of the
+        # kernels their paths run
         c7 = {"sweep_census": "sweep", "speckle": "speckle"}.get(k)
+        cm = {"sweep_cli": "sweep", "speckle": "speckle"}.get(k)
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             **({"config7_launches": counts["config7_em"][c7]} if c7 else {}),
+            **({"cli_match_launches": counts["cli_match"][cm]} if cm else {}),
             "max_abs_err": err[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
@@ -2349,7 +2777,8 @@ def main() -> int:
                           "prefilter_launches", "prefilter_share", "blob_passes",
                           "blob_ms", "snake_passes", "snake_ms")},
                       **{f"{what}_{k}": v for what in ("config7_em", "config7_affine",
-                                                       "cli_em", "config5")
+                                                       "cli_em", "config5", "config1",
+                                                       "config2", "cli_match")
                          for k, v in frame[what].items()},
                       "card": smi}))
     print(smi)

@@ -22,7 +22,6 @@ from visionworkbench_tpu.fileio import exr as jexr
 from visionworkbench_tpu.tools.correlate import main as jmain
 from visionworkbench_torch import fileio as tfio
 from visionworkbench_torch.fileio import exr as texr
-from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.math.bbox import BBox2i
 from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
 from visionworkbench_torch.tools.correlate import main as tmain
@@ -125,7 +124,9 @@ def test_correlate_cli_matches_jax(tmp_path, capsys):
 
 def test_correlate_cli_em_and_match_file(tmp_path):
     """``--subpixel em`` writes what ``pyramid_correlate`` returns for the
-    same options (masks from the nodata tag); ``--match-file`` raises."""
+    same options (masks from the nodata tag); ``--match-file`` reads its
+    file before any correlation (a missing one raises; the pre-alignment
+    itself: ``tests/test_torch_ipfind_ipmatch.py``)."""
     lp, rp, left, right = _cli_pair(tmp_path)
     args = [lp, rp, "--kernel", "7", "7", "--cost-mode", "census",
             "--max-pyramid-levels", "4", "--subpixel", "em", "--prefilter", "none",
@@ -138,6 +139,6 @@ def test_correlate_cli_em_and_match_file(tmp_path):
     d, v = dm.to_numpy()
     np.testing.assert_array_equal(got[..., 2], v.astype(np.float32))
     np.testing.assert_array_equal(got[..., :2], d)
-    with pytest.raises(ArgumentErr, match="interest/io"):
+    with pytest.raises(FileNotFoundError):
         tmain([lp, rp, "--match-file", str(tmp_path / "x.match")], device="cpu")
     assert not os.path.exists("disparity.tif")

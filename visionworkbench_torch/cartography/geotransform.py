@@ -11,7 +11,8 @@ from typing import Tuple
 import numpy as np
 
 from visionworkbench_torch.cartography.georeference import GeoReference
-from visionworkbench_torch.image.transform import _dest_grid, _image, sample
+from visionworkbench_torch.core.device import on_device
+from visionworkbench_torch.image.transform import _dest_grid, sample
 from visionworkbench_torch.math.bbox import BBox2, BBox2i
 
 
@@ -60,7 +61,7 @@ def reproject_image(src, src_georef: GeoReference, dst_georef: GeoReference,
     GeoTransform(...))``, SURVEY.md section 3.5): the reverse map of every
     output pixel on the device, then :func:`sample`. Runs on ``src``'s
     device when it is a tensor, else on ``device`` (``None`` = the card)."""
-    src = _image(src, device)
+    src = on_device(src, device)
     tx = GeoTransform(src_georef, dst_georef)
     xs, ys = _dest_grid(int(out_shape[0]), int(out_shape[1]), src.device)
     sx, sy = tx.reverse(xs, ys)

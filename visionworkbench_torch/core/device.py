@@ -15,6 +15,14 @@ def as_tensor(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+def on_device(x, device=None, dtype=None) -> torch.Tensor:
+    """``x`` as a tensor (of ``dtype`` when given): a tensor keeps its
+    device, anything else goes to ``device`` (``None`` = the card)."""
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None else x.to(dtype)
+    return as_tensor(x, dtype, resolve_device(device))
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; raises when a CUDA device is asked for and no
     card is present. ``"cpu"`` runs the plain PyTorch versions."""

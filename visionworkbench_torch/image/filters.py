@@ -179,3 +179,31 @@ def laplacian_filter(src, edge: str = "constant"):
     package."""
     kernel = np.array([[0, 1, 0], [1, -4, 1], [0, 1, 0]], np.float64)
     return convolution_filter(src, kernel, 1, 1, edge=edge)
+
+
+def sobel_filter(src, do_x_deriv: bool, edge: str = "constant"):
+    """3x3 Sobel derivative (ref ``sobel_filter``, Filter.h:338-360)."""
+    if do_x_deriv:
+        kernel = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float64)
+    else:
+        kernel = np.array([[-1, -2, -1], [0, 0, 0], [1, 2, 1]], np.float64)
+    return convolution_filter(src, kernel, 1, 1, edge=edge)
+
+
+def gaussian_derivative_filter(src, sigma1: float, deriv1: int, sigma2: float,
+                               deriv2: int, angle: float, size: int,
+                               edge: str = "constant"):
+    """Oriented Gaussian-derivative filter: true 2D convolution with the
+    kernel of :func:`generate_gaussian_derivative_kernel`."""
+    kernel = generate_gaussian_derivative_kernel(sigma1, deriv1, sigma2, deriv2, angle, size)
+    return convolution_filter(src, kernel, edge=edge)
+
+
+def laplacian_of_gaussian_filter(src, sigma: float, size: int = 0, edge: str = "constant"):
+    """Laplacian-of-Gaussian filter: true 2D convolution with the kernel of
+    :func:`generate_laplacian_of_gaussian_kernel`; ``size`` 0 takes the
+    Gaussian's default size."""
+    if size == 0:
+        size = compute_kernel_size(sigma)
+    kernel = generate_laplacian_of_gaussian_kernel(sigma, size)
+    return convolution_filter(src, kernel, edge=edge)

@@ -28,7 +28,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from visionworkbench_torch.core.device import as_f32, as_tensor, resolve_device
+from visionworkbench_torch.core.device import as_f32, as_tensor, on_device, resolve_device
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.edge import edge_extend
 from visionworkbench_torch.image.interpolation import interpolate, pixel_buffer
@@ -48,14 +48,6 @@ _TAPS = {
 # for separability (below it the JAX package's banded sampler, which uses
 # the 2-D coordinates, always wins).
 _SEP_MIN_AREA = 64
-
-
-def _image(src, device) -> torch.Tensor:
-    """``src`` as a tensor: a tensor keeps its device, an array goes to
-    ``device`` (``None`` = the card)."""
-    if isinstance(src, torch.Tensor):
-        return src
-    return as_tensor(src, None, resolve_device(device))
 
 
 def _dest_grid(h: int, w: int, device):
@@ -79,7 +71,7 @@ def transform(src, tx, out_shape: Optional[Tuple[int, int]] = None,
     ``out_shape`` defaults to the source shape. Runs on ``src``'s device
     when it is a tensor, else on ``device`` (``None`` = the card).
     """
-    src = _image(src, device)
+    src = on_device(src, device)
     if out_shape is None:
         out_shape = (src.shape[0], src.shape[1])
     oh, ow = int(out_shape[0]), int(out_shape[1])
@@ -93,7 +85,7 @@ def sample(src, sx, sy, interp: str = "bilinear", edge: str = "zero",
            edge_value: float = 0.0, device=None):
     """Sample ``src`` at float source coordinates with edge policy: the
     composition ``interpolate(edge_extend(src))`` from the reference."""
-    src = _image(src, device)
+    src = on_device(src, device)
     sx = as_f32(sx).to(src.device)
     sy = as_f32(sy).to(src.device)
     buf = pixel_buffer(interp) + 1
@@ -364,6 +356,6 @@ def warp_from_grid(src, sx_g, sy_g, grid_step: int,
     then of columns, on 1-D coordinates; any other map through
     :func:`sample` on 2-D ones (:func:`warp_route`). Runs on ``src``'s
     device when it is a tensor, else on ``device`` (``None`` = the card)."""
-    src = _image(src, device)
+    src = on_device(src, device)
     coords = grid_coords(sx_g, sy_g, grid_step, out_shape, interp, src.device)
     return warp_with(src, coords, interp=interp, edge=edge)

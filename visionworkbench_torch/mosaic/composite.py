@@ -25,7 +25,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from visionworkbench_torch.core.device import as_tensor, resolve_device
+from visionworkbench_torch.core.device import as_tensor, on_device, resolve_device
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.filters import generate_pyramid_smoothing_kernel
 from visionworkbench_torch.image.morphology import grassfire
@@ -62,14 +62,8 @@ def _upsample_to(img, shape):
     return _sample_separable(img, xs, ys, interp="bilinear", edge="constant")
 
 
-def _as_image(x, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(torch.float32)
-    return as_tensor(x, torch.float32, resolve_device(device))
-
-
 def gaussian_pyramid(img, levels: int, device=None) -> List[torch.Tensor]:
-    pyr = [_as_image(img, device)]
+    pyr = [on_device(img, device, torch.float32)]
     for _ in range(levels):
         pyr.append(_downsample(pyr[-1]))
     return pyr
@@ -101,7 +95,7 @@ def blend_levels_for(height: int, width: int) -> int:
 def _alphas(masks, alphas, device):
     if alphas is None:
         return [grassfire(m, device).to(torch.float32) for m in masks]
-    return [_as_image(a, device) for a in alphas]
+    return [on_device(a, device, torch.float32) for a in alphas]
 
 
 def _sum(xs):
@@ -123,7 +117,7 @@ def multiband_blend(images, masks, levels: Optional[int] = None,
     ``device`` (``None`` = the card)."""
     if len(images) != len(masks) or not images:
         raise ArgumentErr("multiband_blend: need equal non-empty image/mask lists")
-    images = [_as_image(im, device) for im in images]
+    images = [on_device(im, device, torch.float32) for im in images]
     dev = images[0].device
     masks = [m.to(dev) if isinstance(m, torch.Tensor)
              else as_tensor(np.asarray(m, bool), torch.bool, dev) for m in masks]
@@ -160,7 +154,7 @@ def multiband_blend(images, masks, levels: Optional[int] = None,
 def feather_blend(images, masks, device=None):
     """Draft-mode blend: grassfire-weighted average, no pyramids
     (ref draft mode, ImageComposite.h)."""
-    images = [_as_image(im, device) for im in images]
+    images = [on_device(im, device, torch.float32) for im in images]
     alphas = _alphas(masks, None, images[0].device)
     total = _sum(alphas)
     valid = total > 0

@@ -10,9 +10,9 @@ writes a tiled TIFF of three float32 bands: dx, dy and validity.
     python -m visionworkbench_torch.tools.correlate left.tif right.tif --subpixel em
 
 Same arguments and defaults as the JAX package's CLI. ``--match-file``
-pre-alignment raises: it needs ``interest/io``, ``math/ransac``,
-``math/transform2d`` and ``image/transform``, which the port does not have
-yet.
+pre-aligns the right image as the JAX package does: a RANSAC homography
+(100 hypotheses, 10 px) fitted from the file's right points to its left
+points, the right image warped by its inverse on the run's device.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--blob-filter-area", type=int, default=0)
     p.add_argument("--match-file", default=None,
                    help="pre-align right image with a RANSAC homography fit "
-                        "to this .match file (not ported yet: raises)")
+                        "to this .match file")
     p.add_argument("--tile-size", type=int, default=64,
                    help="refinement tile size (search offsets granularity)")
     p.add_argument("--corr-timeout", type=float, default=0.0,
@@ -78,20 +78,35 @@ def _nodata_mask(path: str, img: np.ndarray):
     return None if nd is None else img != nd
 
 
+def _prealign(match_file: str, right: np.ndarray, shape, dev):
+    """``right`` warped on ``dev`` by the inverse of the RANSAC homography
+    (``ransac(p2, p1, "homography", 10.0, 100)``) of ``match_file``, to
+    ``shape``'s height and width."""
+    import torch
+    from visionworkbench_torch.image.transform import transform
+    from visionworkbench_torch.interest.io import read_binary_match_file
+    from visionworkbench_torch.math.ransac import ransac
+    from visionworkbench_torch.math.transform2d import HomographyTransform
+    d1, d2 = read_binary_match_file(match_file)
+    p1 = np.stack([d1["x"], d1["y"]], -1)
+    p2 = np.stack([d2["x"], d2["y"]], -1)
+    t, inliers = ransac(p2, p1, "homography", 10.0, 100, device=dev)
+    print(f"Pre-alignment homography from {len(inliers)} inliers")
+    return transform(torch.as_tensor(right, device=dev),
+                     HomographyTransform(t.matrix).inverse(), (shape[0], shape[1]))
+
+
 def main(argv=None, device=None) -> int:
     """Run the CLI on ``argv`` (``sys.argv[1:]`` when None); ``device``:
     ``None`` = the card, ``"cpu"`` the plain PyTorch path."""
     args = build_parser().parse_args(argv)
-    from visionworkbench_torch.core.exceptions import ArgumentErr
+    from visionworkbench_torch.core.device import resolve_device
     from visionworkbench_torch.core.stopwatch import Timer
     from visionworkbench_torch.fileio import read_image, write_tiff
     from visionworkbench_torch.math.bbox import BBox2i
     from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
 
-    if args.match_file:
-        raise ArgumentErr("correlate: --match-file pre-alignment is not ported "
-                          "yet (it needs interest/io, math/ransac, "
-                          "math/transform2d and image/transform)")
+    dev = resolve_device(device)
     left = read_image(args.left, np.float32)
     right = read_image(args.right, np.float32)
     if left.ndim == 3:
@@ -101,6 +116,8 @@ def main(argv=None, device=None) -> int:
     # nodata -> validity masks (ref correlate.cc mask handling)
     left_mask = _nodata_mask(args.left, left)
     right_mask = _nodata_mask(args.right, right)
+    if args.match_file:
+        right = _prealign(args.match_file, right, left.shape, dev)
 
     search = BBox2i(args.xoffset, args.yoffset, args.xrange, args.yrange)
     algo = "mgm" if args.use_mgm else ("sgm" if args.use_sgm else "bm")
@@ -115,7 +132,7 @@ def main(argv=None, device=None) -> int:
             tile_size=args.tile_size, subpixel=args.subpixel,
             blob_filter_area=args.blob_filter_area,
             stereo_algorithm=algo, corr_timeout=args.corr_timeout,
-            device=device)
+            device=dev)
         disp, valid = dm.to_numpy()
 
     out = np.concatenate([disp.astype(np.float32),
