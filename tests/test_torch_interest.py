@@ -354,11 +354,6 @@ def test_concatenate_and_not_ported(scene):
     c = tint.concatenate_points([a, a])
     assert c.capacity == 16 and c.descriptor is None
     assert tint.concatenate_points([b, b]).descriptor.shape == (16, 289)
-    for fn in (tdet.detect_points_dog, tdet.detect_points_obalog,
-               tdet.assign_orientations_scaled, tdet.detect_sift_like,
-               tdesc.sift_orient_describe):
-        with pytest.raises(ArgumentErr, match="queue 1 item 3"):
-            fn(img)
     with pytest.raises(ArgumentErr):
         tint.detect_points(img, "sobel")
     with pytest.raises(ArgumentErr):

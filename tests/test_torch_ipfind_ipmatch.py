@@ -32,7 +32,6 @@ from visionworkbench_tpu.tools import correlate as jcorr
 from visionworkbench_tpu.tools import ipfind as jfind
 from visionworkbench_tpu.tools import ipmatch as jmatch
 import visionworkbench_torch.interest.io as tio
-from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.fileio import read_tiff, write_tiff
 from visionworkbench_torch.tools import correlate as tcorr
 from visionworkbench_torch.tools import ipfind as tfind
@@ -99,11 +98,53 @@ def test_ipfind_matches_jax(pair, tmp_path, opts, capsys):
     assert np.linalg.norm(diff, axis=1).max() <= 0.1
 
 
+@pytest.fixture(scope="module")
+def jax_sift_files(pair, tmp_path_factory):
+    """The JAX CLI's ``.vwip`` of a.tif with its default operator (``sift``;
+    ``dog`` is the same path) and with ``obalog``."""
+    _, paths, _ = pair
+    out = {}
+    for op in ("sift", "obalog"):
+        folder = tmp_path_factory.mktemp(f"jax_{op}")
+        assert jfind.main([paths[0], "--interest-operator", op, "--output-dir",
+                           str(folder)]) == 0
+        out[op] = _points(str(folder / "a.vwip"))
+    return out
+
+
 @pytest.mark.parametrize("op", ["sift", "dog", "obalog", None])
-def test_ipfind_sift_class_raises(pair, op):
-    args = [pair[1][0]] + ([] if op is None else ["--interest-operator", op])
-    with pytest.raises(ArgumentErr, match="queue 1 item 3"):
-        tfind.main(args, device="cpu")
+def test_ipfind_sift_class_matches_jax(pair, jax_sift_files, tmp_path, op):
+    """The SIFT-class operators and the default one (``sift``) against the
+    JAX CLI: points paired by nearest neighbour, then orientations and
+    descriptors on the pairs, as ``tests/test_torch_sift.py`` states the
+    tolerances (measured: every DoG point at 0 px, 0.95 of the
+    orientations within 1e-4 rad, 0.947 of their descriptors within 1e-5,
+    L2 <= 0.010). OBALoG's points move with the JAX package's fp32 integral
+    images (measured: 446 of 448 within 0.01 px, one 0.25 px off on a flat
+    peak), and its rotated-support descriptors with them (L2 median 2.8e-5,
+    p95 0.029, max 0.109)."""
+    args = [pair[1][0], "--output-dir", str(tmp_path)]
+    args += [] if op is None else ["--interest-operator", op]
+    assert tfind.main(args, device="cpu") == 0
+    got = _points(str(tmp_path / "a.vwip"))
+    ref = jax_sift_files["obalog" if op == "obalog" else "sift"]
+    a = np.stack([ref["x"], ref["y"]], -1)
+    b = np.stack([got["x"], got["y"]], -1)
+    dist = np.sqrt(((a[:, None] - b[None]) ** 2).sum(-1))
+    paired = dist.min(1) <= (1e-2 if op == "obalog" else 1e-3)
+    assert len(a) >= 20 and abs(len(a) - len(b)) <= 0.01 * len(a)
+    assert paired.mean() >= 0.99
+    i = np.flatnonzero(paired)
+    j = dist.argmin(1)[i]
+    d = np.abs(got["orientation"][j] - ref["orientation"][i])
+    agree = np.minimum(d, 2 * np.pi - d) <= 1e-4
+    assert agree.mean() >= 0.9
+    diff = (got["descriptor"][j] - ref["descriptor"][i])[agree]
+    l2 = np.linalg.norm(diff, axis=1)
+    if op == "obalog":
+        assert np.median(l2) <= 1e-3 and (l2 <= 0.1).mean() >= 0.95
+    else:
+        assert (np.abs(diff).max(1) <= 1e-5).mean() >= 0.85 and l2.max() <= 0.1
 
 
 @pytest.mark.parametrize("opts", [

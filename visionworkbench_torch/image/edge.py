@@ -125,3 +125,9 @@ def edge_extend(image: torch.Tensor,
     return crop_extended(image, -int(x_pad[0]), -int(y_pad[0]),
                          w + int(x_pad[0]) + int(x_pad[1]),
                          h + int(y_pad[0]) + int(y_pad[1]), mode=mode, value=value)
+
+
+def crop_to_interior(image, x_pad: int, y_pad: int):
+    """Inverse of a symmetric :func:`edge_extend`."""
+    h, w = image.shape[0], image.shape[1]
+    return image[y_pad:h - y_pad if y_pad else h, x_pad:w - x_pad if x_pad else w]

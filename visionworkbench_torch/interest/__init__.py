@@ -1,8 +1,8 @@
 """Interest points of the port (``visionworkbench_tpu/interest/``; ref
 ``src/vw/InterestPoint/``): single-scale and scaled Harris/LoG detection,
 orientations, patch/sgrad/PCA descriptors, ratio-test matching and the
-``.vwip`` / ``.match`` files. The SIFT-class functions (DoG, OBALoG,
-scale-aware orientations) wait for queue 1 item 3 and raise."""
+``.vwip`` / ``.match`` files, and the SIFT-class path (DoG and OBALoG
+detection, scale-aware orientations, oriented descriptors)."""
 
 from visionworkbench_torch.interest.types import (  # noqa: F401
     ImageOctaveHistory, InterestPoints, from_numpy,
@@ -11,7 +11,9 @@ from visionworkbench_torch.interest.operators import (  # noqa: F401
     harris_interest, image_gradients, log_interest,
 )
 from visionworkbench_torch.interest.detector import (  # noqa: F401
-    assign_orientations, concatenate_points, detect_points, detect_points_scaled,
+    assign_orientations, assign_orientations_scaled, concatenate_points,
+    detect_points, detect_points_dog, detect_points_obalog, detect_points_scaled,
+    detect_sift_like,
 )
 from visionworkbench_torch.interest.descriptor import (  # noqa: F401
     PCABasis, describe, fit_pca_basis, patch_descriptor, pca_descriptor,

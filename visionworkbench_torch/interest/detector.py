@@ -16,13 +16,19 @@ takes extrema over the 3-scale neighbourhood
 (``ScaledInterestPointDetector``); subpixel peak localization fits the 1D
 quadratics of the reference's ``fit_peak``.
 
-The SIFT-class detectors (DoG, OBALoG, scale-aware orientations) raise:
-they are configuration 8's slice, still to port.
+The SIFT-class path (configuration 8): the DoG detector runs the JAX
+package's incremental Gaussian ladder on the same stencils, so its points
+equal the JAX package's bit for bit; its 3x3x3 extremum test is a 3x3 max
+pool of each neighbour plane (``+inf`` outside the frame), the same
+comparisons. OBALoG runs on :mod:`~visionworkbench_torch.image.integral`'s
+float64 tables. Orientation histograms are one-hot terms reduced in a fixed
+order (no scatter-add).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -32,14 +38,17 @@ from visionworkbench_torch.core.device import as_f32, on_device
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.edge import edge_extend
 from visionworkbench_torch.image.filters import gaussian_filter
+from visionworkbench_torch.image.integral import obalog_interest
+from visionworkbench_torch.image.manipulation import subsample2
+from visionworkbench_torch.interest.descriptor import (
+    _gradients, _one_hot_sums, _orientation_weights, _peak_orientation, angle_bins,
+    bilinear_once, in_f64, sgrad_descriptor, sift_orient_describe,
+)
 from visionworkbench_torch.interest.operators import (
     HARRIS_DEFAULT_THRESHOLD, LOG_DEFAULT_THRESHOLD, harris_interest,
     image_gradients, log_interest,
 )
 from visionworkbench_torch.interest.types import InterestPoints
-
-_NOT_PORTED = ("{} is not ported yet (queue 1 item 3: the SIFT-class "
-               "interest points of configuration 8)")
 
 
 def _local_max_3x3(resp):
@@ -162,10 +171,7 @@ def detect_points_scaled(img, operator: str = "log",
             resp = resps[s]
             is_scale_max = resp > torch.maximum(resps[s - 1], resps[s + 1])
             # Exclude the filter-support border (edge-extension artifacts).
-            margin = int(2 * sigmas[s]) + 3
-            border_ok = torch.zeros((bh, bw), dtype=torch.bool, device=img.device)
-            if bh > 2 * margin and bw > 2 * margin:
-                border_ok[margin:bh - margin, margin:bw - margin] = True
+            border_ok = _border_ok(bh, bw, int(2 * sigmas[s]) + 3, img.device)
             xs, ys, interest, valid = _peaks_to_points(resp, thr, per_level,
                                                        is_scale_max & border_ok)
             all_pts.append(InterestPoints(
@@ -198,43 +204,202 @@ def assign_orientations(img, pts: InterestPoints) -> InterestPoints:
     could flip the peak from run to run)."""
     img = on_device(img, pts.x.device, torch.float32)
     ix, iy = image_gradients(img)
-    mag = torch.sqrt(ix * ix + iy * iy)
-    ori = torch.atan2(iy, ix)
+    mag = in_f64(torch.sqrt, ix * ix + iy * iy)
+    ori = in_f64(torch.atan2, iy, ix)
     h, w = img.shape
     r = 4
     size = 2 * r + 1
     ys0 = torch.clamp(pts.y.to(torch.int64) - r, 0, h - size)
     xs0 = torch.clamp(pts.x.to(torch.int64) - r, 0, w - size)
     steps = torch.arange(size, device=img.device)
-    gauss = torch.exp(-0.5 * ((steps - r) ** 2).to(torch.float32) / (2.0 ** 2))
+    gauss = in_f64(torch.exp, -0.5 * ((steps - r) ** 2).to(torch.float32) / (2.0 ** 2))
     weight2d = gauss[:, None] * gauss[None, :]
     rows = (ys0[:, None] + steps)[:, :, None]
     cols = (xs0[:, None] + steps)[:, None, :]
     k = pts.x.shape[0]
     m = (mag[rows, cols] * weight2d).reshape(k, -1)
     o = ori[rows, cols].reshape(k, -1)
-    # tensor divisors: the IEEE quotient on the card too (a Python-number
-    # divisor becomes a multiply by its reciprocal there)
-    bins = torch.remainder(torch.floor(
-        (o + math.pi) / as_f32(2 * math.pi, o) * 36).to(torch.int64), 36)
+    bins = angle_bins(o, 36)
     one_hot = bins[..., None] == torch.arange(36, device=img.device)
-    hist = torch.where(one_hot, m[..., None], 0.0).sum(dim=1)      # (K, 36)
+    hist = in_f64(_one_hot_sums, one_hot, m[..., None])            # (K, 36)
     peak = torch.argmax(hist, dim=1).to(torch.float32)
+    # a tensor divisor: the IEEE quotient on the card too (a Python-number
+    # divisor becomes a multiply by its reciprocal there)
     orientation = (peak + 0.5) / as_f32(36.0, peak) * 2 * math.pi - math.pi
     return pts._replace(orientation=torch.where(pts.valid, orientation, 0.0))
 
 
-def detect_points_obalog(*args, **kwargs):
-    raise ArgumentErr(_NOT_PORTED.format("detect_points_obalog"))
 
 
-def detect_points_dog(*args, **kwargs):
-    raise ArgumentErr(_NOT_PORTED.format("detect_points_dog"))
+def _border_ok(h: int, w: int, margin: int, device) -> torch.Tensor:
+    """True more than ``margin`` px inside an (h, w) frame; all false when
+    the frame has no such interior."""
+    ok = torch.zeros((h, w), dtype=torch.bool, device=device)
+    if h > 2 * margin and w > 2 * margin:
+        ok[margin:h - margin, margin:w - margin] = True
+    return ok
 
 
-def assign_orientations_scaled(*args, **kwargs):
-    raise ArgumentErr(_NOT_PORTED.format("assign_orientations_scaled"))
+def detect_points_obalog(img, threshold: float = 1e-4, scales: int = 3,
+                         max_points: int = 1000, gain: float = 1.0,
+                         device=None) -> InterestPoints:
+    """Integral-image box-approximated LoG detector with per-scale auto gain
+    (ref ``OBALoG`` / ``IntegralAutoGainDetector``,
+    ``IntegralInterestOperator.h:43-79``, ``IntegralDetector.h:37-103``):
+    center-surround box responses at doubling box sizes, thresholds relaxed
+    by ``gain`` per scale, extrema per scale merged."""
+    img = on_device(img, device, torch.float32)
+    per_level = max(max_points // max(scales, 1), 1)
+    sets = []
+    thr = threshold
+    for s in range(scales):
+        resp = obalog_interest(img, s).abs()
+        h, w = resp.shape
+        xs, ys, interest, valid = _peaks_to_points(
+            resp, thr, per_level, _border_ok(h, w, 5 * (1 << s), img.device))
+        sets.append(InterestPoints(xs, ys, _full(per_level, float(1 << s), img),
+                                   _full(per_level, 0.0, img), interest, valid))
+        thr *= gain
+    return concatenate_points(sets)
 
 
-def detect_sift_like(*args, **kwargs):
-    raise ArgumentErr(_NOT_PORTED.format("detect_sift_like"))
+def _dog_edge_ok(plane, edge_ratio: float):
+    """SIFT edge rejection: 2x2 spatial Hessian of the DoG plane must satisfy
+    tr^2/det < (r+1)^2/r with det > 0 (Lowe 2004 sec. 4.1; fills the role of
+    the reference's OpenCV SIFT bridge's edgeThreshold). The same mask for
+    the plane and its negation (IEEE rounding is sign-symmetric)."""
+    p = edge_extend(plane, 1, 1, "constant")
+    c = plane
+    dxx = p[1:-1, 2:] - 2 * c + p[1:-1, :-2]
+    dyy = p[2:, 1:-1] - 2 * c + p[:-2, 1:-1]
+    dxy = 0.25 * (p[2:, 2:] - p[2:, :-2] - p[:-2, 2:] + p[:-2, :-2])
+    tr = dxx + dyy
+    det = dxx * dyy - dxy * dxy
+    r = edge_ratio
+    return (det > 0) & (tr * tr * r < det * (r + 1.0) * (r + 1.0))
+
+
+def _neighbour_max(plane):
+    """Max over each pixel's 3x3 neighbourhood (itself included), ``+inf``
+    outside the frame: a pixel beats all 9 iff it beats this."""
+    p = F.pad(plane[None, None], (1, 1, 1, 1), value=float("inf"))
+    return F.max_pool2d(p, 3, stride=1)[0, 0]
+
+
+def detect_points_dog(img, threshold: float = 0.015, edge_ratio: float = 10.0,
+                      scales: int = 3, octaves: int = 4, sigma0: float = 1.6,
+                      max_points: int = 1000, return_blocks: bool = False,
+                      device=None):
+    """Difference-of-Gaussians scale-space detector — the SIFT-class
+    pipeline standing in for the reference's OpenCV SIFT bridge
+    (``ipfind.cc:61-229``, ``OpenCvDetector.cc``; ipfind's DEFAULT operator).
+
+    Per octave: a Gaussian ladder at sigma = sigma0 * 2^(s/scales)
+    (s = 0..scales+2), built incrementally (each level blurs the previous
+    one by the differential sigma; octave 0 blurs the input up to sigma0,
+    deeper octaves start from the decimated ``gauss[scales]``), DoG planes
+    from adjacent ladder steps, strict 3x3x3 scale-space extrema (maxima of
+    the DoG and of its negation), the contrast threshold, 2x2-Hessian edge
+    rejection (``_dog_edge_ok``) and 1D quadratic subpixel localization in
+    x, y and scale. Positions are in input pixels; ``scale`` is the
+    interpolated Gaussian sigma. ``max_points // (octaves * scales)`` slots
+    per (octave, scale, sign) set. ``return_blocks`` also gives each
+    octave's ``(base, octave_scale, slot_start, slot_end)`` for
+    :func:`~visionworkbench_torch.interest.descriptor.sift_orient_describe`.
+    """
+    img = on_device(img, device, torch.float32)
+    per_level = max(max_points // max(octaves * scales, 1), 1)
+    sets = []
+    blocks = []
+    base = img
+    octave_scale = 1.0
+    for o in range(octaves):
+        bh, bw = base.shape
+        if min(bh, bw) < 16:
+            break
+        blocks.append([base, octave_scale, len(sets) * per_level, None])
+        sigmas = [sigma0 * 2.0 ** (s / scales) for s in range(scales + 3)]
+        gauss = [base if o > 0 else gaussian_filter(base, sigmas[0])]
+        for s in range(1, scales + 3):
+            dsig = (sigmas[s] ** 2 - sigmas[s - 1] ** 2) ** 0.5
+            gauss.append(gaussian_filter(gauss[-1], dsig))
+        dog = [g1 - g0 for g0, g1 in zip(gauss[:-1], gauss[1:])]
+        signed = {1.0: dog, -1.0: [-d for d in dog]}
+        nmax = {sign: [_neighbour_max(p) for p in planes]
+                for sign, planes in signed.items()}
+        for s in range(1, scales + 1):
+            border_ok = _border_ok(bh, bw, int(2 * sigmas[s + 1]) + 3, img.device)
+            keep = border_ok & _dog_edge_ok(dog[s], edge_ratio)
+            for sign in (1.0, -1.0):
+                vol = signed[sign]
+                resp = vol[s]
+                ok_adj = resp > torch.maximum(nmax[sign][s - 1], nmax[sign][s + 1])
+                xs, ys, interest, valid = _peaks_to_points(resp, threshold, per_level,
+                                                           ok_adj & keep)
+                # scale interpolation: 1D quadratic across the DoG ladder at
+                # the integer peak
+                xi = torch.clamp(xs.to(torch.int64), 0, bw - 1)
+                yi = torch.clamp(ys.to(torch.int64), 0, bh - 1)
+                c = vol[s][yi, xi]
+                lo = vol[s - 1][yi, xi]
+                hi = vol[s + 1][yi, xi]
+                denom = lo - 2 * c + hi
+                ds = torch.where(denom.abs() > 1e-12,
+                                 torch.clamp(0.5 * (lo - hi) / denom, -0.5, 0.5), 0.0)
+                # float64 power: the same scale on the card and the CPU
+                sig = (sigma0 * in_f64(lambda t: torch.pow(2.0, t),
+                                       (ds + s) / as_f32(float(scales), ds)) * octave_scale)
+                sets.append(InterestPoints(
+                    xs * octave_scale, ys * octave_scale, torch.where(valid, sig, 1.0),
+                    _full(per_level, 0.0, img), interest, valid))
+        blocks[-1][3] = len(sets) * per_level
+        base = subsample2(gauss[scales])
+        octave_scale *= 2.0
+    pts = concatenate_points(sets)
+    if return_blocks:
+        return pts, [tuple(b) for b in blocks]
+    return pts
+
+
+def assign_orientations_scaled(img, pts: InterestPoints,
+                               radius: int = 8) -> InterestPoints:
+    """Scale-aware orientation assignment for scale-space detections (use
+    after :func:`detect_points_dog`; :func:`assign_orientations` remains the
+    fixed-window variant for unit-scale points): gradients of bilinear
+    samples on a scale-normalized grid, a 36-bin magnitude histogram with
+    Gaussian weighting, circular smoothing and the parabola-interpolated
+    peak (Lowe 2004 sec. 5; ref orientation assignment in
+    InterestPointDetector.h:160 via WeightedHistogram.h)."""
+    img = on_device(img, pts.x.device, torch.float32)
+    size = 2 * radius + 3           # +1 ring for patch-frame gradients
+    us = torch.arange(size, dtype=torch.float32, device=img.device) - (size - 1) / 2.0
+    vv, uu = torch.meshgrid(us, us, indexing="ij")
+    s = pts.scale[:, None, None]
+    patch = bilinear_once(img, pts.x[:, None, None] + uu * s,
+                          pts.y[:, None, None] + vv * s)
+    mag, ang = _gradients(patch)
+    ori = _peak_orientation(mag * _orientation_weights(size - 2, radius, img.device), ang)
+    return pts._replace(orientation=torch.where(pts.valid, ori, 0.0))
+
+
+def detect_sift_like(img, threshold: float = 0.015, max_points: int = 1000,
+                     descriptor_size: int = 24, device=None) -> InterestPoints:
+    """The full SIFT-class pipeline: DoG detection -> scale-aware
+    orientations -> oriented, scale-normalized gradient-histogram (sgrad)
+    descriptors (the capability of the reference ipfind's default SIFT
+    path).
+
+    By default orientation and description run per octave block on upright
+    patch stacks from the octave bases
+    (:func:`~visionworkbench_torch.interest.descriptor.sift_orient_describe`);
+    ``VWTPU_SIFT_GATHER=1`` (read on every call) runs
+    :func:`assign_orientations_scaled` and the rotated-support
+    ``sgrad_descriptor`` instead, as in the JAX package."""
+    img = on_device(img, device, torch.float32)
+    if os.environ.get("VWTPU_SIFT_GATHER", "0") == "1":
+        pts = detect_points_dog(img, threshold=threshold, max_points=max_points)
+        pts = assign_orientations_scaled(img, pts)
+        return sgrad_descriptor(img, pts, size=descriptor_size, upright=False)
+    pts, blocks = detect_points_dog(img, threshold=threshold, max_points=max_points,
+                                    return_blocks=True)
+    return sift_orient_describe(pts, blocks, size=descriptor_size)

@@ -40,3 +40,12 @@ def box_sum_same(image: torch.Tensor, kernel_w: int, kernel_h: int,
     padded = edge_extend(image, (kernel_w // 2, kernel_w - 1 - kernel_w // 2),
                          (kernel_h // 2, kernel_h - 1 - kernel_h // 2), mode=edge)
     return box_sum_valid(padded, kernel_w, kernel_h)
+
+
+def box_filter_same(image: torch.Tensor, kernel_w: int, kernel_h: int,
+                    edge: str = "constant") -> torch.Tensor:
+    """Mean (box) filter, same size: the box sum over the count, an IEEE
+    quotient on either device. The JAX package sums a plane of 64^2 or more
+    as prefix-sum differences, so the two differ by the prefixes' rounding."""
+    count = torch.tensor(float(kernel_w * kernel_h), dtype=image.dtype, device=image.device)
+    return box_sum_same(image, kernel_w, kernel_h, edge) / count

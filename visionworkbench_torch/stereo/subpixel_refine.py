@@ -31,6 +31,7 @@ from visionworkbench_torch.core.device import as_tensor
 from visionworkbench_torch.image.edge import crop_extended, edge_extend
 from visionworkbench_torch.image.filters import derivative_filter
 from visionworkbench_torch.image.interpolation import interpolate
+from visionworkbench_torch.image.manipulation import subsample2
 from visionworkbench_torch.stereo.correlation import DisparityMap, _reciprocal, _sqrt
 from visionworkbench_torch.stereo.disparity import disparity_subsample
 from visionworkbench_torch.stereo.prefilter import PREFILTER_NONE, prefilter_image
@@ -568,14 +569,6 @@ def _em_affine_dense(disp, valid, left, right, kw: int, kh: int,
     return torch.where(out_valid[..., None], out, zero), out_valid
 
 
-def _decimate2(img):
-    """Plain subsample-by-2 (ref ``subsample(x, 2)``, SubpixelView.cc:110-124;
-    the reference skips the blur). The JAX package selects the samples with
-    two banded matmuls: equal on finite images, but there a NaN or inf
-    spreads along its row and column."""
-    return img[::2, ::2].contiguous()
-
-
 def _boxmean(a, wf, rad: int):
     """Valid-weighted separable box mean of an (H, W, 2) field; the box
     wraps around the frame (``roll``), as in the JAX package."""
@@ -626,8 +619,8 @@ def bayes_em_subpixel(disparity: DisparityMap, left, right, kernel_size,
     lp, rp = [left], [right]
     dms = [disparity]
     for _ in range(levels):
-        lp.append(_decimate2(lp[-1]))
-        rp.append(_decimate2(rp[-1]))
+        lp.append(subsample2(lp[-1]))
+        rp.append(subsample2(rp[-1]))
         dms.append(disparity_subsample(dms[-1]))
 
     dm = dms[-1]

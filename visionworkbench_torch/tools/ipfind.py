@@ -1,16 +1,13 @@
 """Interest point detection CLI of the port (port of
 ``visionworkbench_tpu/tools/ipfind.py``; ref ``src/vw/tools/ipfind.cc:61-229``).
 
-Detects Harris or LoG points (single-scale or scaled), assigns
+Detects points (``sift``/``dog``: the DoG scale space, the default;
+``obalog``; ``harris`` or ``log``, single-scale or scaled), assigns
 orientations and describes them on the card, and writes ``<image>.vwip``:
 
-    python -m visionworkbench_torch.tools.ipfind a.tif b.tif \\
-        --interest-operator harris --single-scale
+    python -m visionworkbench_torch.tools.ipfind a.tif b.tif
 
-Same arguments and defaults as the JAX package's CLI. The SIFT-class
-operators (``sift``, ``dog``, ``obalog``) raise until they are ported
-(queue 1 item 3); ``sift`` is the default, so a run without
-``--interest-operator harris`` or ``log`` raises.
+Same arguments and defaults as the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -31,8 +28,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["sift", "dog", "harris", "log", "obalog"],
                    default="sift",
                    help="sift/dog = DoG scale-space + oriented descriptors "
-                        "(the reference ipfind's default capability; not "
-                        "ported yet, like obalog: raises)")
+                        "(the reference ipfind's default capability)")
     p.add_argument("--descriptor-generator",
                    choices=["patch", "sgrad", "sgrad2"], default="sgrad")
     p.add_argument("--max-points", type=int, default=1000)
@@ -65,18 +61,14 @@ def main(argv=None, device=None) -> int:
     args = build_parser().parse_args(argv)
     import torch
     from visionworkbench_torch.core.device import resolve_device
-    from visionworkbench_torch.core.exceptions import ArgumentErr
     from visionworkbench_torch.fileio import read_image, write_image
     from visionworkbench_torch.image.algorithms import normalize
     from visionworkbench_torch.interest import (
-        assign_orientations, describe, detect_points, detect_points_scaled,
+        assign_orientations, assign_orientations_scaled, describe, detect_points,
+        detect_points_dog, detect_points_obalog, detect_points_scaled,
         write_binary_ip_file,
     )
 
-    if args.interest_operator in ("sift", "dog", "obalog"):
-        raise ArgumentErr(f"ipfind: --interest-operator {args.interest_operator} is not "
-                          "ported yet (queue 1 item 3: the SIFT-class interest points "
-                          "of configuration 8); use harris or log")
     dev = resolve_device(device)
     if args.normalize:
         print("The --normalize option is obsolete. Normalization is always "
@@ -89,14 +81,23 @@ def main(argv=None, device=None) -> int:
         if img.ndim == 3:
             img = img.mean(axis=2)
         im = normalize(torch.as_tensor(img, device=dev))
-        if args.single_scale:
-            pts = detect_points(im, args.interest_operator, thr,
-                                max_points=args.max_points)
-        else:
-            pts = detect_points_scaled(im, args.interest_operator, thr,
+        op = args.interest_operator
+        if op in ("sift", "dog"):
+            # DoG scale space + scale-aware orientations + oriented
+            # scale-normalized descriptors (ref ipfind's OpenCV SIFT
+            # default, ipfind.cc:61-229)
+            pts = detect_points_dog(im, (args.threshold or 0.015) / args.gain,
+                                    max_points=args.max_points)
+        elif op == "obalog":
+            pts = detect_points_obalog(im, (args.threshold or 1e-4) / args.gain,
                                        max_points=args.max_points)
+        elif args.single_scale:
+            pts = detect_points(im, op, thr, max_points=args.max_points)
+        else:
+            pts = detect_points_scaled(im, op, thr, max_points=args.max_points)
         if not args.no_orientation:
-            pts = assign_orientations(im, pts)
+            orient = assign_orientations_scaled if op in ("sift", "dog") else assign_orientations
+            pts = orient(im, pts)
         pts = describe(im, pts, args.descriptor_generator)
         out_dir = args.output_dir or os.path.dirname(path) or "."
         stem = os.path.splitext(os.path.basename(path))[0]
