@@ -182,6 +182,26 @@ Phases (each raises on a mismatch; none catches its own failure):
    time by operator); config8-1024 (median of 10 frames after 2 warm-ups,
    Mp/s, device time by kernel, idle share, launches, peak memory, host
    time by operator).
+6. Run ``parallel/`` on ``torch.distributed`` in a world of one rank
+   (``"cpu:gloo,cuda:nccl"``, a ``file://`` rendezvous in a temporary
+   directory, destroyed at the end), each run with the launch counts set to
+   0 just before it and read just after: ``hierarchical_sharded_correlate``
+   at the bench settings with the parabola (``bench.py``'s sanity check;
+   >= 0.99 of the 16-px core agreeing with the monolithic engine on the
+   card; ``band_sweep_kernel`` and speckle launched); the same call at
+   512^2 with a left mask, the L<->R check, the blob filter and the LoG
+   prefilter (card = CPU); hierarchical SGM and MGM at config 6 (card =
+   CPU within 2e-5; the scans launched); ``sharded_pyramid_correlate`` on
+   the bench pair (sanity); ``disparity_sharded_search`` at 1024^2 with the
+   64x8 volume and the 15x15 kernel (equal to ``best_of_search_
+   convolution`` on the card; ``band_sweep_kernel`` launched); and
+   ``reproject_mosaic(mesh=...)`` on config 5 (equal to ``mesh=None``).
+   Each frame timed (median of 5 after 2 warm-ups, Mp/s, device time, idle
+   share, launches by kernel, peak memory, beside the card's name and power
+   limit). With two cards or more, a world of up to four NCCL ranks (this
+   script with ``--parallel-rank``, one a card) runs the hierarchical bench
+   frame, held to the sanity check and the 0.99 agreement; with one card
+   the script says that it did not run.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -2910,6 +2930,332 @@ def _profile_frame(run, what, frame_ms, frames=3):
     return busy_ms, n_kernels
 
 
+# ---- phase 6: parallel/ on torch.distributed ----------------------------------
+
+# A collective that waits longer than this fails the phase (every process
+# group of the script is given it).
+PAR_TIMEOUT_S = 60
+# The hierarchical L<->R run (card against CPU): the bench settings at 512^2
+# with a left mask, the L<->R check, the blob filter and the LoG prefilter.
+PAR_MASKED_HW = 512
+# The multi-card world: ranks (one a card), and each rank's wall limit.
+PAR_MAX_RANKS = 4
+PAR_RANK_TIMEOUT_S = 300
+
+
+def _par_backend():
+    """One group that takes CUDA tensors over NCCL and CPU tensors over
+    gloo, where the build has NCCL."""
+    import torch.distributed as dist
+    return "cpu:gloo,cuda:nccl" if dist.is_nccl_available() else "gloo"
+
+
+def _par_init(rank, world, init_file):
+    from datetime import timedelta
+    import torch.distributed as dist
+    dist.init_process_group(_par_backend(), init_method=f"file://{init_file}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=PAR_TIMEOUT_S))
+
+
+def _hier_run(left, right, mesh, **kw):
+    """``hierarchical_sharded_correlate`` at the bench settings (parabola),
+    ``kw`` adding or overriding options."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.parallel import hierarchical_sharded_correlate
+    opts = dict(kernel_size=KERNEL, max_pyramid_levels=LEVELS, tile_size=TILE,
+                subpixel="parabola")
+    opts.update(kw)
+    return hierarchical_sharded_correlate(left, right, BBox2i(*SEARCH), mesh, **opts)
+
+
+def _hier_sgm_run(left, right, mesh, algo):
+    """Hierarchical SGM / MGM at config 6's settings."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.parallel import hierarchical_sharded_correlate
+    return hierarchical_sharded_correlate(
+        left, right, BBox2i(*SGM_SEARCH), mesh, stereo_algorithm=algo,
+        census_window=CENSUS_WINDOW, max_pyramid_levels=LEVELS, tile_size=TILE,
+        subpixel="parabola")
+
+
+def _core_agreement(ref, got, what, share=0.99, tol=1e-3, margin=16):
+    """Of the ``margin``-px core's pixels valid in both maps, the share
+    whose disparities agree within ``tol``; fails below ``share``
+    (tests/test_parallel.py:153-185's claim)."""
+    rd, rv = ref.to_numpy()
+    gd, gv = got.to_numpy()
+    core = np.s_[margin:-margin, margin:-margin]
+    both = rv[core] & gv[core]
+    agree = float((np.abs(rd[core] - gd[core]) <= tol).all(-1)[both].mean())
+    print(f"[parallel] {what}: {agree:.6f} of the {margin}-px core valid in both agree "
+          f"within {tol} px with the monolithic engine; validity equal on "
+          f"{float((rv[core] == gv[core]).mean()):.6f}")
+    if agree < share:
+        raise SystemExit(f"{what}: agreement {agree:.4f} with the monolithic engine "
+                         f"below {share}")
+
+
+def _maps_equal(got, ref, what, atol=0.0):
+    """Validity equal, disparities within ``atol`` (0: equal)."""
+    cd, cv = got.to_numpy()
+    pd, pv = ref.to_numpy()
+    err = float(np.abs(cd - pd).max())
+    print(f"[parallel] {what}: validity equal {bool((cv == pv).all())} "
+          f"(valid {cv.mean():.4f}), max |d| {err}")
+    if not (cv == pv).all() or err > atol:
+        raise SystemExit(f"{what}: the maps differ")
+
+
+def _launched(counts, what, *keys):
+    """Fails unless each counter in ``keys`` counted a launch."""
+    missing = [k for k in keys if not counts[k]]
+    if missing:
+        raise SystemExit(f"{what}: no launch counted on {missing}: {counts}")
+
+
+def _par_time(what, run, px, frame, smi):
+    """One frame of ``run``: its launches by kernel (the counts set to 0 just
+    before it, read just after); then the median of 5 frames after 2
+    warm-ups, Mp/s (``px`` / t), device time and idle share (profiler),
+    peak memory."""
+    import torch
+    _reset_counts()
+    run()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _read_counts().items() if v}
+    ms = _time_ms(run, reps=5)
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    busy, n = _profile_frame(run, f"parallel {what}", ms)
+    idle = None if busy is None else 1 - busy / ms
+    print(f"[parallel] frame {what}: {ms:.4f} ms, {px / (ms * 1e3):.3f} Mp/s, device "
+          f"{busy} ms, idle share {idle}, {n} launches, by kernel {counts}, peak memory "
+          f"{peak:.1f} MiB; card {smi}")
+    frame[what] = {"ms": ms, "mps": px / (ms * 1e3), "device_ms": busy, "idle": idle,
+                   "launches": n, "peak_mib": peak}
+
+
+def _par_children(world, folder):
+    """The multi-card world: ``world`` ranks of this script (one a card,
+    NCCL), each running the hierarchical bench frame; rank 0's map and
+    median frame ms come back in ``folder``."""
+    import os
+    init = os.path.join(folder, "children_rendezvous")
+    out = os.path.join(folder, "rank0.npz")
+    procs = [subprocess.Popen([sys.executable, __file__, "--parallel-rank", str(r), str(world),
+                               init, out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=PAR_RANK_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            for q in procs:
+                q.communicate()
+            raise SystemExit(f"parallel: the {world}-card world passed its "
+                             f"{PAR_RANK_TIMEOUT_S} s limit")
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        print(o.strip())
+        if p.returncode != 0:
+            raise SystemExit(f"parallel: rank {r} of the {world}-card world failed")
+    return dict(np.load(out))
+
+
+def _parallel_rank(rank, world, init_file, out_file):
+    """``chip_smoke.py --parallel-rank <rank> <world> <init_file> <out>``:
+    one rank of the multi-card world (card ``rank``)."""
+    import torch
+    import torch.distributed as dist
+    from visionworkbench_torch.parallel import make_tile_mesh
+    rank, world = int(rank), int(world)
+    torch.cuda.set_device(rank)
+    _par_init(rank, world, init_file)
+    mesh = make_tile_mesh()
+    left, right = (torch.as_tensor(a, device="cuda") for a in _make_pair(H, W))
+    dm = _hier_run(left, right, mesh)
+    ms = _time_ms(lambda: _hier_run(left, right, mesh), reps=5)
+    print(f"[parallel] rank {rank} of {world} on card {torch.cuda.current_device()}: "
+          f"hierarchical bench frame {ms:.4f} ms")
+    if rank == 0:
+        d, v = dm.to_numpy()
+        np.savez(out_file, disparity=d, valid=v, ms=ms)
+    _par_breakdown(rank, world, mesh, lambda: _hier_run(left, right, mesh), ms)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _par_breakdown(rank, world, mesh, run, frame_ms, reps=50):
+    """Where a multi-card frame's time goes (rank 0 prints): the host
+    clock of one halo exchange of a level-0 band (7 rows a side), of one
+    all-gather of a 16-row band and of one halo deeper than that band (the
+    coarse levels' all-gather path), each the mean of ``reps`` after a
+    barrier; then the profiler over 3 frames: device busy time, the host's
+    self time by operator and the device time by kernel."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from visionworkbench_torch.parallel import TILE_AXIS, halo_exchange_rows
+    from visionworkbench_torch.parallel.mesh import axis_group
+    from visionworkbench_torch.parallel.tile_sharding import all_gather_rows
+    group, n, _ = axis_group(mesh, TILE_AXIS)
+    band = torch.rand((H // world, W + 160), device="cuda")
+    small = torch.rand((16, 80), device="cuda")
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+    halo_ms = per_call(lambda: halo_exchange_rows(band, 7, 7, mesh))
+    gather_ms = per_call(lambda: all_gather_rows(small, group, n))
+    deep_ms = per_call(lambda: halo_exchange_rows(small, 7, 55, mesh))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if rank:
+        return
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / 3
+    print(f"[parallel] breakdown, rank 0 of {world}: frame {frame_ms:.4f} ms, device busy "
+          f"{busy:.4f} ms (profiled); one halo exchange of a {tuple(band.shape)} band "
+          f"(7 rows a side) {halo_ms:.4f} ms, one all-gather of a {tuple(small.shape)} band "
+          f"{gather_ms:.4f} ms, one deep halo (7, 55) of it {deep_ms:.4f} ms (host clock)")
+    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:14]:
+        print(f"[parallel] breakdown host {e.self_cpu_time_total / 1e3 / 3:9.4f} ms/frame "
+              f"x{e.count / 3:6.1f}  {e.key[:70]}")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[parallel] breakdown device {e.self_device_time_total / 1e3 / 3:9.4f} ms/frame "
+              f"x{e.count / 3:6.1f}  {e.key[:70]}")
+
+
+def phase_parallel(dev, smi):
+    """``parallel/`` in a world of one rank on the card (``_par_backend``,
+    a ``file://`` rendezvous): hierarchical BM on the bench pair (against
+    the monolithic engine on the card), with a mask, the L<->R check, the
+    blob filter and the LoG prefilter at 512^2 (card against CPU, subpixel
+    none), hierarchical SGM and MGM at config 6 (card against CPU),
+    ``sharded_pyramid_correlate`` on the bench pair, ``disparity_sharded_
+    search`` at 1024^2 (against ``best_of_search_convolution``) and
+    ``reproject_mosaic(mesh=...)`` on config 5 (against ``mesh=None``);
+    each frame timed. With two cards or more, a world of up to four NCCL
+    ranks runs the bench frame too. Returns ``(launches by run, frames)``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.parallel import (
+        disparity_sharded_search, make_disp_mesh, make_tile_mesh,
+        sharded_pyramid_correlate,
+    )
+    from visionworkbench_torch.stereo.correlation import DisparityMap, best_of_search_convolution
+    folder = tempfile.mkdtemp(prefix="vw_parallel_")
+    torch.cuda.set_device(0)
+    _par_init(0, 1, os.path.join(folder, "rendezvous"))
+    print(f"[parallel] world of 1 rank, backend {_par_backend()}, card {smi}")
+    mesh, cpu_mesh = make_tile_mesh(), make_tile_mesh(device="cpu")
+    counts, frame = {}, {}
+
+    def counted(name, run):
+        _reset_counts()
+        out = run()
+        _sync(dev)
+        counts[name] = _read_counts()
+        return out
+
+    left, right = (torch.as_tensor(a, device=dev) for a in _make_pair(H, W))
+    # 1. hierarchical BM with the parabola, against the monolithic engine
+    dm = counted("hier_bm", lambda: _hier_run(left, right, mesh))
+    _launched(counts["hier_bm"], "parallel hier_bm", "sweep/band", "speckle")
+    _sanity(dm, "parallel hier_bm")
+    whole = _bench_run(left, right, dev)
+    _core_agreement(whole, dm, "hier_bm")
+    # 2. a mask, L<->R, the blob filter and LoG at 512^2: card = CPU
+    n = PAR_MASKED_HW
+    ml, mr = _make_pair(n, n)
+    mask = np.ones((n, n), bool)
+    mask[n // 3:n // 3 + 64, n // 4:n // 4 + 96] = False       # a hole across bands
+    masked = dict(left_mask=mask, consistency_threshold=2.0, blob_filter_area=CLI_BLOB_AREA,
+                  prefilter_mode="log", prefilter_width=1.4, subpixel="none")
+    card = counted("hier_masked", lambda: _hier_run(ml, mr, mesh, **masked))
+    _launched(counts["hier_masked"], "parallel hier_masked", "sweep/band", "speckle")
+    _maps_equal(card, _hier_run(ml, mr, cpu_mesh, **masked), f"hier_masked {n}^2, card vs CPU")
+    # 3. SGM and MGM at config 6: card = CPU
+    sl, sr = _make_pair(SGM_HW, SGM_HW)
+    for algo, keys in (("sgm", ("scan_bidir",)), ("mgm", ("mgm_bidir", "mgm_fwd"))):
+        card = counted(f"hier_{algo}", lambda: _hier_sgm_run(sl, sr, mesh, algo))
+        _launched(counts[f"hier_{algo}"], f"parallel hier_{algo}", "speckle", *keys)
+        _maps_equal(card, _hier_sgm_run(sl, sr, cpu_mesh, algo),
+                    f"hier_{algo} {SGM_HW}^2, card vs CPU", atol=2e-5)
+    # 4. the collar-halo correlator on the bench pair
+    spc = counted("sharded_pyramid", lambda: sharded_pyramid_correlate(
+        left, right, BBox2i(*SEARCH), mesh, kernel_size=KERNEL, max_pyramid_levels=LEVELS,
+        tile_size=TILE, subpixel="parabola"))
+    _launched(counts["sharded_pyramid"], "parallel sharded_pyramid", "sweep/band", "speckle")
+    _sanity(spc, "parallel sharded_pyramid")
+    # 5. the disparity-sharded search: equal to best_of_search_convolution
+    sx, sy = CALC_SEARCH
+    dl, dr = (torch.as_tensor(a, device=dev) for a in _make_calc_pair(H, W))
+    disp_mesh = make_disp_mesh()
+    ds = counted("disp_search", lambda: disparity_sharded_search(dl, dr, (sx, sy), KERNEL,
+                                                                 disp_mesh))
+    _launched(counts["disp_search"], "parallel disp_search", "sweep/band")
+    _maps_equal(ds, best_of_search_convolution(dl, dr, (sx, sy), KERNEL, device=dev),
+                "disparity_sharded_search vs best_of_search_convolution")
+    # 6. config 5 with a mesh: equal to mesh=None
+    from visionworkbench_torch.mosaic.geomosaic import reproject_mosaic
+    srcs, georefs, dst = _config5(H)
+    srcs = [torch.as_tensor(a, device=dev) for a in srcs]
+    plans = _config5_plans(georefs, dst, H)
+
+    def mosaic(m):
+        return reproject_mosaic(srcs, georefs, dst, (H, W), levels=C5_LEVELS, plans=plans,
+                                mesh=m)
+    got, want = counted("mosaic", lambda: mosaic(mesh)), mosaic(None)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit("reproject_mosaic(mesh=...) differs from mesh=None")
+    print("[parallel] config5 reproject_mosaic(mesh=...) equals mesh=None bit for bit")
+
+    for what, run, px in (
+            ("hier_bm", lambda: _hier_run(left, right, mesh), H * W),
+            ("hier_sgm", lambda: _hier_sgm_run(sl, sr, mesh, "sgm"), SGM_HW ** 2),
+            ("hier_mgm", lambda: _hier_sgm_run(sl, sr, mesh, "mgm"), SGM_HW ** 2),
+            ("sharded_pyramid", lambda: sharded_pyramid_correlate(
+                left, right, BBox2i(*SEARCH), mesh, kernel_size=KERNEL,
+                max_pyramid_levels=LEVELS, tile_size=TILE, subpixel="parabola"), H * W),
+            ("disp_search", lambda: disparity_sharded_search(dl, dr, (sx, sy), KERNEL,
+                                                             disp_mesh), H * W),
+            ("mosaic", lambda: mosaic(mesh), H * W)):
+        _par_time(what, run, px, frame, smi)
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = min(cards, PAR_MAX_RANKS)
+        r = _par_children(world, folder)
+        multi = DisparityMap.from_numpy(r["disparity"], r["valid"], dev)
+        _sanity(multi, f"parallel hier_bm on {world} cards")
+        _core_agreement(whole, multi, f"hier_bm on {world} cards")
+        print(f"[parallel] world of {world} cards ({_par_backend()}): hierarchical bench "
+              f"frame {float(r['ms']):.4f} ms on rank 0")
+        frame["multi_card"] = {"world": world, "ms": float(r["ms"])}
+    else:
+        print(f"[parallel] multi-card world not run: {cards} card (it needs a second card)")
+    dist.destroy_process_group()
+    shutil.rmtree(folder, ignore_errors=True)
+    return counts, frame
+
+
 def _kernel_name(name):
     """``band_sweep_kernel<0, 24>`` of a profiler's kernel signature."""
     m = re.search(r"\w+_kernel<[^>]*>", name)
@@ -2934,6 +3280,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import visionworkbench_torch  # noqa: F401  (fails when run without the repo)
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return _parallel_rank(*sys.argv[2:6])
     dev = "cuda"
     phase_build()
     smi = _smi()
@@ -2942,6 +3290,7 @@ def main() -> int:
     counts = phase_main(dev)
     phase_slice_vs_cpu(dev)
     frame, rows = phase_timings(dev)
+    par_counts, par_frame = phase_parallel(dev, smi)
     # kernel: (heaviest main-path shape, main-path run, source, TPU kernel)
     sweep_cu = "visionworkbench_torch/csrc/sweep.cu"
     sweep_tpu = "visionworkbench_tpu/ops/sweep.py:603"
@@ -3000,11 +3349,19 @@ def main() -> int:
         # kernels their paths run
         c7 = {"sweep_census": "sweep", "speckle": "speckle"}.get(k)
         cm = {"sweep_cli": "sweep", "speckle": "speckle"}.get(k)
+        # launches per frame of the parallel phase's run of the kernel
+        pk = {"sweep": ("hier_bm", "sweep"), "speckle": ("hier_bm", "speckle"),
+              "scan_bidir": ("hier_sgm", "scan_bidir/mgm_scan"),
+              "mgm_bidir": ("hier_mgm", "mgm_bidir/mgm_scan"),
+              "mgm_fwd": ("hier_mgm", "mgm_fwd/mgm_scan"),
+              "best_of_search": ("disp_search", "sweep")}.get(k)
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             **({"config7_launches": counts["config7_em"][c7]} if c7 else {}),
             **({"cli_match_launches": counts["cli_match"][cm]} if cm else {}),
+            **({"parallel_run": pk[0], "parallel_launches": par_counts[pk[0]][pk[1]]}
+               if pk else {}),
             "max_abs_err": err[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
@@ -3035,6 +3392,8 @@ def main() -> int:
                                                        "config2", "cli_match", "config8")
                          for k, v in frame[what].items()},
                       **{f"ipfind_{op}_{k}": v for op, r in counts["sift_chains"].items()
+                         for k, v in r.items()},
+                      **{f"parallel_{what}_{k}": v for what, r in par_frame.items()
                          for k, v in r.items()},
                       "card": smi}))
     print(smi)

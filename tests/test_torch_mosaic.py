@@ -169,11 +169,27 @@ def test_reproject_mosaic_plans_made_inside(mosaic_case):
                for p, q in zip(c["tplans"], prepared))
 
 
-def test_reproject_mosaic_mesh_raises():
+def test_reproject_mosaic_mesh_raises(tmp_path):
+    """``mesh=`` works: in a gloo world of one rank, a tile mesh gives the
+    mosaic of ``mesh=None`` bit for bit (the 2- and 4-rank worlds are in
+    ``tests/test_torch_parallel.py``); a mesh without a tile axis and an
+    empty source list raise."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from visionworkbench_torch.parallel import make_disp_mesh, make_tile_mesh
     srcs, ts, dt, out_shape, levels = _config("odd")
-    with pytest.raises(ArgumentErr, match="queue 1 item 4"):
-        tgm.reproject_mosaic(srcs, [_georef(tgeo, t) for t in ts], _georef(tgeo, dt),
-                             out_shape, mesh=object(), device="cpu")
+    args = (srcs, [_georef(tgeo, t) for t in ts], _georef(tgeo, dt), out_shape)
+    ref = tgm.reproject_mosaic(*args, levels=levels, device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
+    try:
+        out = tgm.reproject_mosaic(*args, levels=levels, mesh=make_tile_mesh(device="cpu"))
+        for got, want in zip(out, ref):
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+        with pytest.raises(ArgumentErr, match="no 'tile' axis"):
+            tgm.reproject_mosaic(*args, mesh=make_disp_mesh(device="cpu"))
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ArgumentErr):
         tgm.reproject_mosaic([], [], _georef(tgeo, dt), out_shape, device="cpu")
 

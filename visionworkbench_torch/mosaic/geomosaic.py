@@ -12,8 +12,10 @@ equal the JAX package's). Everything a plan implies for a source shape —
 the warp coordinates on the device, the validity mask and its grassfire
 alpha (host NumPy, as the JAX package computes them at trace time) — is
 made once and kept on the plan; each frame then warps and blends on the
-card. One card: the JAX package's GSPMD row sharding (its ``mesh``
-argument) waits for the port's ``parallel/``.
+card. With a ``mesh`` (``parallel/mesh.py``: one rank a card) the canvas
+rows are sharded as the JAX package's GSPMD row sharding: each rank warps
+its own band of every source, the bands are all-gathered and every rank
+blends the whole canvas, equal bit for bit to ``mesh=None``.
 """
 
 from __future__ import annotations
@@ -118,15 +120,16 @@ def reproject_mosaic(srcs, src_georefs: List[GeoReference],
     cartographic reprojection). ``plans`` from :func:`plan_reproject_grids`
     (or ``(sx_g, sy_g, step)`` tuples) are made here when not given; pass
     the same plans to every frame so their per-source work is done once.
-    ``mesh`` must be None: one card. Sources that are tensors keep their
-    device; arrays go to ``device`` (``None`` = the card). Returns
-    ``(mosaic (H, W), valid (H, W))``.
+    Sources that are tensors keep their device; arrays go to ``device``
+    (``None`` = the card). With a ``mesh`` (a ``parallel.make_tile_mesh``
+    over the process group; the sources the same on every rank) they go to
+    the mesh's device, each rank warps its own band of canvas rows (bands of
+    ``ceil(H / ranks)`` rows, the last one short), the warped bands are
+    all-gathered, and every rank blends the whole canvas: the same mosaic,
+    bit for bit, as ``mesh=None``. The masks and alphas are the plans', made
+    on every rank from the host grids. Returns ``(mosaic (H, W), valid (H,
+    W))`` (on every rank).
     """
-    if mesh is not None:
-        raise ArgumentErr(
-            "reproject_mosaic: mesh must be None; row sharding over several "
-            "cards waits for the port's parallel/ on torch.distributed "
-            "(ROADMAP.md queue 1 item 4)")
     if len(srcs) != len(src_georefs) or not srcs:
         raise ArgumentErr("reproject_mosaic: need equal non-empty src lists")
     oh, ow = int(out_shape[0]), int(out_shape[1])
@@ -134,12 +137,35 @@ def reproject_mosaic(srcs, src_georefs: List[GeoReference],
         plans = plan_reproject_grids(src_georefs, dst_georef, (oh, ow),
                                      grid_step, tolerance)
     plans = [p if isinstance(p, ReprojectPlan) else ReprojectPlan(*p) for p in plans]
-    dev = srcs[0].device if isinstance(srcs[0], torch.Tensor) else resolve_device(device)
+    if mesh is not None:
+        from visionworkbench_torch.parallel.mesh import TILE_AXIS, axis_group, mesh_device
+        from visionworkbench_torch.parallel.tile_sharding import all_gather_rows
+        dev = mesh_device(mesh)
+        group, n, idx = axis_group(mesh, TILE_AXIS)
+    else:
+        dev = srcs[0].device if isinstance(srcs[0], torch.Tensor) else resolve_device(device)
+        n, idx = 1, 0
+    hb = -(-oh // n)
+    r0, r1 = min(idx * hb, oh), min((idx + 1) * hb, oh)
     warped, masks, alphas = [], [], []
     for src, plan in zip(srcs, plans):
         src = as_tensor(src, torch.float32, dev)
         coords, mask, alpha = plan.prepare(src.shape, (oh, ow), interp, dev)
-        warped.append(warp_with(src, coords, interp=interp, edge="zero"))
+        if mesh is None:
+            warped.append(warp_with(src, coords, interp=interp, edge="zero"))
+        else:
+            band = warp_with(src, _band_coords(coords, r0, r1), interp=interp, edge="zero")
+            band = torch.cat([band, band.new_zeros((hb - (r1 - r0),) + band.shape[1:])])
+            warped.append(all_gather_rows(band, group, n)[:oh])
         masks.append(mask)
         alphas.append(alpha)
     return multiband_blend(warped, masks, levels=levels, alphas=alphas)
+
+
+def _band_coords(coords, r0: int, r1: int):
+    """:func:`grid_coords`' coordinates of canvas rows ``r0 .. r1 - 1``:
+    the per-row ones on the 1-D route, the per-pixel rows on the 2-D one."""
+    route, sx, sy = coords
+    if route == "separable":
+        return route, sx, sy[r0:r1]
+    return route, sx[r0:r1], sy[r0:r1]
