@@ -202,6 +202,30 @@ Phases (each raises on a mismatch; none catches its own failure):
    script with ``--parallel-rank``, one a card) runs the hierarchical bench
    frame, held to the sanity check and the 0.99 agreement; with one card
    the script says that it did not run.
+7. Host IO and tile pyramids (``phase_host_io``; no kernel of ``csrc/``
+   is on this path): build the native runtime with g++ (its seconds
+   printed); host-io-8192: an 8192^2 float32 texture made on the card from
+   a seed, written by ``block_write_image`` on the native route (tile 256,
+   1024 tiles, 4 threads) and read back bit for bit; the card tile function
+   alone (every tile on one thread; device time a tile); the same write
+   with card work in ``tile_fn`` (each tile read with a 2-px margin from
+   a ``DiskImageView``, blurred with the pyramid kernel on the card with a
+   zero edge, cropped), the file within 1e-6 of the card's whole-frame
+   blur; again with a georef and a nodata value (the Python route), the
+   georef and nodata read back; two writes whose ``tile_fn`` raises
+   part-way (the error must reach the caller; ``resume_completed_tiles``
+   names exactly the tiles on disk); each write's wall and MiB/s, the peak
+   device memory. pyramid-8192: ``DiskImagePyramid`` (8 levels, 8192 ->
+   64) on the card against the same on the CPU (each level within 1e-6),
+   ``get_image_clip`` at scales 1, 0.5, 0.25 and 1/128 (levels and
+   shapes), the build's wall and device time. image2qtree-config5:
+   config 5's four sources as GeoTIFFs through ``tools/image2qtree.main``
+   with ``--blend multiband`` and ``draft`` at tile 256: at 1024 card
+   against CPU (the same tiles and KML, tiles within 1 LSB on >= 0.999 of
+   the pixels), at 2048 (four 1228^2 sources) on the card, timed. The
+   launch counts, set to 0 before the pyramid and image2qtree runs and read
+   after, must all be 0. Its numbers go under ``host_io_*`` keys of the
+   summary line.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -213,6 +237,7 @@ Exits non-zero, printing no result, without a CUDA device or without the
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import statistics
@@ -3256,6 +3281,372 @@ def phase_parallel(dev, smi):
     return counts, frame
 
 
+# ---- phase 7: host IO and tile pyramids -----------------------------------------
+
+# host-io-8192: an 8192^2 float32 texture (256 MiB) written tile by tile at
+# tile 256 (1024 tiles) by 4 threads; each card tile read with a 2-px margin
+# (the 5-tap pyramid kernel's reach).
+HOST_IO_N = 8192
+HOST_IO_TILE = 256
+HOST_IO_THREADS = 4
+HOST_IO_MARGIN = 2
+HOST_IO_SEED = 19
+HOST_IO_NODATA = -9999.0
+# pyramid-8192: levels down to 64 px (8 levels: 8192 ... 64), and the scales
+# get_image_clip is asked for with the level each must serve.
+PYR_MIN_DIM = 64
+PYR_CLIPS = ((1.0, 0), (0.5, 1), (0.25, 2), (1 / 128, 7))
+# image2qtree-config5: config 5's sources as GeoTIFFs, card against CPU at
+# 1024, the card alone at 2048 (four 1228^2 sources).
+QTREE_NS = (1024, 2048)
+QTREE_TILE = 256
+QTREE_BLENDS = ("multiband", "draft")
+QTREE_SHARE = 0.999
+
+
+def _host_texture(n, seed, dev):
+    """``_texture``'s formula at n^2, made on ``dev`` from ``seed`` (the
+    noise drawn by a torch generator there)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ys = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
+    return (torch.sin(xs * 0.21) * torch.cos(ys * 0.17)
+            + 0.5 * torch.sin(xs * 0.047 + ys * 0.031)
+            + 0.3 * torch.rand((n, n), generator=g, device=dev))
+
+
+def _blur_tile_fn(view, n, dev):
+    """``tile_fn`` of the card-work writes: the tile and a margin read from
+    ``view`` (clipped to the frame), blurred on ``dev`` with the pyramid
+    kernel (zero edge), cropped back to the tile and copied to the host."""
+    import torch
+    from visionworkbench_torch.image.convolution import separable_convolution_filter
+    from visionworkbench_torch.image.filters import generate_pyramid_smoothing_kernel
+    from visionworkbench_torch.math.bbox import BBox2i
+    k = generate_pyramid_smoothing_kernel()
+    m = HOST_IO_MARGIN
+
+    def tile_fn(b):
+        x0, y0 = max(b.min_x - m, 0), max(b.min_y - m, 0)
+        x1, y1 = min(b.max_x + m, n), min(b.max_y + m, n)
+        region = torch.as_tensor(view.read_region(BBox2i(x0, y0, x1 - x0, y1 - y0)),
+                                 device=dev)
+        out = separable_convolution_filter(region, k, k, edge="constant")
+        return out[b.min_y - y0:b.max_y - y0, b.min_x - x0:b.max_x - x0].cpu().numpy()
+    return tile_fn
+
+
+def _write(what, path, n, tile_fn, out, **kw):
+    """One ``block_write_image`` of an n^2 float32 frame: wall and MB/s."""
+    from visionworkbench_torch.fileio import block_write_image
+    t0 = time.perf_counter()
+    block_write_image(path, n, n, 1, np.float32, tile_fn, tile_size=HOST_IO_TILE,
+                      num_threads=HOST_IO_THREADS, **kw)
+    wall = time.perf_counter() - t0
+    mbs = n * n * 4 / 2**20 / wall
+    print(f"[host-io] {what}: {n}^2 float32 in {(n // HOST_IO_TILE) ** 2} tiles of "
+          f"{HOST_IO_TILE}, {HOST_IO_THREADS} threads: {wall:.4f} s, {mbs:.1f} MiB/s")
+    out[f"host_io_{what}_s"] = wall
+    out[f"host_io_{what}_mibs"] = mbs
+
+
+def _read_back(what, path, want, out, atol=0.0):
+    from visionworkbench_torch.fileio import read_tiff
+    t0 = time.perf_counter()
+    got, info = read_tiff(path)
+    out[f"host_io_{what}_read_s"] = time.perf_counter() - t0
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    print(f"[host-io] {what} read back in {out[f'host_io_{what}_read_s']:.4f} s: "
+          f"max |file - expected| {err}")
+    if err > atol:
+        raise SystemExit(f"host-io {what}: the file differs from the expected frame "
+                         f"(max |d| {err} > {atol}, shape {got.shape})")
+    out[f"host_io_{what}_max_abs_err"] = err
+    return info
+
+
+def _partial(path, n, full, fail_tile, **kw):
+    """A write whose ``tile_fn`` raises at ``fail_tile``: the error must
+    reach the caller, and the resume set must name exactly the tiles on
+    disk (each read back equal to the frame; no other tile has data)."""
+    from visionworkbench_torch.fileio import block_write_image
+    from visionworkbench_torch.fileio.tiff import T_TILE_OFFSETS, TiffInfo, read_tiff_region
+    from visionworkbench_torch.fileio.tiled_writer import resume_completed_tiles
+    ts = HOST_IO_TILE
+
+    def tile_fn(b):
+        if (b.min_x // ts, b.min_y // ts) == fail_tile:
+            raise RuntimeError("host-io partial write: tile failed on purpose")
+        return full[b.min_y:b.max_y, b.min_x:b.max_x]
+    try:
+        block_write_image(path, n, n, 1, np.float32, tile_fn, tile_size=ts,
+                          num_threads=HOST_IO_THREADS, **kw)
+    except RuntimeError as e:
+        if "on purpose" not in str(e):
+            raise
+    else:
+        raise SystemExit("host-io partial write: the tile function's error was lost")
+    done = resume_completed_tiles(path, ts)
+    ntx = n // ts
+    if kw:      # the Python route writes its IFD: a raster prefix is on disk
+        offsets = TiffInfo(path)._get(T_TILE_OFFSETS, [])
+        on_disk = {(i % ntx, i // ntx) for i, off in enumerate(offsets) if off}
+        prefix = {(i % ntx, i // ntx) for i in range(len(done))}
+        bad = [t for t in done if not np.array_equal(
+            read_tiff_region(path, t[0] * ts, t[1] * ts, ts, ts),
+            full[t[1] * ts:(t[1] + 1) * ts, t[0] * ts:(t[0] + 1) * ts])]
+        first = fail_tile[1] * ntx + fail_tile[0]
+        if done != on_disk or done != prefix or len(done) > first or bad:
+            raise SystemExit(f"host-io resume: {len(done)} tiles named, {len(on_disk)} on "
+                             f"disk, raster prefix {done == prefix}, tiles that differ {bad}")
+    elif done:  # the native route writes no IFD after a failure
+        raise SystemExit(f"host-io resume: {len(done)} tiles named in a failed native write")
+    return len(done)
+
+
+def _host_io(dev, n, folder, out):
+    """host-io-8192's writes and checks; returns the texture file's path."""
+    from visionworkbench_torch.cartography import (
+        georeference_from_tiff_info, make_geographic_georef,
+    )
+    from visionworkbench_torch.fileio import DiskImageView
+    from visionworkbench_torch.image.convolution import separable_convolution_filter
+    from visionworkbench_torch.image.filters import generate_pyramid_smoothing_kernel
+    tex_dev = _host_texture(n, HOST_IO_SEED, dev)
+    tex = tex_dev.cpu().numpy()
+    src = os.path.join(folder, "texture.tif")
+    _write("native", src, n, lambda b: tex[b.min_y:b.max_y, b.min_x:b.max_x], out)
+    _read_back("native", src, tex, out)
+    k = generate_pyramid_smoothing_kernel()
+    whole = separable_convolution_filter(tex_dev, k, k, edge="constant").cpu().numpy()
+    del tex_dev
+    view = DiskImageView(src, tile_size=HOST_IO_TILE)
+    blur = os.path.join(folder, "blur.tif")
+    _tile_work(view, n, dev, out)
+    _write("card_native", blur, n, _blur_tile_fn(view, n, dev), out)
+    _read_back("card_native", blur, whole, out, atol=1e-6)
+    georef = make_geographic_georef(-120.0, 40.0, 1e-4)
+    geo = os.path.join(folder, "blur_geo.tif")
+    _write("card_python", geo, n, _blur_tile_fn(view, n, dev), out, georef=georef,
+           nodata=HOST_IO_NODATA)
+    info = _read_back("card_python", geo, whole, out, atol=1e-6)
+    back = georeference_from_tiff_info(info)
+    if (back is None or not np.array_equal(back.transform, georef.transform)
+            or info.nodata != HOST_IO_NODATA):
+        raise SystemExit(f"host-io card_python: georef or nodata not read back "
+                         f"({None if back is None else back.transform}, {info.nodata})")
+    fail = (n // HOST_IO_TILE // 3, n // HOST_IO_TILE // 2)
+    out["host_io_resume_tiles"] = _partial(os.path.join(folder, "partial.tif"), n, tex,
+                                           fail, nodata=HOST_IO_NODATA)
+    _partial(os.path.join(folder, "partial_native.tif"), n, tex, fail)
+    print(f"[host-io] partial writes (tile {fail} raises): the error reached the caller on "
+          f"both routes; resume names the {out['host_io_resume_tiles']} tiles on disk "
+          "(Python route) and none after the failed native write")
+    return src, tex
+
+
+def _pyramid(dev, src, n, folder, out):
+    """pyramid-8192: the levels on the card against the CPU's, the clips,
+    and the build's wall and device time."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.mosaic import DiskImagePyramid
+
+    def build(d, tag):
+        return DiskImagePyramid(src, min_dimension=PYR_MIN_DIM, tile_size=HOST_IO_TILE,
+                                cache_dir=os.path.join(folder, f"pyr_{tag}"), device=d)
+    _sync(dev)
+    t0 = time.perf_counter()
+    card = build(dev, "card")
+    _sync(dev)
+    out["host_io_pyramid_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = build("cpu", "cpu")
+    out["host_io_pyramid_cpu_s"] = time.perf_counter() - t0
+    want_levels = 1 + int(np.log2(n // PYR_MIN_DIM))
+    if card.num_levels != want_levels or cpu.num_levels != want_levels:
+        raise SystemExit(f"pyramid: {card.num_levels} levels on the card, {cpu.num_levels} "
+                         f"on the CPU, {want_levels} expected")
+    errs = []
+    for a, b in zip(card.levels, cpu.levels):
+        ga, gb = a.read(), b.read()
+        errs.append(float(np.abs(ga - gb).max()) if ga.shape == gb.shape else float("inf"))
+    print(f"[pyramid] {n}^2 -> {card.levels[-1].rows}^2, {card.num_levels} levels; max "
+          f"|card - CPU| per level {errs}")
+    if max(errs) > 1e-6:
+        raise SystemExit(f"pyramid: card and CPU levels differ by {max(errs)}")
+    region = BBox2i(n // 8, n // 4, n // 2, n // 4)
+    for scale, level in PYR_CLIPS:
+        level = min(level, want_levels - 1)     # a smaller rehearsal frame
+        clip, got = card.get_image_clip(scale, region)
+        f = 1 << level
+        shape = (max(region.height // f, 1), max(region.width // f, 1))
+        ref, _ = cpu.get_image_clip(scale, region)
+        if got != level or clip.shape != shape or float(np.abs(clip - ref).max()) > 1e-6:
+            raise SystemExit(f"pyramid clip at scale {scale}: level {got}, shape "
+                             f"{clip.shape}; {level} and {shape} expected")
+    print(f"[pyramid] get_image_clip at scales {[s for s, _ in PYR_CLIPS]}: levels "
+          f"{[lv for _, lv in PYR_CLIPS]}, shapes as expected")
+    kernel_ms, copy_ms = _device_split(dev, lambda: build(dev, "card_profiled"))
+    out["host_io_pyramid_kernel_ms"] = kernel_ms
+    out["host_io_pyramid_copy_ms"] = copy_ms
+    out["host_io_pyramid_max_abs_err"] = max(errs)
+    print(f"[pyramid] build: {out['host_io_pyramid_s']:.4f} s on the card (device time of a "
+          f"profiled build: kernels {kernel_ms} ms, copies {copy_ms} ms), "
+          f"{out['host_io_pyramid_cpu_s']:.4f} s on the CPU")
+
+
+def _device_split(dev, run):
+    """Device time of ``run`` (torch.profiler, CUDA activity): kernels and
+    memory copies apart, in ms; (None, None) off the card or when the
+    profiler saw nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if torch.device(dev).type != "cuda":
+        return None, None
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copy = sum(e.self_device_time_total for e in events if "Memcpy" in e.key) / 1e3
+    kernel = sum(e.self_device_time_total for e in events if "Memcpy" not in e.key) / 1e3
+    return (kernel, copy) if events else (None, None)
+
+
+def _tile_work(view, n, dev, out, sample=128):
+    """The card work of one tile function alone, without the writer: every
+    tile in turn on one thread (wall), and the device time of the first
+    ``sample`` tiles (kernels and copies, per tile)."""
+    from visionworkbench_torch.math.bbox import BBox2i, subdivide_bbox
+    tile_fn = _blur_tile_fn(view, n, dev)
+    tiles = subdivide_bbox(BBox2i(0, 0, n, n), HOST_IO_TILE, HOST_IO_TILE)
+    sample = min(sample, len(tiles))
+    t0 = time.perf_counter()
+    for b in tiles:
+        tile_fn(b)
+    wall = time.perf_counter() - t0
+    kernel_ms, copy_ms = _device_split(dev, lambda: [tile_fn(b) for b in tiles[:sample]])
+    per = (lambda ms: None if ms is None else ms / sample)
+    out["host_io_tile_fn_serial_s"] = wall
+    out["host_io_tile_fn_kernel_ms"] = per(kernel_ms)
+    out["host_io_tile_fn_copy_ms"] = per(copy_ms)
+    print(f"[host-io] the card tile function alone, {len(tiles)} tiles on one thread: "
+          f"{wall:.4f} s ({wall / len(tiles) * 1e3:.4f} ms a tile); device time a tile "
+          f"(first {sample}, profiled): kernels {per(kernel_ms)} ms, copies {per(copy_ms)} ms")
+
+
+def _qtree_sources(n, folder):
+    from visionworkbench_torch.fileio import write_tiff
+    srcs, georefs, _ = _config5(n)
+    paths = []
+    for i, (s, g) in enumerate(zip(srcs, georefs)):
+        paths.append(os.path.join(folder, f"c5_{n}_{i}.tif"))
+        write_tiff(paths[-1], s, georef=g)
+    return paths
+
+
+def _qtree_run(paths, folder, blend, dev, tag):
+    """image2qtree's CLI: wall, tile list, KML text and the tiles' folder."""
+    import contextlib
+    import io
+    import glob
+    from visionworkbench_torch.tools.image2qtree import main
+    name = os.path.join(folder, tag, "qt")
+    os.makedirs(os.path.dirname(name), exist_ok=True)
+    buf = io.StringIO()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(paths + ["-o", name, "--tile-size", str(QTREE_TILE), "--blend", blend],
+                  device=dev)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"image2qtree {tag}: exit {rc}")
+    tiles = sorted(os.path.relpath(p, name) for p in glob.glob(os.path.join(name, "*", "*",
+                                                                             "*.png")))
+    with open(name + ".kml") as f:
+        kml = f.read()
+    return wall, tiles, kml, name, buf.getvalue()
+
+
+def _image2qtree(dev, folder, out):
+    """image2qtree-config5 at 1024 (card against CPU) and 2048 (card)."""
+    from visionworkbench_torch.fileio import read_image
+    small, big = QTREE_NS
+    paths = _qtree_sources(small, folder)
+    for blend in QTREE_BLENDS:
+        cw, ct, ck, cn, _ = _qtree_run(paths, folder, blend, dev, f"card_{small}_{blend}")
+        hw, ht, hk, hn, _ = _qtree_run(paths, folder, blend, "cpu", f"cpu_{small}_{blend}")
+        if ct != ht or ck != hk:
+            raise SystemExit(f"image2qtree {blend} {small}: tiles ({len(ct)} vs {len(ht)}) or "
+                             "KML differ card against CPU")
+        flips = total = worst = 0
+        for rel in ct:
+            a = read_image(os.path.join(cn, rel)).astype(np.int16)
+            b = read_image(os.path.join(hn, rel)).astype(np.int16)
+            d = np.abs(a - b)
+            worst = max(worst, int(d.max()))
+            flips += int((d > 0).sum())
+            total += d.size
+        share = 1 - flips / total
+        print(f"[image2qtree] config5 {small} {blend}: {len(ct)} tiles, KML equal; card "
+              f"against CPU: max {worst} LSB, equal on {share:.6f} of {total} pixels; wall "
+              f"{cw:.4f} s on the card, {hw:.4f} s on the CPU")
+        if worst > 1 or share < QTREE_SHARE:
+            raise SystemExit(f"image2qtree {blend} {small}: card against CPU max {worst} LSB, "
+                             f"equal share {share}")
+        out[f"host_io_qtree_{small}_{blend}_s"] = cw
+        out[f"host_io_qtree_{small}_{blend}_cpu_s"] = hw
+        out[f"host_io_qtree_{small}_{blend}_tiles"] = len(ct)
+    paths = _qtree_sources(big, folder)
+    for blend in QTREE_BLENDS:
+        cw, ct, _, _, printed = _qtree_run(paths, folder, blend, dev, f"card_{big}_{blend}")
+        print(f"[image2qtree] config5 {big} (4 sources of {int(big * 0.6)}^2) {blend}: "
+              f"{len(ct)} tiles in {cw:.4f} s on the card ({printed.splitlines()[0]})")
+        out[f"host_io_qtree_{big}_{blend}_s"] = cw
+        out[f"host_io_qtree_{big}_{blend}_tiles"] = len(ct)
+
+
+def phase_host_io(dev, n=HOST_IO_N):
+    """host-io-8192, pyramid-8192 and image2qtree-config5 (see the module
+    docstring, phase 7); no kernel of csrc/ may launch on the pyramid and
+    image2qtree runs. Returns the ``host_io_*`` numbers."""
+    import torch
+    from visionworkbench_torch import native
+    out = {}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fresh = not native.library_path().exists()
+    native.load()
+    out["host_io_native_build_s"] = time.perf_counter() - t0
+    print(f"[host-io] native runtime {'built' if fresh else 'loaded (built before)'} with "
+          f"g++ in {out['host_io_native_build_s']:.4f} s: {native.library_path()}")
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    folder = tempfile.mkdtemp(prefix="chip_smoke_host_io_")
+    try:
+        src, _ = _host_io(dev, n, folder, out)
+        if cuda:
+            out["host_io_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+            print(f"[host-io] peak device memory {out['host_io_peak_mib']:.1f} MiB")
+        _reset_counts()
+        _pyramid(dev, src, n, folder, out)
+        _image2qtree(dev, folder, out)
+        _sync(dev)
+        counts = _read_counts()
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"[host-io] launches over the pyramid and image2qtree runs: {counts}")
+    if any(counts.values()):
+        raise SystemExit(f"host-io: a kernel of csrc/ ran on the pyramid or image2qtree: {counts}")
+    out["host_io_phase_s"] = time.perf_counter() - t_phase
+    print(f"[host-io] phase wall {out['host_io_phase_s']:.4f} s")
+    return out
+
+
 def _kernel_name(name):
     """``band_sweep_kernel<0, 24>`` of a profiler's kernel signature."""
     m = re.search(r"\w+_kernel<[^>]*>", name)
@@ -3291,6 +3682,7 @@ def main() -> int:
     phase_slice_vs_cpu(dev)
     frame, rows = phase_timings(dev)
     par_counts, par_frame = phase_parallel(dev, smi)
+    host_io = phase_host_io(dev)
     # kernel: (heaviest main-path shape, main-path run, source, TPU kernel)
     sweep_cu = "visionworkbench_torch/csrc/sweep.cu"
     sweep_tpu = "visionworkbench_tpu/ops/sweep.py:603"
@@ -3395,6 +3787,7 @@ def main() -> int:
                          for k, v in r.items()},
                       **{f"parallel_{what}_{k}": v for what, r in par_frame.items()
                          for k, v in r.items()},
+                      **host_io,
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,5 @@
 """Mosaicking of the port (``src/vw/Mosaic/``): compositing, the
-cartographic reprojection mosaic and quadtree tiles. The JAX package's
-``DiskImagePyramid`` (``mosaic/pyramid.py``) is not ported yet."""
+cartographic reprojection mosaic, quadtree tiles and on-disk pyramids."""
 
 from visionworkbench_torch.mosaic.composite import (  # noqa: F401
     ImageComposite, blend_levels_for, collapse_pyramid, feather_blend,
@@ -12,3 +11,4 @@ from visionworkbench_torch.mosaic.quadtree import (  # noqa: F401
 from visionworkbench_torch.mosaic.geomosaic import (  # noqa: F401
     ReprojectPlan, plan_reproject_grids, reproject_mosaic,
 )
+from visionworkbench_torch.mosaic.pyramid import DiskImagePyramid  # noqa: F401
