@@ -226,6 +226,43 @@ Phases (each raises on a mismatch; none catches its own failure):
    launch counts, set to 0 before the pyramid and image2qtree runs and read
    after, must all be 0. Its numbers go under ``host_io_*`` keys of the
    summary line.
+8. Cameras, triangulation and DEMs (``phase_stereo_dem``), stereo-dem-1024:
+   the Ames Stereo Pipeline flow of a nadir frame-camera pair on WGS84 at
+   (-122, 37): two TSAI pinholes (f 1500 px, principal point 511.5, k1
+   -0.1, k2 0.02, p1 1e-3, p2 -5e-4) 1000 m above the datum, 30 m apart
+   east-west (the left one east; centres on the fp32 grid), small attitude
+   errors; a true DEM of smooth hills (0-100 m, seed 23) and the bench
+   texture at 2048^2 on geographic georefs over an 800 m square. Each
+   1024^2 image is rendered through the port (``pixel_to_vector``'s TSAI
+   Newton, ``camera_pixel_to_dem_xyz`` on the true DEM, lon/lat, a bilinear
+   texture sample). The chain, each step's ``csrc/`` launches counted:
+   ``epipolar_rectify``, ``camera_transform`` of both images into the
+   rectified cameras with their coverage as masks, ``pyramid_correlate`` at
+   the bench settings with those masks (``band_sweep_kernel`` 5 and speckle
+   9 launches; no other step launches any), ``StereoModel.point_cloud``,
+   ``point_image_to_dem`` onto the 512^2 grid, ``hillshade`` and
+   ``colormap`` shaded by it. Gates: >= 0.9 of the 16-px core whose true
+   right pixel lies inside within 0.5 px of the true disparity (float64,
+   from each pixel's DEM hit); the points from the true disparity within
+   0.6 m of the float64 oracle on every pixel, for the chain's pair and for
+   the same pair at float64 centres; >= 0.9 of the DEM's cells within
+   Z^2 / (f b) * 0.5 px + 1 m of the true DEM; the CAHV route
+   (``pinhole_to_cahv``) within 1 m of the pinhole route; round trips at
+   every pixel of 1024^2 (the TSAI pinhole, CAHVOR, CAHVORE at linearities
+   1, 0.5 and 0) within ``DEM_RT``; card against CPU, each step from the
+   same inputs, all equal: the warps and their masks, the points, errors and
+   validity, the DEM and its cells, hillshade and colormap, the
+   ``undistort_image``, ``hillshade`` and ``colormap --hillshade`` tools'
+   files; ``orthoproject`` of the left image onto the recovered DEM held
+   piece by piece (the ground points' lon/lat/height equal, their ECEF
+   points within ``DEM_ECEF_ULPS`` fp32 ulps, the CPU's ``point_to_pixel``
+   and ``sample`` of the card's points equal the card's, the card's
+   orthoimage equal to its pieces). The scene and its
+   float64 oracle are in ``stereo_dem_scene.py``. Timing: each step's ms
+   (median of 5 chains after 2 warm-ups, CUDA events between the steps),
+   device ms, device launches and idle share (torch.profiler), the chain's
+   Mp/s, peak device memory, the phase's wall. Its numbers go under ``stereo_dem_*``
+   keys of the summary line.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -247,6 +284,9 @@ import tempfile
 import time
 
 import numpy as np
+
+import stereo_dem_scene as sds
+from stereo_dem_scene import texture as _texture
 
 # Main-path configuration (bench.py:30-33).
 H = W = 1024
@@ -385,15 +425,6 @@ SPECKLE_OPS = 10
 # forces absent candidates (2).
 SCAN_OPS = 13
 MGM_OPS = 26
-
-
-def _texture(h, w, seed):
-    """``tools_bench_configs.py:96-101``'s texture, (h, w + 80)."""
-    rng = np.random.default_rng(seed)
-    ys, xs = np.mgrid[0:h, 0:w + 80].astype(np.float32)
-    return (np.sin(xs * 0.21) * np.cos(ys * 0.17)
-            + 0.5 * np.sin(xs * 0.047 + ys * 0.031)
-            + 0.3 * rng.random(xs.shape)).astype(np.float32)
 
 
 def _make_pair(h, w, seed=7):
@@ -3647,6 +3678,466 @@ def phase_host_io(dev, n=HOST_IO_N):
     return out
 
 
+# ---- phase 8: cameras, triangulation and DEMs ------------------------------------
+
+# stereo-dem-1024: the scene (the cameras, the true DEM, the texture) and its
+# float64 oracle are in stereo_dem_scene.py, which the CPU tests share.
+DEM_REPS = 5
+DEM_MARGIN = 16              # the correlator gate's core
+DEM_SHARE = 0.9
+DEM_CORR_PX = 0.5            # correlated disparity against the true one
+# round trips pixel -> ray -> point -> pixel (px) and ray -> pixel -> ray
+# (tests/test_camera.py:42, :90, :177); each model's point distance
+DEM_RT = {"tsai": (1e-2, 1e-4, 1000.0), "cahvor": (1e-2, 1e-4, 50.0),
+          "cahvore_1": (5e-2, 1e-4, 40.0), "cahvore_0.5": (5e-2, 1e-4, 40.0),
+          "cahvore_0": (5e-2, 1e-4, 40.0)}
+
+# card against CPU: every step of the chain, the tools and the pieces of the
+# orthoprojection give equal results on both devices (single multiplies and
+# adds, IEEE quotients, correctly rounded roots, float64 geodetic in the DEM
+# step), except the fp32 sin/cos of the orthoprojection's geodetic-to-ECEF
+# step, held to DEM_ECEF_ULPS fp32 ulps a coordinate: the card's sinf/cosf
+# are within 2 ulps of the true values, the CPU's within 1, and x and y are
+# products of two of them (measured 3 ulps, D4, PERF.md §6)
+DEM_ECEF_ULPS = 4
+
+
+
+def stereo_dem_steps(scene, n, dev):
+    """The timed chain as (name, step) pairs; each step reads and writes the
+    state dict (``left``/``right``: the rendered images on ``dev``)."""
+    import torch
+    from visionworkbench_torch.cartography import colormap, hillshade, point_image_to_dem
+    from visionworkbench_torch.stereo.stereo_model import StereoModel
+    g = scene["dem"].shape[0]
+
+    def rectify(st):
+        st["rect_l"], st["rect_r"] = sds.rectify(scene)
+
+    def warp(st):
+        st["img_l"], st["mask_l"] = sds.warp(st["left"], scene["left"], st["rect_l"], n)
+        st["img_r"], st["mask_r"] = sds.warp(st["right"], scene["right"], st["rect_r"], n)
+
+    def correlate(st):
+        st["dm"] = _bench_run(st["img_l"], st["img_r"], dev, left_mask=st["mask_l"],
+                              right_mask=st["mask_r"])
+
+    def triangulate(st):
+        st["xyz"], st["err"], st["valid"] = StereoModel(
+            st["rect_l"], st["rect_r"]).point_cloud(st["dm"])
+
+    def dem(st):
+        d, v = point_image_to_dem(st["xyz"], st["valid"], scene["dem_georef"], g, g)
+        st["dem"], st["dem_valid"] = torch.where(v, d, sds.DEM_NODATA), v
+
+    def shade(st):
+        st["shade"] = hillshade(st["dem"], scale=scene["cell_m"], nodata=sds.DEM_NODATA).data
+
+    def color(st):
+        st["rgb"] = colormap(st["dem"], nodata=sds.DEM_NODATA, shade=st["shade"])
+
+    return [("rectify", rectify), ("warp", warp), ("correlate", correlate),
+            ("triangulate", triangulate), ("dem", dem), ("hillshade", shade),
+            ("colormap", color)]
+
+
+def _dem_timed(steps, st, reps=DEM_REPS, warmup=2):
+    """Median ms of each step and of the chain over ``reps`` chains after
+    ``warmup`` (CUDA events between the steps)."""
+    import torch
+    for _ in range(warmup):
+        for _, step in steps:
+            step(st)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
+        evs[0].record()
+        for (_, step), ev in zip(steps, evs[1:]):
+            step(st)
+            ev.record()
+        runs.append(evs)
+    torch.cuda.synchronize()
+    ms = {name: statistics.median(r[i].elapsed_time(r[i + 1]) for r in runs)
+          for i, (name, _) in enumerate(steps)}
+    ms["chain"] = statistics.median(r[0].elapsed_time(r[-1]) for r in runs)
+    return ms
+
+
+def _dem_profile(step, st):
+    """(device ms, device launches) of one run of ``step`` (torch.profiler;
+    kernels, copies and fills), or (None, None) when it saw nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(st)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None, None
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def stereo_dem_points_gate(cl, cr, d_true, v_true, dev, what, out):
+    """``StereoModel(cl, cr).point_cloud`` of the true disparity within
+    sds.DEM_POINT_M of the float64 oracle on the same fp32 pixel pairs, on every
+    valid pixel."""
+    import torch
+    from visionworkbench_torch.stereo.correlation import DisparityMap
+    from visionworkbench_torch.stereo.stereo_model import StereoModel
+    n = d_true.shape[0]
+    d32 = d_true.astype(np.float32)
+    xyz, _, valid = StereoModel(cl, cr).point_cloud(
+        DisparityMap(torch.as_tensor(d32, device=dev), torch.as_tensor(v_true, device=dev)))
+    xyz, valid = xyz.cpu().numpy(), valid.cpu().numpy()
+    pix1 = np.stack(np.meshgrid(np.arange(n), np.arange(n)), -1).astype(np.float32)
+    perr = np.linalg.norm(xyz - sds.triangulate64(cl, cr, pix1, pix1 + d32), axis=-1)[valid]
+    out[f"stereo_dem_point_{what}_max_m"] = float(perr.max())
+    out[f"stereo_dem_point_{what}_median_m"] = float(np.median(perr))
+    print(f"[stereo-dem] points from the true disparity ({what}) against float64: median "
+          f"{np.median(perr):.4f} m, max {perr.max():.4f} m on {int(valid.sum())} pixels")
+    if not (valid == v_true).all() or perr.max() > sds.DEM_POINT_M:
+        raise SystemExit(f"stereo-dem: the points from the true disparity ({what}) are off "
+                         f"by {perr.max():.4f} m (> {sds.DEM_POINT_M})")
+
+
+def _dem_gates(st, scene, n, dev, out):
+    """The correlator, triangulation, DEM and CAHV gates of stereo-dem."""
+    import torch
+    from visionworkbench_torch.camera import pinhole_to_cahv
+    from visionworkbench_torch.stereo.stereo_model import StereoModel
+    rect_l, rect_r = st["rect_l"], st["rect_r"]
+    depth, v_true = sds.depth(rect_l, scene, n, dev)
+    d_true = sds.disparity(rect_l, rect_r, depth)
+    # the correlator: core pixels whose true right pixel lies inside the
+    # right warp's coverage
+    d, v = st["dm"].to_numpy()
+    ys, xs = np.mgrid[0:n, 0:n]
+    rx = np.round(xs + d_true[..., 0]).astype(np.int64)
+    ry = np.round(ys + d_true[..., 1]).astype(np.int64)
+    inside = (rx >= 0) & (rx < n) & (ry >= 0) & (ry < n)
+    mask_r = st["mask_r"].cpu().numpy()
+    inside &= mask_r[np.clip(ry, 0, n - 1), np.clip(rx, 0, n - 1)]
+    inside &= v_true & st["mask_l"].cpu().numpy()
+    core = np.zeros((n, n), bool)
+    core[DEM_MARGIN:-DEM_MARGIN, DEM_MARGIN:-DEM_MARGIN] = True
+    sel = core & inside
+    err = np.abs(d - d_true).max(-1)
+    share = float((v & (err <= DEM_CORR_PX))[sel].mean())
+    out["stereo_dem_corr_valid"] = float(v[sel].mean())
+    out["stereo_dem_corr_share"] = share
+    out["stereo_dem_corr_median_px"] = float(np.median(err[sel & v]))
+    print(f"[stereo-dem] correlator: {int(sel.sum())} core pixels with the true right pixel "
+          f"inside, valid {out['stereo_dem_corr_valid']:.4f}, within {DEM_CORR_PX} px of the "
+          f"true disparity {share:.4f} (median |d| {out['stereo_dem_corr_median_px']:.4f} px; "
+          f"true disparity {d_true[..., 0][sel].min():.3f} .. {d_true[..., 0][sel].max():.3f} px)")
+    if share < DEM_SHARE:
+        raise SystemExit(f"stereo-dem: the correlator's share within {DEM_CORR_PX} px "
+                         f"is {share:.4f} < {DEM_SHARE}")
+    # triangulation of the true disparity against the float64 oracle: the
+    # chain's pair, and the same pair with its float64 centres (off the fp32
+    # grid, where the JAX package's fp32 route is metres off)
+    pairs = {"chain": (rect_l, rect_r),
+             "float64_centres": sds.rectify(sds.scene(n, fp32_centres=False))}
+    for what, (cl, cr) in pairs.items():
+        stereo_dem_points_gate(cl, cr, sds.disparity(cl, cr, depth), v_true, dev,
+                               what, out)
+    # the DEM from the correlated disparity against the true DEM
+    g = scene["dem"].shape[0]
+    dem_v = st["dem_valid"].cpu().numpy()
+    derr = np.abs(st["dem"].cpu().numpy() - scene["dem"])[dem_v]
+    bound = sds.DEM_ALT_M ** 2 / (rect_l.fu * sds.DEM_BASELINE_M) * DEM_CORR_PX + 1.0
+    out["stereo_dem_dem_share"] = float((derr <= bound).mean())
+    out["stereo_dem_dem_median_m"] = float(np.median(derr))
+    out["stereo_dem_dem_cells"] = float(dem_v.mean())
+    print(f"[stereo-dem] DEM: {int(dem_v.sum())} of {g * g} cells, within {bound:.4f} m of "
+          f"the true DEM {out['stereo_dem_dem_share']:.4f}, median |dz| "
+          f"{out['stereo_dem_dem_median_m']:.4f} m, max {derr.max():.4f} m")
+    if out["stereo_dem_dem_share"] < DEM_SHARE:
+        raise SystemExit(f"stereo-dem: the DEM's share within {bound:.2f} m is "
+                         f"{out['stereo_dem_dem_share']:.4f} < {DEM_SHARE}")
+    # the CAHV route against the pinhole route on the correlated map
+    cxyz, _, cvalid = StereoModel(pinhole_to_cahv(rect_l),
+                                  pinhole_to_cahv(rect_r)).point_cloud(st["dm"])
+    both = (cvalid & st["valid"]).cpu().numpy()
+    cerr = np.linalg.norm((cxyz - st["xyz"]).double().cpu().numpy(), axis=-1)[both]
+    out["stereo_dem_cahv_max_m"] = float(cerr.max())
+    print(f"[stereo-dem] CAHV route against the pinhole route: validity differs at "
+          f"{int((cvalid != st['valid']).sum())} pixels, max {cerr.max():.4f} m, median "
+          f"{np.median(cerr):.4f} m")
+    if not torch.equal(cvalid, st["valid"]) or cerr.max() > sds.DEM_CAHV_M:
+        raise SystemExit(f"stereo-dem: the CAHV route is off by {cerr.max():.4f} m")
+
+
+def _test_pinhole():
+    """``tests/test_camera.py``'s ``_test_camera``."""
+    from visionworkbench_torch.camera import PinholeModel
+    from visionworkbench_torch.math.quaternion import euler_to_rotation_matrix
+    return PinholeModel((10.0, -5.0, 2.0), euler_to_rotation_matrix(0.1, -0.2, 0.05).numpy(),
+                        (500.0, 510.0), (320.0, 240.0))
+
+
+def stereo_dem_round_trip_models(scene):
+    """The round trips' models: the phase's left TSAI pinhole moved to the
+    origin (its ECEF centre rounds to 0.5 m in fp32), and CAHVOR and CAHVORE
+    (linearities 1, 0.5, 0) built on ``_test_camera`` as
+    ``tests/test_camera.py:84-85, 151-156`` build them."""
+    from visionworkbench_torch.camera import (
+        CAHVOREModel, CAHVORModel, PinholeModel, pinhole_to_cahv)
+    left = scene["left"]
+    base = pinhole_to_cahv(_test_pinhole())
+    radial = (0.0, -0.001, 0.0002)
+    models = {"tsai": PinholeModel((0.0, 0.0, 0.0), left.R, (left.fu, left.fv),
+                                   (left.cu, left.cv), left.distortion),
+              "cahvor": CAHVORModel(base.C, base.A, base.H, base.V, base.A, radial)}
+    for p in (1.0, 0.5, 0.0):
+        models[f"cahvore_{p:g}"] = CAHVOREModel(base.C, base.A, base.H, base.V, base.A,
+                                                radial, (0.0005, -0.0002, 0.0001), p)
+    return models
+
+
+def _round_trips(scene, n, dev, out):
+    """pixel -> ray -> point -> pixel and ray -> pixel -> ray at every pixel
+    of n^2, within ``DEM_RT``."""
+    import torch
+    pix = sds.pixel_grid(n, dev)
+    for name, cam in stereo_dem_round_trip_models(scene).items():
+        tol_px, tol_ray, dist = DEM_RT[name]
+        _sync(dev)
+        t0 = time.perf_counter()
+        rays = cam.pixel_to_vector(pix)
+        back = cam.point_to_pixel(cam.camera_center(pix) + rays * dist)
+        rays2 = cam.pixel_to_vector(back)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        e_px = float((back - pix).abs().max())
+        e_ray = float((rays2 - rays).abs().max())
+        out[f"stereo_dem_rt_{name}_px"] = e_px
+        out[f"stereo_dem_rt_{name}_ray"] = e_ray
+        print(f"[stereo-dem] round trip {name} at {n}^2: max |pixel| {e_px:.3e} px "
+              f"(bound {tol_px}), max |ray| {e_ray:.3e} (bound {tol_ray}), "
+              f"{wall * 1e3:.4f} ms (three calls)")
+        if not (e_px <= tol_px and e_ray <= tol_ray):
+            raise SystemExit(f"stereo-dem: round trip {name} off: {e_px} px, {e_ray}")
+
+
+def _same(a, b):
+    """(equal, max |a - b|) of two tensors or arrays, NaNs equal to NaNs."""
+    a, b = (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x) for x in (a, b))
+    if a.shape != b.shape:
+        return False, float("inf")
+    same = (a == b) | (np.isnan(a) & np.isnan(b)) if a.dtype.kind == "f" else a == b
+    diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    return bool(same.all()), float(np.nanmax(diff)) if diff.size else 0.0
+
+
+def _dem_vs_cpu(st, steps, scene, dev, out):
+    """The warps (from the same rendered images) and the chain after the
+    correlator on the CPU, each step from the card's own inputs to it,
+    against the card: every output equal."""
+    from visionworkbench_torch.stereo.correlation import DisparityMap
+    fns = dict(steps)
+    cpu = {k: st[k].cpu() for k in ("left", "right")}
+    cpu.update(rect_l=st["rect_l"], rect_r=st["rect_r"],
+               dm=DisparityMap(st["dm"].disparity.cpu(), st["dm"].valid.cpu()))
+    checks = {}
+    fns["warp"](cpu)
+    for k in ("img_l", "img_r", "mask_l", "mask_r"):
+        checks[f"warp {k}"] = _same(cpu[k], st[k])
+    fns["triangulate"](cpu)
+    for k in ("xyz", "err", "valid"):
+        checks[f"points {k}"] = _same(cpu[k], st[k])
+    cpu["xyz"], cpu["valid"] = st["xyz"].cpu(), st["valid"].cpu()
+    fns["dem"](cpu)
+    for k in ("dem", "dem_valid"):
+        checks[k] = _same(cpu[k], st[k])
+    cpu["dem"] = st["dem"].cpu()
+    fns["hillshade"](cpu)
+    checks["hillshade"] = _same(cpu["shade"], st["shade"])
+    cpu["shade"] = st["shade"].cpu()
+    fns["colormap"](cpu)
+    checks["colormap"] = _same(cpu["rgb"], st["rgb"])
+    print("[stereo-dem] card vs CPU (equal, max |d|): " + ", ".join(
+        f"{k} {eq} {d:.3e}" for k, (eq, d) in checks.items()))
+    out.update(stereo_dem_cpu_warp=max(checks[f"warp img_{s}"][1] for s in "lr"),
+               stereo_dem_cpu_points_m=checks["points xyz"][1],
+               stereo_dem_cpu_dem_m=checks["dem"][1], stereo_dem_cpu_shade=checks["hillshade"][1],
+               stereo_dem_cpu_rgb=checks["colormap"][1])
+    bad = [k for k, (eq, _) in checks.items() if not eq]
+    if bad:
+        raise SystemExit(f"stereo-dem: the card and the CPU disagree on {bad}")
+
+
+def _ulps(a, b):
+    """Largest |a - b| of two fp32 tensors in fp32 ulps of the larger magnitude."""
+    a, b = a.cpu().double().numpy(), b.cpu().double().numpy()
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32)).astype(np.float64)
+    return float((np.abs(a - b) / ulp).max())
+
+
+def _dem_ortho(st, scene, n, dev, out):
+    """``orthoproject`` of the left image onto the recovered DEM through
+    ``Map2CamTrans`` (an n^2 map over the DEM's area), on the card and on
+    the CPU, held piece by piece: the card's orthoimage is its own ground
+    points' lon/lat/height -> ECEF -> ``point_to_pixel`` -> ``sample``; the
+    CPU's lon/lat/height equal the card's; its ECEF points of the card's
+    lon/lat/height lie within DEM_ECEF_ULPS of the card's; its
+    ``point_to_pixel`` and ``sample`` of the card's points and pixels equal
+    the card's."""
+    from visionworkbench_torch.cartography import GeoReference, Map2CamTrans, orthoproject
+    from visionworkbench_torch.image.transform import _dest_grid, sample
+    g = scene["dem_georef"]
+    t = g.transform.copy()
+    t[0, 0] *= scene["dem"].shape[1] / n
+    t[1, 1] *= scene["dem"].shape[0] / n
+    georef = GeoReference(g.datum, g.projection, t)
+    cam = scene["left"]
+    ortho, llh, xyz, pix, samp = {}, {}, {}, {}, {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        img, dem = st["left"].to(d), st["dem"].to(d)
+        _sync(dev)
+        t0 = time.perf_counter()
+        ortho[tag] = orthoproject(img, cam, georef, (n, n), dem=dem, dem_georef=g,
+                                  dem_nodata=sds.DEM_NODATA)
+        _sync(dev)
+        out[f"stereo_dem_ortho_{tag}_ms"] = (time.perf_counter() - t0) * 1e3
+        llh[tag] = Map2CamTrans(cam, georef, dem, g, sds.DEM_NODATA).ground_llh(
+            *_dest_grid(n, n, img.device))
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        xyz[tag] = g.datum.geodetic_to_cartesian(llh["card"].to(d))
+        pix[tag] = cam.point_to_pixel(xyz["card"].to(d))
+        samp[tag] = sample(st["left"].to(d), *pix["card"].to(d).unbind(-1), interp="bilinear",
+                           edge="zero")
+    ulps = _ulps(xyz["card"], xyz["cpu"])
+    checks = {"card orthoimage = its pieces": _same(samp["card"], ortho["card"]),
+              "lon/lat/height": _same(llh["cpu"], llh["card"]),
+              "point_to_pixel": _same(pix["cpu"], pix["card"]),
+              "sample": _same(samp["cpu"], samp["card"])}
+    whole = (ortho["card"] - ortho["cpu"].to(dev)).abs()
+    out.update(stereo_dem_ortho_ecef_ulps=ulps, stereo_dem_ortho_max=float(whole.max()),
+               stereo_dem_ortho_equal=float((whole == 0).float().mean()))
+    print(f"[stereo-dem] orthoproject {n}^2: card {out['stereo_dem_ortho_card_ms']:.4f} ms, "
+          f"CPU {out['stereo_dem_ortho_cpu_ms']:.4f} ms; ECEF ground points card vs CPU "
+          f"{ulps:.1f} ulps (bound {DEM_ECEF_ULPS}); " + ", ".join(
+              f"{k} {eq} {dd:.3e}" for k, (eq, dd) in checks.items())
+          + f"; whole orthoimages card vs CPU: max |d| {out['stereo_dem_ortho_max']:.3e}, equal "
+          f"on {out['stereo_dem_ortho_equal']:.6f}")
+    bad = [k for k, (eq, _) in checks.items() if not eq]
+    if bad or ulps > DEM_ECEF_ULPS:
+        raise SystemExit(f"stereo-dem: the orthoprojection differs between the card and the "
+                         f"CPU: {bad}, ground points {ulps} ulps")
+
+
+def _dem_tools(st, scene, dev, folder, out):
+    """The three tools' ``main`` on files the phase writes (the left image
+    with a ``.tsai`` from ``write_pinhole_model``; the recovered DEM as a
+    GeoTIFF with nodata), on the card and on the CPU: ``undistort_image``,
+    ``hillshade`` and ``colormap --hillshade``; their files equal."""
+    from visionworkbench_torch.camera import write_pinhole_model
+    from visionworkbench_torch.fileio import read_image, write_tiff
+    from visionworkbench_torch.tools import colormap, hillshade, undistort_image
+    img, tsai, dem = (os.path.join(folder, f) for f in ("left.tif", "left.tsai", "dem.tif"))
+    write_tiff(img, st["left"].cpu().numpy())
+    write_pinhole_model(tsai, scene["left"])
+    write_tiff(dem, st["dem"].cpu().numpy(), georef=scene["dem_georef"], nodata=sds.DEM_NODATA)
+    res = {}
+    names = ("undistort_image", "hillshade", "colormap")
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        outs = [os.path.join(folder, f"{what}_{tag}{ext}") for what, ext in
+                (("undist", ".tif"), ("shade", ".tif"), ("cmap", ".png"))]
+        runs = ((undistort_image.main, [img, tsai, "-o", outs[0]]),
+                (hillshade.main, [dem, "-o", outs[1]]),
+                (colormap.main, [dem, "--hillshade", "-o", outs[2]]))
+        for name, (main, argv) in zip(names, runs):
+            rc, text, wall = _tool(main, argv, d)
+            if rc != 0:
+                raise SystemExit(f"stereo-dem: {name} exited {rc}: {text}")
+            out[f"stereo_dem_{name}_{tag}_s"] = wall
+        res[tag] = [read_image(p, None) for p in outs]
+    checks = {k: _same(a, b) for k, a, b in zip(names, res["card"], res["cpu"])}
+    out.update(stereo_dem_tool_undistort=checks["undistort_image"][1],
+               stereo_dem_tool_shade=checks["hillshade"][1],
+               stereo_dem_tool_rgb_lsb=checks["colormap"][1])
+    print(f"[stereo-dem] tools (card / CPU wall, s): " + ", ".join(
+        f"{k} {out[f'stereo_dem_{k}_card_s']:.4f} / {out[f'stereo_dem_{k}_cpu_s']:.4f}"
+        for k in names) + "; card vs CPU files (equal, max |d|): " + ", ".join(
+        f"{k} {eq} {dd:.3e}" for k, (eq, dd) in checks.items()))
+    bad = [k for k, (eq, _) in checks.items() if not eq]
+    if bad:
+        raise SystemExit(f"stereo-dem: the tools' files differ between the card and the CPU: {bad}")
+
+
+def _dem_launch_check(counts):
+    """The correlator step launches the bench frame's kernels of csrc/
+    (band_sweep_kernel once a level, speckle 9 times); no other step
+    launches any."""
+    want = {"sweep": LEVELS + 1, "sweep/band": LEVELS + 1, "speckle": 9}
+    for name, c in counts.items():
+        expect = want if name == "correlate" else {}
+        if any(c.get(k, 0) != expect.get(k, 0) for k in set(c) | set(expect)):
+            raise SystemExit(f"stereo-dem: step {name} launched {c}, expected {expect}")
+
+
+def phase_stereo_dem(dev, smi, n=sds.DEM_N):
+    """stereo-dem-1024 (see the module docstring, phase 8). Returns the
+    ``stereo_dem_*`` numbers and the correlator step's launches of csrc/."""
+    import torch
+    out = {}
+    t_phase = time.perf_counter()
+    scene = sds.scene(n)
+    st = {"left": sds.render(scene["left"], scene, n, dev),
+          "right": sds.render(scene["right"], scene, n, dev)}
+    _sync(dev)
+    out["stereo_dem_render_s"] = time.perf_counter() - t_phase
+    print(f"[stereo-dem] rendered the pair at {n}^2 in {out['stereo_dem_render_s']:.4f} s")
+    steps = stereo_dem_steps(scene, n, dev)
+    counts = {}
+    for name, step in steps:
+        _reset_counts()
+        step(st)
+        _sync(dev)
+        counts[name] = {k: v for k, v in _read_counts().items() if v}
+    print(f"[stereo-dem] launches of csrc/ by step: {counts}")
+    _dem_gates(st, scene, n, dev, out)
+    _reset_counts()
+    _round_trips(scene, n, dev, out)
+    _dem_vs_cpu(st, steps, scene, dev, out)
+    _dem_ortho(st, scene, n, dev, out)
+    folder = tempfile.mkdtemp(prefix="chip_smoke_stereo_dem_")
+    try:
+        _dem_tools(st, scene, dev, folder, out)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    _sync(dev)
+    counts["other"] = {k: v for k, v in _read_counts().items() if v}
+    if torch.device(dev).type == "cuda":   # the plain versions count nothing
+        _dem_launch_check(counts)
+    if torch.device(dev).type == "cuda":
+        ms = _dem_timed(steps, st)
+        torch.cuda.reset_peak_memory_stats()
+        for _, step in steps:
+            step(st)
+        out["stereo_dem_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        for name, step in steps:
+            dev_ms, launches = _dem_profile(step, st)
+            idle = None if dev_ms is None else 1 - dev_ms / ms[name]
+            out.update({f"stereo_dem_{name}_ms": ms[name], f"stereo_dem_{name}_device_ms": dev_ms,
+                        f"stereo_dem_{name}_launches": launches,
+                        f"stereo_dem_{name}_idle": idle})
+            print(f"[time] stereo-dem {name}: {ms[name]:.4f} ms, device {dev_ms} ms in "
+                  f"{launches} launches, idle share {idle}")
+        out["stereo_dem_chain_ms"] = ms["chain"]
+        out["stereo_dem_chain_mps"] = n * n / (ms["chain"] * 1e3)
+        print(f"[time] stereo-dem chain: {ms['chain']:.4f} ms (median of {DEM_REPS} after 2 "
+              f"warm-ups), {out['stereo_dem_chain_mps']:.3f} Mp/s, peak device memory "
+              f"{out['stereo_dem_peak_mib']:.1f} MiB")
+    out["stereo_dem_phase_s"] = time.perf_counter() - t_phase
+    print(f"[stereo-dem] phase wall {out['stereo_dem_phase_s']:.4f} s on {smi}")
+    return out, counts["correlate"]
+
+
 def _kernel_name(name):
     """``band_sweep_kernel<0, 24>`` of a profiler's kernel signature."""
     m = re.search(r"\w+_kernel<[^>]*>", name)
@@ -3683,6 +4174,7 @@ def main() -> int:
     frame, rows = phase_timings(dev)
     par_counts, par_frame = phase_parallel(dev, smi)
     host_io = phase_host_io(dev)
+    stereo_dem, dem_launches = phase_stereo_dem(dev, smi)
     # kernel: (heaviest main-path shape, main-path run, source, TPU kernel)
     sweep_cu = "visionworkbench_torch/csrc/sweep.cu"
     sweep_tpu = "visionworkbench_tpu/ops/sweep.py:603"
@@ -3747,6 +4239,8 @@ def main() -> int:
               "mgm_bidir": ("hier_mgm", "mgm_bidir/mgm_scan"),
               "mgm_fwd": ("hier_mgm", "mgm_fwd/mgm_scan"),
               "best_of_search": ("disp_search", "sweep")}.get(k)
+        # launches of stereo-dem-1024's correlator step
+        sd = {"sweep": "sweep/band", "speckle": "speckle"}.get(k)
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
@@ -3754,6 +4248,7 @@ def main() -> int:
             **({"cli_match_launches": counts["cli_match"][cm]} if cm else {}),
             **({"parallel_run": pk[0], "parallel_launches": par_counts[pk[0]][pk[1]]}
                if pk else {}),
+            **({"stereo_dem_launches": dem_launches.get(sd, 0)} if sd else {}),
             "max_abs_err": err[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
@@ -3788,6 +4283,7 @@ def main() -> int:
                       **{f"parallel_{what}_{k}": v for what, r in par_frame.items()
                          for k, v in r.items()},
                       **host_io,
+                      **stereo_dem,
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -97,3 +97,32 @@ def agreement(jd, jv, td, tv):
     both) of two disparity maps."""
     both = jv & tv
     return (jv == tv).mean(), np.abs(jd - td).max(-1)[both]
+
+
+def port_camera(jax_model):
+    """The port's camera built from a JAX package camera's float64
+    attributes (``C``, ``R``, ``fu``..., ``A``, ``H``, ``V``, ``O``, ``Rd``,
+    ``E``, the linearity, the distortion's ``params``, an adjusted model's
+    translation, rotation and centre)."""
+    import visionworkbench_torch.camera as tcam
+    name = type(jax_model).__name__
+    if name == "AdjustedCameraModel":
+        return tcam.AdjustedCameraModel(
+            port_camera(jax_model.unadjusted), np.asarray(jax_model.translation),
+            np.asarray(jax_model.rotation), np.asarray(jax_model.rotation_center))
+    if name == "PinholeModel":
+        d = jax_model.distortion
+        if type(d).__name__ == "RPCLensDistortion":
+            dist = tcam.RPCLensDistortion(d.num_x, d.den_x, d.num_y, d.den_y)
+        else:
+            dist = tcam.DISTORTION_TYPES[d.name](*d.params)
+        return tcam.PinholeModel(jax_model.C, jax_model.R, (jax_model.fu, jax_model.fv),
+                                 (jax_model.cu, jax_model.cv), dist, jax_model.pixel_pitch)
+    m = jax_model
+    if name == "CAHVModel":
+        return tcam.CAHVModel(m.C, m.A, m.H, m.V)
+    if name == "CAHVORModel":
+        return tcam.CAHVORModel(m.C, m.A, m.H, m.V, m.O, m.Rd)
+    if name == "CAHVOREModel":
+        return tcam.CAHVOREModel(m.C, m.A, m.H, m.V, m.O, m.Rd, m.E, m.linearity)
+    raise TypeError(f"port_camera: no port of {name}")

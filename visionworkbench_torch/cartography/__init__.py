@@ -1,7 +1,10 @@
 """Cartography of the port (``src/vw/Cartography/``; PROJ/GDAL replaced by
-in-tree torch projections and the GeoTIFF codec): the modules the
-reprojection mosaic needs. The JAX package's hillshade, colormap, camera
-and point-image modules are not ported yet."""
+in-tree torch projections and the GeoTIFF codec): datums, projections,
+georeferences and reprojection; hillshade and colormap; camera footprints,
+ray/DEM intersection, map <-> camera transforms and orthoprojection; point
+images and DEMs. ``bathymetry``, ``camera_fit``, ``chipper`` and
+``shapefile`` of the JAX package are not ported yet (``ROADMAP.md`` queue 1
+item 6)."""
 
 from visionworkbench_torch.cartography.datum import Datum, well_known_datum  # noqa: F401
 from visionworkbench_torch.cartography.projection import (  # noqa: F401
@@ -16,4 +19,17 @@ from visionworkbench_torch.cartography.georeference import (  # noqa: F401
 )
 from visionworkbench_torch.cartography.geotransform import (  # noqa: F401
     GeoTransform, reproject_image,
+)
+from visionworkbench_torch.cartography.hillshade import hillshade  # noqa: F401
+from visionworkbench_torch.cartography.colormap import colormap  # noqa: F401
+from visionworkbench_torch.cartography.camera_bbox import (  # noqa: F401
+    camera_bbox, camera_pixel_to_datum_lonlat, camera_pixel_to_dem_xyz,
+    intersect_datum,
+)
+from visionworkbench_torch.cartography.point_image import (  # noqa: F401
+    cartesian_to_geodetic, dem_to_geodetic, dem_to_point_image,
+    geodetic_to_cartesian, point_image_to_dem,
+)
+from visionworkbench_torch.cartography.map2cam import (  # noqa: F401
+    Datum2CamTrans, Map2CamTrans, orthoproject,
 )

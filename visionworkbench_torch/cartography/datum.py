@@ -73,8 +73,10 @@ class Datum:
 
     def cartesian_to_geodetic(self, xyz, iterations: int = 10):
         """ECEF -> (lon deg, lat deg, height m) via Bowring iteration
-        (ref ``Datum::cartesian_to_geodetic``)."""
-        xyz = as_f32(xyz)
+        (ref ``Datum::cartesian_to_geodetic``); in fp32, or in float64 for a
+        float64 tensor."""
+        if not (isinstance(xyz, torch.Tensor) and xyz.dtype == torch.float64):
+            xyz = as_f32(xyz)
         x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
         lon = torch.atan2(y, x) * _R2D - self.meridian_offset
         p = torch.sqrt(x * x + y * y)

@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from visionworkbench_torch.core.device import as_f32, rdiv
+from visionworkbench_torch.core.device import as_f32, rdiv, scalar
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.cartography.datum import Datum
 
@@ -30,11 +30,6 @@ def _pair(a, b):
     """Two coordinate arrays as fp32 tensors on the first one's device."""
     a = as_f32(a)
     return a, as_f32(b, like=a).to(a.device)
-
-
-def _f32(v, like):
-    """A 0-dim fp32 tensor of ``v`` on ``like``'s device."""
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
 class Projection:
@@ -157,7 +152,7 @@ class TransverseMercatorProjection(Projection):
         c = ep2 * cp * cp
         aa = lam * cp
         m = self._m(phi)
-        m0 = self._m(_f32(self.lat0, phi) * _D2R)
+        m0 = self._m(scalar(self.lat0, phi) * _D2R)
         x = k0 * n * (aa + (1 - t + c) * aa ** 3 / 6 +
                       (5 - 18 * t + t * t + 72 * c - 58 * ep2) * aa ** 5 / 120) \
             + self.x0
@@ -172,7 +167,7 @@ class TransverseMercatorProjection(Projection):
         ep2 = e2 / (1 - e2)
         e1 = (1 - math.sqrt(1 - e2)) / (1 + math.sqrt(1 - e2))
         x, y = _pair(x, y)
-        m0 = self._m(_f32(self.lat0, x) * _D2R)
+        m0 = self._m(scalar(self.lat0, x) * _D2R)
         m = m0 + (y - self.y0) / k0
         mu = m / (a * (1 - e2 / 4 - 3 * e2 * e2 / 64 - 5 * e2 ** 3 / 256))
         phi1 = (mu + (3 * e1 / 2 - 27 * e1 ** 3 / 32) * torch.sin(2 * mu)
@@ -469,7 +464,7 @@ class GnomonicProjection(Projection):
 
     def _phi0(self, like):
         """(sin, cos) of the fp32 center latitude, in fp32."""
-        phi0 = _f32(np.float32(np.deg2rad(self.lat0)), like)
+        phi0 = scalar(np.float32(np.deg2rad(self.lat0)), like)
         return torch.sin(phi0), torch.cos(phi0)
 
     def forward(self, lon, lat):

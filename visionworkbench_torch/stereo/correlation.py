@@ -38,7 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from visionworkbench_torch.core.device import as_tensor, resolve_device
+from visionworkbench_torch.core.device import as_tensor, resolve_device, sqrt_rn
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.census import (
     census_positions, census_transform, hamming_distance,
@@ -101,13 +101,6 @@ def _reciprocal(x: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(x) / x
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded fp32 square root: PyTorch's CPU float32 ``sqrt``
-    is not (it differs in ~0.6 % of values), its float64 one is, and a
-    float64 root rounded to fp32 is the correctly rounded fp32 root."""
-    return torch.sqrt(x.double()).to(x.dtype)
-
-
 def _cost(left: torch.Tensor, right: torch.Tensor, cost_type: str):
     if cost_type in CENSUS_COSTS:
         return hamming_distance(left, right).to(torch.float32)
@@ -162,7 +155,7 @@ def _sweep(left, right, sx: int, sy: int, kw: int, kh: int, cost_type: str,
                  else right[..., ey:ey + h, ex:ex + w])
             s = box_sum_valid(_cost(left, r, cost_type), kw, kh)
             if is_max:
-                s = s * _sqrt(lprec * rprec[..., ey:ey + oh, ex:ex + ow])
+                s = s * sqrt_rn(lprec * rprec[..., ey:ey + oh, ex:ex + ow])
             if ring:
                 vol.append(s)
             if interior:

@@ -12,16 +12,17 @@ from __future__ import annotations
 
 import torch
 
-from visionworkbench_torch.core.device import as_tensor
+from visionworkbench_torch.core.device import as_tensor, sqrt_rn
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.edge import edge_extend
-from visionworkbench_torch.stereo.correlation import DisparityMap, _sqrt
-from visionworkbench_torch.stereo.subpixel_refine import _grid, _sample
+from visionworkbench_torch.image.transform import _dest_grid
+from visionworkbench_torch.stereo.correlation import DisparityMap
+from visionworkbench_torch.stereo.subpixel_refine import _sample
 
 
 def _corr_eval(disp, valid, left, right, kw: int, kh: int, metric: str):
     h, w = left.shape
-    xs, ys = _grid(h, w, left.device)
+    xs, ys = _dest_grid(h, w, left.device)
     k2w, k2h = kw // 2, kh // 2
     # a 0-dim tensor on the device: a true quotient on the card too (a
     # Python divisor is a multiply by its reciprocal there)
@@ -48,9 +49,9 @@ def _corr_eval(disp, valid, left, right, kw: int, kh: int, metric: str):
     var_r = torch.maximum(sr2 - sr * sr / n, zero)
     if metric == "ncc":
         cov = slr - sl * sr / n
-        q = cov / torch.clamp(_sqrt(var_l * var_r), min=1e-9)
+        q = cov / torch.clamp(sqrt_rn(var_l * var_r), min=1e-9)
     else:  # stddev ratio
-        q = _sqrt(torch.minimum(var_l, var_r) /
+        q = sqrt_rn(torch.minimum(var_l, var_r) /
                   torch.clamp(torch.maximum(var_l, var_r), min=1e-9))
     return torch.where(valid, q, zero)
 

@@ -17,11 +17,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from visionworkbench_torch.core.device import sqrt_rn
 from visionworkbench_torch.image.edge import edge_extend
 from visionworkbench_torch.math.bbox import BBox2i
 from visionworkbench_torch.ops.box_filter import box_sum_same
 from visionworkbench_torch.ops.speckle import speckle_keep_mask
-from visionworkbench_torch.stereo.correlation import DisparityMap, _sqrt
+from visionworkbench_torch.stereo.correlation import DisparityMap
 
 
 def _pixel_grid(h: int, w: int, device):
@@ -226,7 +227,7 @@ def std_dev_image(image: torch.Tensor, kernel_w: int, kernel_h: int) -> torch.Te
                    device=image.device)
     s1 = box_sum_same(image, kernel_w, kernel_h, edge="constant") / n
     s2 = box_sum_same(image * image, kernel_w, kernel_h, edge="constant") / n
-    return _sqrt(torch.clamp(s2 - s1 * s1, min=0.0))
+    return sqrt_rn(torch.clamp(s2 - s1 * s1, min=0.0))
 
 
 def transform_disparities(dm: DisparityMap, transform_fn) -> DisparityMap:

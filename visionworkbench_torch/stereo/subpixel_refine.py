@@ -27,27 +27,15 @@ import os
 import numpy as np
 import torch
 
-from visionworkbench_torch.core.device import as_tensor
+from visionworkbench_torch.core.device import as_tensor, scalar, sqrt_rn
 from visionworkbench_torch.image.edge import crop_extended, edge_extend
 from visionworkbench_torch.image.filters import derivative_filter
 from visionworkbench_torch.image.interpolation import interpolate
 from visionworkbench_torch.image.manipulation import subsample2
-from visionworkbench_torch.stereo.correlation import DisparityMap, _reciprocal, _sqrt
+from visionworkbench_torch.image.transform import _dest_grid
+from visionworkbench_torch.stereo.correlation import DisparityMap, _reciprocal
 from visionworkbench_torch.stereo.disparity import disparity_subsample
 from visionworkbench_torch.stereo.prefilter import PREFILTER_NONE, prefilter_image
-
-
-def _grid(h, w, device):
-    """(xs, ys): float32 column and row index maps of an (h, w) frame."""
-    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
-    xs = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
-    return xs, ys
-
-
-def _const(value, like):
-    """``value`` as a 0-dim fp32 tensor on ``like``'s device (a divisor that
-    divides exactly on the card too)."""
-    return torch.full((), float(value), dtype=torch.float32, device=like.device)
 
 
 def _sample(img, x, y):
@@ -78,7 +66,7 @@ def _lk_refine(disp, valid, left, right, kw: int, kh: int, iters: int):
     tiles; :func:`affine_subpixel` / :func:`bayes_em_subpixel` are the
     full-frame refiners."""
     h, w = left.shape
-    xs, ys = _grid(h, w, left.device)
+    xs, ys = _dest_grid(h, w, left.device)
     k2w, k2h = kw // 2, kh // 2
     gx_r = (torch.roll(right, -1, 1) - torch.roll(right, 1, 1)) * 0.5
     gy_r = (torch.roll(right, -1, 0) - torch.roll(right, 1, 0)) * 0.5
@@ -107,12 +95,12 @@ def _lk_refine(disp, valid, left, right, kw: int, kh: int, iters: int):
                 b1 = b1 + gx * e
                 b2 = b2 + gy * e
         det = a11 * a22 - a12 * a12
-        det = torch.where(det.abs() < 1e-9, _const(1e-9, det), det)
+        det = torch.where(det.abs() < 1e-9, scalar(1e-9, det), det)
         ddx = -(a22 * b1 - a12 * b2) / det
         ddy = -(-a12 * b1 + a11 * b2) / det
         d = d + torch.stack([ddx.clamp(-1.0, 1.0), ddy.clamp(-1.0, 1.0)], -1)
     dd = d - d0
-    drift = _sqrt(dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1])
+    drift = sqrt_rn(dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1])
     ok = valid & (drift < 2.0) & torch.isfinite(d).all(-1)
     return torch.where(ok[..., None], d, d0), valid
 
@@ -203,7 +191,7 @@ def _phase_windows(left, right, int_dx, int_dy, window: int, stride: int,
     peak = torch.argmax(corr.reshape(corr.shape[0], corr.shape[1], -1), -1)
     py = torch.div(peak, m_up, rounding_mode="floor")
     px = peak % m_up
-    up = _const(upsample, left)
+    up = scalar(upsample, left)
     py = torch.where(py > m_up // 2, py - m_up, py).to(torch.float32) / up
     px = torch.where(px > m_up // 2, px - m_up, px).to(torch.float32) / up
     # disparity d satisfies left(p) = right(p + d); the peak sits at -d.
@@ -228,14 +216,14 @@ def phase_subpixel(disparity: DisparityMap, left, right, window: int = 32,
     dmean = (dsum.reshape(-1, 2).sum(0) / cnt).to(torch.int32)
     gx, gy, offs = _phase_windows(left, right, dmean[0], dmean[1],
                                   int(window), int(stride), int(upsample))
-    xs, ys = _grid(h, w, dev)
-    step = _const(max(int(stride), 1), left)
+    xs, ys = _dest_grid(h, w, dev)
+    step = scalar(max(int(stride), 1), left)
     fx = (xs - gx[0].to(torch.float32)) / step
     fy = (ys - gy[0].to(torch.float32)) / step
     off_x = interpolate(offs[..., 0], fx, fy, "bilinear")
     off_y = interpolate(offs[..., 1], fx, fy, "bilinear")
     d = torch.stack([dmean[0] + off_x, dmean[1] + off_y], -1)
-    return DisparityMap(torch.where(valid[..., None], d, _const(0.0, d)), valid)
+    return DisparityMap(torch.where(valid[..., None], d, scalar(0.0, d)), valid)
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +254,7 @@ def _solve6(A, b):
         s = A[(j, j)]
         for k in range(j):
             s = s - L[(j, k)] * L[(j, k)]
-        L[(j, j)] = _sqrt(s)
+        L[(j, j)] = sqrt_rn(s)
         inv = _reciprocal(L[(j, j)])
         for i in range(j + 1, 6):
             s = A[(j, i)]
@@ -336,7 +324,7 @@ def _em_affine_dense(disp, valid, left, right, kw: int, kh: int,
     y_deriv = derivative_filter(left, 0, 1)
 
     wt = _weight_template(kw, kh)
-    zero = _const(0.0, left)
+    zero = scalar(0.0, left)
 
     # Per-pixel window weight normalization (adjust_weight_image).
     validf = valid.to(torch.float32)
@@ -385,18 +373,18 @@ def _em_affine_dense(disp, valid, left, right, kw: int, kh: int,
     G0 = None if rewarp else warp(fold0)
 
     var2_plane, var2_noise = 1e-3, 1e-2
-    two_var_plane = _const(2 * var2_plane, left)
-    two_var_noise = _const(2 * var2_noise, left)
+    two_var_plane = scalar(2 * var2_plane, left)
+    two_var_noise = scalar(2 * var2_noise, left)
     pnf = 1.0 / math.sqrt(2 * math.pi * var2_plane)
     nnf = 1.0 / math.sqrt(2 * math.pi * var2_noise)
-    kern_px = _const(kern_pixels, left)
+    kern_px = scalar(kern_pixels, left)
     wt_dev = torch.as_tensor(wt, device=dev)   # one copy to the card a call
     iiv = torch.arange(-k2w, k2w + 1, dtype=torch.float32, device=dev)[:, None, None]
     ii2 = iiv * iiv
 
     def outer_body(it, d, fold, prev_sum, frozen, poisoned):
         # abort check at iteration top (Correlate.cc:212-217)
-        aborted = _sqrt(d[2] * d[2] + d[5] * d[5]) > max_trans
+        aborted = sqrt_rn(d[2] * d[2] + d[5] * d[5]) > max_trans
         active = ~frozen & ~aborted
 
         G = warp(fold) if rewarp else G0
@@ -455,7 +443,7 @@ def _em_affine_dense(disp, valid, left, right, kw: int, kh: int,
                     noise_prob = torch.where(npe < -75.0, zero, nnf * torch.exp(npe))
                     denom = plane_prob * w_plane[None] + noise_prob * w_noise[None]
                     pos = denom > 0
-                    safe = torch.where(pos, denom, _const(1.0, left))
+                    safe = torch.where(pos, denom, scalar(1.0, left))
                     gamma_plane = torch.where(pos, plane_prob * w_plane[None] / safe, zero)
                     gamma_noise = torch.where(pos, noise_prob * w_noise[None] / safe, zero)
                     # A zero denominator (both mixture probabilities
@@ -536,7 +524,7 @@ def _em_affine_dense(disp, valid, left, right, kw: int, kh: int,
                   + kqw * lhs_sol[3] * (kqw * lhs_sol[3])
                   + kqh * lhs_sol[4] * (kqh * lhs_sol[4])
                   + lhs_sol[5] * lhs_sol[5])
-            stop = _sqrt(wl) < 0.05
+            stop = sqrt_rn(wl) < 0.05
         upd = active
         d_out = [torch.where(upd, d_new[k], d[k]) for k in range(6)]
         new_frozen = frozen | aborted | (upd & stop)
@@ -560,7 +548,7 @@ def _em_affine_dense(disp, valid, left, right, kw: int, kh: int,
     for it in range(outer_iters):
         d, fold, prev, frozen, poisoned = outer_body(it, d, fold, prev, frozen, poisoned)
 
-    trans = _sqrt(d[2] * d[2] + d[5] * d[5])
+    trans = sqrt_rn(d[2] * d[2] + d[5] * d[5])
     bad = (trans > max_trans) | ~torch.isfinite(d[2]) | ~torch.isfinite(d[5])
     bad = bad | poisoned   # mixture-denominator poisoning (see above)
     out_valid = valid & ok_weights & ~bad
@@ -632,7 +620,7 @@ def bayes_em_subpixel(disparity: DisparityMap, left, right, kernel_size,
         # coarse noise.
         delta = d - dm.disparity
         ok = v & (delta.abs().amax(-1) <= 1.25)
-        sm = _boxmean(torch.where(ok[..., None], delta, _const(0.0, delta)),
+        sm = _boxmean(torch.where(ok[..., None], delta, scalar(0.0, delta)),
                       ok.to(torch.float32), 4)
         up = (sm * 2.0).repeat_interleave(2, 0).repeat_interleave(2, 1)
         th, tw = lp[i - 1].shape
