@@ -263,6 +263,46 @@ Phases (each raises on a mismatch; none catches its own failure):
    device ms, device launches and idle share (torch.profiler), the chain's
    Mp/s, peak device memory, the phase's wall. Its numbers go under ``stereo_dem_*``
    keys of the summary line.
+9. The rest of the camera layer (``phase_cameras_ii``) over stereo-dem's
+   place, true DEM and texture. opticalbar-dem-1024: two ``OpticalBarModel``
+   s (KH-4/KH-9 style panoramic cameras: 1024^2, pitch 7.8e-4 m, f 1 m, a
+   0.8 rad scan in 0.5 s) 1000 m up, flying north at 60 m/s, 30 m apart
+   east-west (centres on the fp32 grid), each image rendered through the
+   port (``pixel_to_vector``, the per-pixel ``camera_center``,
+   ``camera_pixel_to_dem_xyz``, the texture); the chain, unrectified:
+   ``pyramid_correlate`` (15x15, 4 levels, tile 64, parabola, search
+   ``sds.OB_SEARCH``, masks of where each ray hits the DEM),
+   ``StereoModel.point_cloud`` (float64 per-pixel centres),
+   ``point_image_to_dem`` onto 512^2, ``hillshade``; beside it
+   ``OpticalBarModel.point_to_pixel`` and ``solve_point_to_pixel`` of every
+   rendered ground point (one call each) and ``fit_pinhole`` on the card
+   (stereo-dem's left pinhole from a seed 5 m and 5 mrad off, 24 ground
+   points). bathy-dem-1024: stereo-dem's pinhole pair and chain over a water
+   plane 30 m above the datum (index 1.34), rendered through refracted rays
+   (the float64 surface point and bent ray of each pixel whose terrain lies
+   under the plane); its triangulate step runs ``StereoModel`` on every
+   pixel and ``BathyStereoModel`` where that point lies below the plane,
+   merged; then the DEM and hillshade; beside it the DEM of ``StereoModel``
+   alone. bayer-1024: ``bayer_demosaic`` of a 1024^2 mosaic of three bench
+   textures in the four patterns. Gates: each correlator >= 0.9 of the
+   16-px core within 0.5 px of the float64 true disparity (the optical
+   bar's by a float64 fixed-point projection, the water's by a float64
+   Snell solve); points from the true disparity within 0.6 m of their
+   float64 oracles (opticalbar; bathy under the water through
+   ``BathyStereoModel``, on land through ``StereoModel``); the DEMs on >=
+   0.9 of their cells within Z^2 / (f b) * 0.5 px + 1 m (bathy's under the
+   water and on land apart); the round trips within 1 px; ``fit_pinhole``'s
+   reprojection within ``FIT_PX`` and card = CPU; the refraction-free
+   depths shallower (median ratio <= ``BATHY_SHALLOW``); card against CPU:
+   equal (bathy's triangulation, DEM and hillshade, opticalbar's DEM and
+   hillshade from the card's inputs, Bayer's four patterns) but the
+   optical-bar rays and their triangulation (``OB_RAY_UNITS``,
+   ``OB_POINT_ULPS``, ``OB_ERR_M``); 5 ``band_sweep_kernel`` and 9 speckle
+   launches in each correlator step and no ``csrc/`` launch elsewhere.
+   Timing as phase 8's (each step's ms, device ms, launches and idle share,
+   each chain's Mp/s, peak memory), the solves' and the fit's walls, device
+   ms and launches, Bayer's ms; the numbers go under ``opticalbar_dem_*``,
+   ``bathy_dem_*``, ``fit_pinhole_*`` and ``bayer_*`` keys.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -3780,39 +3820,11 @@ def _dem_profile(step, st):
             sum(e.count for e in events))
 
 
-def stereo_dem_points_gate(cl, cr, d_true, v_true, dev, what, out):
-    """``StereoModel(cl, cr).point_cloud`` of the true disparity within
-    sds.DEM_POINT_M of the float64 oracle on the same fp32 pixel pairs, on every
-    valid pixel."""
-    import torch
-    from visionworkbench_torch.stereo.correlation import DisparityMap
-    from visionworkbench_torch.stereo.stereo_model import StereoModel
+def _corr_gate(st, d_true, v_true, tag, key, out):
+    """The correlator's gate: on the core pixels whose true right pixel lies
+    inside the right mask (and the left mask), >= DEM_SHARE valid and within
+    DEM_CORR_PX of the true disparity. Returns the pixels held and |d|."""
     n = d_true.shape[0]
-    d32 = d_true.astype(np.float32)
-    xyz, _, valid = StereoModel(cl, cr).point_cloud(
-        DisparityMap(torch.as_tensor(d32, device=dev), torch.as_tensor(v_true, device=dev)))
-    xyz, valid = xyz.cpu().numpy(), valid.cpu().numpy()
-    pix1 = np.stack(np.meshgrid(np.arange(n), np.arange(n)), -1).astype(np.float32)
-    perr = np.linalg.norm(xyz - sds.triangulate64(cl, cr, pix1, pix1 + d32), axis=-1)[valid]
-    out[f"stereo_dem_point_{what}_max_m"] = float(perr.max())
-    out[f"stereo_dem_point_{what}_median_m"] = float(np.median(perr))
-    print(f"[stereo-dem] points from the true disparity ({what}) against float64: median "
-          f"{np.median(perr):.4f} m, max {perr.max():.4f} m on {int(valid.sum())} pixels")
-    if not (valid == v_true).all() or perr.max() > sds.DEM_POINT_M:
-        raise SystemExit(f"stereo-dem: the points from the true disparity ({what}) are off "
-                         f"by {perr.max():.4f} m (> {sds.DEM_POINT_M})")
-
-
-def _dem_gates(st, scene, n, dev, out):
-    """The correlator, triangulation, DEM and CAHV gates of stereo-dem."""
-    import torch
-    from visionworkbench_torch.camera import pinhole_to_cahv
-    from visionworkbench_torch.stereo.stereo_model import StereoModel
-    rect_l, rect_r = st["rect_l"], st["rect_r"]
-    depth, v_true = sds.depth(rect_l, scene, n, dev)
-    d_true = sds.disparity(rect_l, rect_r, depth)
-    # the correlator: core pixels whose true right pixel lies inside the
-    # right warp's coverage
     d, v = st["dm"].to_numpy()
     ys, xs = np.mgrid[0:n, 0:n]
     rx = np.round(xs + d_true[..., 0]).astype(np.int64)
@@ -3826,38 +3838,129 @@ def _dem_gates(st, scene, n, dev, out):
     sel = core & inside
     err = np.abs(d - d_true).max(-1)
     share = float((v & (err <= DEM_CORR_PX))[sel].mean())
-    out["stereo_dem_corr_valid"] = float(v[sel].mean())
-    out["stereo_dem_corr_share"] = share
-    out["stereo_dem_corr_median_px"] = float(np.median(err[sel & v]))
-    print(f"[stereo-dem] correlator: {int(sel.sum())} core pixels with the true right pixel "
-          f"inside, valid {out['stereo_dem_corr_valid']:.4f}, within {DEM_CORR_PX} px of the "
-          f"true disparity {share:.4f} (median |d| {out['stereo_dem_corr_median_px']:.4f} px; "
+    out[f"{key}_corr_valid"] = float(v[sel].mean())
+    out[f"{key}_corr_share"] = share
+    out[f"{key}_corr_median_px"] = float(np.median(err[sel & v]))
+    print(f"[{tag}] correlator: {int(sel.sum())} core pixels with the true right pixel "
+          f"inside, valid {out[f'{key}_corr_valid']:.4f}, within {DEM_CORR_PX} px of the "
+          f"true disparity {share:.4f} (median |d| {out[f'{key}_corr_median_px']:.4f} px; "
           f"true disparity {d_true[..., 0][sel].min():.3f} .. {d_true[..., 0][sel].max():.3f} px)")
     if share < DEM_SHARE:
-        raise SystemExit(f"stereo-dem: the correlator's share within {DEM_CORR_PX} px "
+        raise SystemExit(f"{tag}: the correlator's share within {DEM_CORR_PX} px "
                          f"is {share:.4f} < {DEM_SHARE}")
+    return sel & v, err
+
+
+def _dem_bound(f_px):
+    """Z^2 / (f b) * DEM_CORR_PX + 1 m, the DEMs' gate."""
+    return sds.DEM_ALT_M ** 2 / (f_px * sds.DEM_BASELINE_M) * DEM_CORR_PX + 1.0
+
+
+def _dem_gate(dem, dem_valid, true_dem, bound, tag, key, out, cells=None, what="DEM"):
+    """The DEM's gate: >= DEM_SHARE of its valid cells (of ``cells``, when
+    given) within ``bound`` m of the true DEM."""
+    dem_v = dem_valid.cpu().numpy() & (True if cells is None else cells)
+    g = dem_v.shape[0]
+    derr = np.abs(dem.cpu().numpy() - true_dem)[dem_v]
+    out[f"{key}_dem_share"] = float((derr <= bound).mean())
+    out[f"{key}_dem_median_m"] = float(np.median(derr))
+    out[f"{key}_dem_cells"] = float(dem_v.mean())
+    print(f"[{tag}] {what}: {int(dem_v.sum())} of {g * g} cells, within {bound:.4f} m of "
+          f"the true DEM {out[f'{key}_dem_share']:.4f}, median |dz| "
+          f"{out[f'{key}_dem_median_m']:.4f} m, max {derr.max():.4f} m")
+    if out[f"{key}_dem_share"] < DEM_SHARE:
+        raise SystemExit(f"{tag}: the {what}'s share within {bound:.2f} m is "
+                         f"{out[f'{key}_dem_share']:.4f} < {DEM_SHARE}")
+
+
+def _points_gate(xyz, valid, truth, sel, bound, tag, key, out, what="every pixel"):
+    """Points (fp32 tensors) within ``bound`` m of their float64 truth on
+    every pixel of ``sel``, which must all be valid."""
+    xyz, valid = xyz.cpu().numpy(), valid.cpu().numpy()
+    perr = np.linalg.norm(xyz - truth, axis=-1)[sel]
+    out[f"{key}_max_m"] = float(perr.max())
+    out[f"{key}_median_m"] = float(np.median(perr))
+    print(f"[{tag}] points from the true disparity against float64 ({what}): median "
+          f"{np.median(perr):.4f} m, max {perr.max():.4f} m on {int(sel.sum())} pixels")
+    if not valid[sel].all() or perr.max() > bound:
+        raise SystemExit(f"{tag}: the points from the true disparity ({what}) are off by "
+                         f"{perr.max():.4f} m (> {bound})")
+
+
+def _true_points(cams, d_true, v_true, dev):
+    """The fp32 pixel pairs of a true disparity and the port's point cloud
+    of it (``StereoModel``)."""
+    import torch
+    from visionworkbench_torch.stereo.correlation import DisparityMap
+    from visionworkbench_torch.stereo.stereo_model import StereoModel
+    n = d_true.shape[0]
+    d32 = d_true.astype(np.float32)
+    xyz, _, valid = StereoModel(*cams).point_cloud(
+        DisparityMap(torch.as_tensor(d32, device=dev), torch.as_tensor(v_true, device=dev)))
+    pix1 = np.stack(np.meshgrid(np.arange(n), np.arange(n)), -1).astype(np.float32)
+    return pix1, pix1 + d32, xyz, valid
+
+
+def _to_cpu(v):
+    """A tensor or a disparity map on the CPU; anything else as it is."""
+    from visionworkbench_torch.stereo.correlation import DisparityMap
+    if isinstance(v, DisparityMap):
+        return DisparityMap(v.disparity.cpu(), v.valid.cpu())
+    return v.cpu() if hasattr(v, "cpu") else v
+
+
+def _steps_vs_cpu(st, steps, names, outputs):
+    """Each named step on the CPU from the card's own inputs to it; its
+    outputs beside the card's: {key: (cpu, card)}."""
+    fns = dict(steps)
+    pairs = {}
+    for name in names:
+        cpu = {k: _to_cpu(v) for k, v in st.items()}
+        fns[name](cpu)
+        pairs.update({k: (cpu[k], st[k]) for k in outputs[name]})
+    return pairs
+
+
+def _check_equal(pairs, tag, out, key, dem_ulps=0):
+    """Every (cpu, card) pair equal, but a DEM's heights, held within
+    ``dem_ulps`` fp32 ulps (its unequal cells counted); prints them."""
+    checks = {k: _same(a, b) for k, (a, b) in pairs.items()}
+    cells = {k: (_ulps(a, b), int((a.cpu() != b.cpu()).sum())) for k, (a, b) in pairs.items()
+             if k == "dem"}
+    print(f"[{tag}] card vs CPU (equal, max |d|): " + ", ".join(
+        f"{k} {eq} {d:.3e}" for k, (eq, d) in checks.items()) + "".join(
+        f"; {k}: {n} cells unequal, {u:.1f} fp32 ulps (bound {dem_ulps})"
+        for k, (u, n) in cells.items()))
+    out.update({f"{key}_cpu_{k}": d for k, (_, d) in checks.items()})
+    out.update({f"{key}_cpu_{k}_cells": n for k, (_, n) in cells.items()})
+    bad = [k for k, (eq, _) in checks.items()
+           if not (eq or (k in cells and cells[k][0] <= dem_ulps))]
+    if bad:
+        raise SystemExit(f"{tag}: the card and the CPU disagree on {bad}")
+
+
+def _dem_gates(st, scene, n, dev, out):
+    """The correlator, triangulation, DEM and CAHV gates of stereo-dem."""
+    import torch
+    from visionworkbench_torch.camera import pinhole_to_cahv
+    from visionworkbench_torch.stereo.stereo_model import StereoModel
+    rect_l, rect_r = st["rect_l"], st["rect_r"]
+    depth, v_true = sds.depth(rect_l, scene, n, dev)
+    d_true = sds.disparity(rect_l, rect_r, depth)
+    _corr_gate(st, d_true, v_true, "stereo-dem", "stereo_dem", out)
     # triangulation of the true disparity against the float64 oracle: the
     # chain's pair, and the same pair with its float64 centres (off the fp32
     # grid, where the JAX package's fp32 route is metres off)
     pairs = {"chain": (rect_l, rect_r),
              "float64_centres": sds.rectify(sds.scene(n, fp32_centres=False))}
     for what, (cl, cr) in pairs.items():
-        stereo_dem_points_gate(cl, cr, sds.disparity(cl, cr, depth), v_true, dev,
-                               what, out)
+        pix1, pix2, xyz, valid = _true_points((cl, cr), sds.disparity(cl, cr, depth), v_true,
+                                              dev)
+        _points_gate(xyz, valid, sds.triangulate64(cl, cr, pix1, pix2), v_true,
+                     sds.DEM_POINT_M, "stereo-dem", f"stereo_dem_point_{what}", out, what)
     # the DEM from the correlated disparity against the true DEM
-    g = scene["dem"].shape[0]
-    dem_v = st["dem_valid"].cpu().numpy()
-    derr = np.abs(st["dem"].cpu().numpy() - scene["dem"])[dem_v]
-    bound = sds.DEM_ALT_M ** 2 / (rect_l.fu * sds.DEM_BASELINE_M) * DEM_CORR_PX + 1.0
-    out["stereo_dem_dem_share"] = float((derr <= bound).mean())
-    out["stereo_dem_dem_median_m"] = float(np.median(derr))
-    out["stereo_dem_dem_cells"] = float(dem_v.mean())
-    print(f"[stereo-dem] DEM: {int(dem_v.sum())} of {g * g} cells, within {bound:.4f} m of "
-          f"the true DEM {out['stereo_dem_dem_share']:.4f}, median |dz| "
-          f"{out['stereo_dem_dem_median_m']:.4f} m, max {derr.max():.4f} m")
-    if out["stereo_dem_dem_share"] < DEM_SHARE:
-        raise SystemExit(f"stereo-dem: the DEM's share within {bound:.2f} m is "
-                         f"{out['stereo_dem_dem_share']:.4f} < {DEM_SHARE}")
+    _dem_gate(st["dem"], st["dem_valid"], scene["dem"], _dem_bound(rect_l.fu), "stereo-dem",
+              "stereo_dem", out)
     # the CAHV route against the pinhole route on the correlated map
     cxyz, _, cvalid = StereoModel(pinhole_to_cahv(rect_l),
                                   pinhole_to_cahv(rect_r)).point_cloud(st["dm"])
@@ -3931,43 +4034,6 @@ def _same(a, b):
     same = (a == b) | (np.isnan(a) & np.isnan(b)) if a.dtype.kind == "f" else a == b
     diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
     return bool(same.all()), float(np.nanmax(diff)) if diff.size else 0.0
-
-
-def _dem_vs_cpu(st, steps, scene, dev, out):
-    """The warps (from the same rendered images) and the chain after the
-    correlator on the CPU, each step from the card's own inputs to it,
-    against the card: every output equal."""
-    from visionworkbench_torch.stereo.correlation import DisparityMap
-    fns = dict(steps)
-    cpu = {k: st[k].cpu() for k in ("left", "right")}
-    cpu.update(rect_l=st["rect_l"], rect_r=st["rect_r"],
-               dm=DisparityMap(st["dm"].disparity.cpu(), st["dm"].valid.cpu()))
-    checks = {}
-    fns["warp"](cpu)
-    for k in ("img_l", "img_r", "mask_l", "mask_r"):
-        checks[f"warp {k}"] = _same(cpu[k], st[k])
-    fns["triangulate"](cpu)
-    for k in ("xyz", "err", "valid"):
-        checks[f"points {k}"] = _same(cpu[k], st[k])
-    cpu["xyz"], cpu["valid"] = st["xyz"].cpu(), st["valid"].cpu()
-    fns["dem"](cpu)
-    for k in ("dem", "dem_valid"):
-        checks[k] = _same(cpu[k], st[k])
-    cpu["dem"] = st["dem"].cpu()
-    fns["hillshade"](cpu)
-    checks["hillshade"] = _same(cpu["shade"], st["shade"])
-    cpu["shade"] = st["shade"].cpu()
-    fns["colormap"](cpu)
-    checks["colormap"] = _same(cpu["rgb"], st["rgb"])
-    print("[stereo-dem] card vs CPU (equal, max |d|): " + ", ".join(
-        f"{k} {eq} {d:.3e}" for k, (eq, d) in checks.items()))
-    out.update(stereo_dem_cpu_warp=max(checks[f"warp img_{s}"][1] for s in "lr"),
-               stereo_dem_cpu_points_m=checks["points xyz"][1],
-               stereo_dem_cpu_dem_m=checks["dem"][1], stereo_dem_cpu_shade=checks["hillshade"][1],
-               stereo_dem_cpu_rgb=checks["colormap"][1])
-    bad = [k for k, (eq, _) in checks.items() if not eq]
-    if bad:
-        raise SystemExit(f"stereo-dem: the card and the CPU disagree on {bad}")
 
 
 def _ulps(a, b):
@@ -4069,7 +4135,7 @@ def _dem_tools(st, scene, dev, folder, out):
         raise SystemExit(f"stereo-dem: the tools' files differ between the card and the CPU: {bad}")
 
 
-def _dem_launch_check(counts):
+def _dem_launch_check(counts, tag="stereo-dem"):
     """The correlator step launches the bench frame's kernels of csrc/
     (band_sweep_kernel once a level, speckle 9 times); no other step
     launches any."""
@@ -4077,7 +4143,42 @@ def _dem_launch_check(counts):
     for name, c in counts.items():
         expect = want if name == "correlate" else {}
         if any(c.get(k, 0) != expect.get(k, 0) for k in set(c) | set(expect)):
-            raise SystemExit(f"stereo-dem: step {name} launched {c}, expected {expect}")
+            raise SystemExit(f"{tag}: step {name} launched {c}, expected {expect}")
+
+
+def _step_counts(steps, st, dev):
+    """Each step once, its launches of csrc/ counted (0 before, read after)."""
+    counts = {}
+    for name, step in steps:
+        _reset_counts()
+        step(st)
+        _sync(dev)
+        counts[name] = {k: v for k, v in _read_counts().items() if v}
+    return counts
+
+
+def _time_chain(steps, st, tag, key, n, out):
+    """Each step's ms (median of DEM_REPS chains after 2 warm-ups), device ms,
+    launches and idle share, the chain's ms and Mp/s (n^2 over the chain) and
+    the peak device memory, under ``key``_* of ``out``."""
+    import torch
+    ms = _dem_timed(steps, st)
+    torch.cuda.reset_peak_memory_stats()
+    for _, step in steps:
+        step(st)
+    out[f"{key}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    for name, step in steps:
+        dev_ms, launches = _dem_profile(step, st)
+        idle = None if dev_ms is None else 1 - dev_ms / ms[name]
+        out.update({f"{key}_{name}_ms": ms[name], f"{key}_{name}_device_ms": dev_ms,
+                    f"{key}_{name}_launches": launches, f"{key}_{name}_idle": idle})
+        print(f"[time] {tag} {name}: {ms[name]:.4f} ms, device {dev_ms} ms in "
+              f"{launches} launches, idle share {idle}")
+    out[f"{key}_chain_ms"] = ms["chain"]
+    out[f"{key}_chain_mps"] = n * n / (ms["chain"] * 1e3)
+    print(f"[time] {tag} chain: {ms['chain']:.4f} ms (median of {DEM_REPS} after 2 "
+          f"warm-ups), {out[f'{key}_chain_mps']:.3f} Mp/s, peak device memory "
+          f"{out[f'{key}_peak_mib']:.1f} MiB")
 
 
 def phase_stereo_dem(dev, smi, n=sds.DEM_N):
@@ -4093,17 +4194,17 @@ def phase_stereo_dem(dev, smi, n=sds.DEM_N):
     out["stereo_dem_render_s"] = time.perf_counter() - t_phase
     print(f"[stereo-dem] rendered the pair at {n}^2 in {out['stereo_dem_render_s']:.4f} s")
     steps = stereo_dem_steps(scene, n, dev)
-    counts = {}
-    for name, step in steps:
-        _reset_counts()
-        step(st)
-        _sync(dev)
-        counts[name] = {k: v for k, v in _read_counts().items() if v}
+    counts = _step_counts(steps, st, dev)
     print(f"[stereo-dem] launches of csrc/ by step: {counts}")
     _dem_gates(st, scene, n, dev, out)
     _reset_counts()
     _round_trips(scene, n, dev, out)
-    _dem_vs_cpu(st, steps, scene, dev, out)
+    _check_equal(_steps_vs_cpu(st, steps, ("warp", "triangulate", "dem", "hillshade", "colormap"),
+                               {"warp": ("img_l", "img_r", "mask_l", "mask_r"),
+                                "triangulate": ("xyz", "err", "valid"),
+                                "dem": ("dem", "dem_valid"), "hillshade": ("shade",),
+                                "colormap": ("rgb",)}),
+                 "stereo-dem", out, "stereo_dem")
     _dem_ortho(st, scene, n, dev, out)
     folder = tempfile.mkdtemp(prefix="chip_smoke_stereo_dem_")
     try:
@@ -4115,27 +4216,358 @@ def phase_stereo_dem(dev, smi, n=sds.DEM_N):
     if torch.device(dev).type == "cuda":   # the plain versions count nothing
         _dem_launch_check(counts)
     if torch.device(dev).type == "cuda":
-        ms = _dem_timed(steps, st)
-        torch.cuda.reset_peak_memory_stats()
-        for _, step in steps:
-            step(st)
-        out["stereo_dem_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
-        for name, step in steps:
-            dev_ms, launches = _dem_profile(step, st)
-            idle = None if dev_ms is None else 1 - dev_ms / ms[name]
-            out.update({f"stereo_dem_{name}_ms": ms[name], f"stereo_dem_{name}_device_ms": dev_ms,
-                        f"stereo_dem_{name}_launches": launches,
-                        f"stereo_dem_{name}_idle": idle})
-            print(f"[time] stereo-dem {name}: {ms[name]:.4f} ms, device {dev_ms} ms in "
-                  f"{launches} launches, idle share {idle}")
-        out["stereo_dem_chain_ms"] = ms["chain"]
-        out["stereo_dem_chain_mps"] = n * n / (ms["chain"] * 1e3)
-        print(f"[time] stereo-dem chain: {ms['chain']:.4f} ms (median of {DEM_REPS} after 2 "
-              f"warm-ups), {out['stereo_dem_chain_mps']:.3f} Mp/s, peak device memory "
-              f"{out['stereo_dem_peak_mib']:.1f} MiB")
+        _time_chain(steps, st, "stereo-dem", "stereo_dem", n, out)
     out["stereo_dem_phase_s"] = time.perf_counter() - t_phase
     print(f"[stereo-dem] phase wall {out['stereo_dem_phase_s']:.4f} s on {smi}")
     return out, counts["correlate"]
+
+
+# ---- phase 9: the rest of the camera layer --------------------------------------
+
+# opticalbar-dem-1024, bathy-dem-1024 and bayer-1024 over stereo-dem's place,
+# DEM and texture (stereo_dem_scene.py holds the scenes and float64 oracles)
+OB_POINT_M = 0.6             # opticalbar points from the true disparity against float64
+BATHY_POINT_M = 0.6          # bathy points (BathyStereoModel under water) against float64
+ROUND_TRIP_PX = 1.0          # point_to_pixel / solve_point_to_pixel of the rendered points
+FIT_POINTS = (6, 4)          # fit_pinhole: a 6 x 4 grid of the left image's ground points
+FIT_PERTURB = (5.0, 5e-3)    # the seed camera: its centre moved (m), rotated (rad)
+FIT_PX = 1.0                 # fit_pinhole's reprojection error, max over the points
+BATHY_SHALLOW = 0.9          # the refraction-free depth over the refracted one, median
+# card against CPU where sin/cos are involved (the optical-bar rays): the
+# rays within OB_RAY_UNITS units of 2^-24 (CUDA's sinf/cosf within 2 ulps, the
+# CPU's within 1, the rotation and the norm a few roundings more), the
+# float64 intersection of those rays rounded to fp32 within OB_POINT_ULPS
+# fp32 ulps, its error norm within OB_ERR_M; every other check is equality
+OB_RAY_UNITS = 8
+OB_POINT_ULPS = 2
+OB_ERR_M = 1e-2
+# a DEM's cells from the same points: float64 geodetic heights (the card's
+# and the CPU's float64 sin/cos/atan2 may differ by an ulp, and p / cos(lat)
+# - N cancels ~6.4e6 m down to ~50 m, so a height moves by ~1e-9 m) rounded
+# to fp32, so a cell next to a rounding boundary may differ by one fp32 ulp
+DEM_CELL_ULPS = 1
+BAYER_SEEDS = (11, 12, 13)   # the red, green and blue textures of bayer-1024
+
+
+def opticalbar_dem_steps(scene, cams, n, dev):
+    """opticalbar-dem's timed chain: the correlator on the unrectified pair
+    (OB_SEARCH, masks of where each ray hits the DEM), ``StereoModel`` with
+    the per-pixel float64 centres, the DEM and its hillshade."""
+    from visionworkbench_torch.math.bbox import BBox2i
+    from visionworkbench_torch.stereo.pyramid_correlation import pyramid_correlate
+    from visionworkbench_torch.stereo.stereo_model import StereoModel
+    base = dict(stereo_dem_steps(scene, n, dev))
+
+    def correlate(st):
+        st["dm"] = pyramid_correlate(st["left"], st["right"], BBox2i(*sds.OB_SEARCH),
+                                     kernel_size=KERNEL, max_pyramid_levels=LEVELS,
+                                     tile_size=TILE, subpixel="parabola", device=dev,
+                                     left_mask=st["mask_l"], right_mask=st["mask_r"])
+
+    def triangulate(st):
+        st["xyz"], st["err"], st["valid"] = StereoModel(*cams).point_cloud(st["dm"])
+
+    return [("correlate", correlate), ("triangulate", triangulate), ("dem", base["dem"]),
+            ("hillshade", base["hillshade"])]
+
+
+def bathy_dem_steps(scene, plane, n, dev):
+    """bathy-dem's timed chain: stereo-dem's rectification, warps and
+    correlator; ``StereoModel`` on every pixel and ``BathyStereoModel`` on
+    the pixels whose point lies below the water plane, merged; the DEM and
+    its hillshade."""
+    import torch
+    from visionworkbench_torch.cartography import BathyStereoModel
+    from visionworkbench_torch.core.device import dot
+    base = dict(stereo_dem_steps(scene, n, dev))
+    normal, level = plane[:3].tolist(), float(plane[3])
+
+    def triangulate(st):
+        base["triangulate"](st)
+        d = st["dm"].disparity
+        pix1 = sds.pixel_grid(n, d.device)
+        bxyz, berr = BathyStereoModel(st["rect_l"], st["rect_r"], plane).triangulate(
+            pix1, pix1 + d)
+        under = st["valid"] & (dot(st["xyz"].double(), normal) < level)
+        st["xyz"] = torch.where(under[..., None], bxyz, st["xyz"])
+        st["err"] = torch.where(under, berr, st["err"])
+        st["under"] = under
+
+    return [(k, base[k]) for k in ("rectify", "warp", "correlate")] + [
+        ("triangulate", triangulate), ("dem", base["dem"]), ("hillshade", base["hillshade"])]
+
+
+def _units(a, b, unit):
+    """Largest |a - b| of two tensors in units of ``unit``."""
+    return float((a.cpu().double() - b.cpu().double()).abs().max()) / unit
+
+
+def _ob_vs_cpu(st, steps, cams, n, dev, out):
+    """Card against CPU on opticalbar-dem: the left rays within OB_RAY_UNITS
+    of 2^-24; the triangulation of the card's disparity map within
+    OB_POINT_ULPS (points) and OB_ERR_M (error), validity equal; the DEM of
+    the card's points and the hillshade of the card's DEM equal."""
+    import torch
+    grid = sds.pixel_grid(n, dev)
+    rays = _units(cams[0].pixel_to_vector(grid), cams[0].pixel_to_vector(grid.cpu()), 2.0 ** -24)
+    pairs = _steps_vs_cpu(st, steps, ("triangulate",), {"triangulate": ("xyz", "err", "valid")})
+    ulps = _ulps(*pairs["xyz"])
+    err = _units(*pairs["err"], 1.0)
+    valid = torch.equal(pairs["valid"][0], pairs["valid"][1].cpu())
+    out.update(opticalbar_dem_cpu_ray_units=rays, opticalbar_dem_cpu_point_ulps=ulps,
+               opticalbar_dem_cpu_err_m=err)
+    print(f"[opticalbar-dem] card vs CPU: rays {rays:.1f} units of 2^-24 (bound "
+          f"{OB_RAY_UNITS}), points {ulps:.1f} fp32 ulps (bound {OB_POINT_ULPS}), error norm "
+          f"{err:.3e} m (bound {OB_ERR_M}), validity equal {valid}")
+    if rays > OB_RAY_UNITS or ulps > OB_POINT_ULPS or err > OB_ERR_M or not valid:
+        raise SystemExit("opticalbar-dem: the card and the CPU disagree beyond their bounds")
+    _check_equal(_steps_vs_cpu(st, steps, ("dem", "hillshade"),
+                               {"dem": ("dem", "dem_valid"), "hillshade": ("shade",)}),
+                 "opticalbar-dem", out, "opticalbar_dem", DEM_CELL_ULPS)
+
+
+def _timed_call(fn, dev):
+    """(result, wall s, device ms, device launches) of ``fn()``: the wall of
+    one call, then the profiler's device time and launches of another."""
+    import torch
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    if torch.device(dev).type != "cuda":
+        return res, wall, None, None
+    dev_ms, launches = _dem_profile(lambda st: st.update(r=fn()), {})
+    return res, wall, dev_ms, launches
+
+
+def _ob_round_trips(cams, xyz, hit, n, dev, out):
+    """``OpticalBarModel.point_to_pixel`` (25 steps from the image centre)
+    and ``solve_point_to_pixel`` (25 steps from (0, 0)) of every rendered
+    ground point of the left image (on its pixel's float64 ray at the
+    rendered range, ``sds.ob_ground64``, rounded to fp32), one call each,
+    within ROUND_TRIP_PX of the rendered pixel."""
+    import torch
+    from visionworkbench_torch.camera import solve_point_to_pixel
+    left = cams[0]
+    pts = torch.as_tensor(sds.ob_ground64(left, xyz), dtype=torch.float32, device=xyz.device)[hit]
+    want = sds.pixel_grid(n, dev)[hit]
+    runs = {"point_to_pixel": lambda: left.point_to_pixel(pts),
+            "solve_point_to_pixel": lambda: solve_point_to_pixel(left, pts)}
+    for name, fn in runs.items():
+        fn_small = {"point_to_pixel": lambda: left.point_to_pixel(pts[:1024]),
+                    "solve_point_to_pixel": lambda: solve_point_to_pixel(left, pts[:1024])}[name]
+        fn_small()                       # the first forward-mode call's one-time set-up
+        got, wall, dev_ms, launches = _timed_call(fn, dev)
+        e = (got - want).abs().max(-1).values.cpu().numpy()
+        out.update({f"opticalbar_dem_{name}_median_px": float(np.median(e)),
+                    f"opticalbar_dem_{name}_max_px": float(e.max()),
+                    f"opticalbar_dem_{name}_s": wall, f"opticalbar_dem_{name}_device_ms": dev_ms,
+                    f"opticalbar_dem_{name}_launches": launches})
+        print(f"[opticalbar-dem] {name} of {pts.shape[0]} rendered points: median "
+              f"{np.median(e):.4f} px, max {e.max():.4f} px (bound {ROUND_TRIP_PX}); wall "
+              f"{wall:.4f} s, device {dev_ms} ms in {launches} launches")
+        if not e.max() <= ROUND_TRIP_PX:
+            raise SystemExit(f"opticalbar-dem: {name} misses by {e.max():.4f} px")
+
+
+def _fit_seed(cam):
+    """The camera moved by FIT_PERTURB[0] m and rotated by FIT_PERTURB[1] rad
+    about a fixed axis."""
+    from visionworkbench_torch.camera import PinholeModel
+    from visionworkbench_torch.camera.linescan import vector_to_transform
+    axis = np.array([1.0, -2.0, 0.5]) / np.linalg.norm([1.0, -2.0, 0.5])
+    rot = vector_to_transform(np.concatenate([np.zeros(3), axis * FIT_PERTURB[1], [1.0]]))[0]
+    return PinholeModel(cam.C + FIT_PERTURB[0] * axis, rot @ cam.R, (cam.fu, cam.fv),
+                        (cam.cu, cam.cv), cam.distortion, cam.pixel_pitch)
+
+
+def _fit(scene, n, dev, out):
+    """``fit_pinhole`` on the card: stereo-dem's left pinhole from the seed
+    of :func:`_fit_seed` and FIT_POINTS of its ground points (each pixel's
+    DEM hit's range taken along its ray from the centre in float64: the fp32
+    march leaves hits up to ~2 m off their rays); the reprojection error
+    within FIT_PX; the same fit on the CPU equal (the pinhole's projection
+    is card = CPU, the LM host NumPy)."""
+    import torch
+    from visionworkbench_torch.cartography import camera_pixel_to_dem_xyz, fit_pinhole
+    cam = scene["left"]
+    gx, gy = np.meshgrid(np.linspace(0.1, 0.9, FIT_POINTS[0]) * (n - 1),
+                         np.linspace(0.1, 0.9, FIT_POINTS[1]) * (n - 1))
+    pix = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    hits, hit = camera_pixel_to_dem_xyz(pix, cam, scene["dem"], scene["dem_georef"], device=dev)
+    if not bool(hit.all()):
+        raise SystemExit("fit: a ground point missed the DEM")
+    rays = cam.pixel_to_vector(torch.as_tensor(pix, device=hits.device)).double().cpu().numpy()
+    dist = np.linalg.norm(hits.double().cpu().numpy() - cam.C, axis=-1)
+    xyz64 = cam.C + rays * dist[:, None]
+    xyz = torch.as_tensor(xyz64, dtype=torch.float32, device=hits.device)
+    seed = _fit_seed(cam)
+    fit, wall, dev_ms, launches = _timed_call(lambda: fit_pinhole(xyz64, pix, seed, device=dev),
+                                              dev)
+    cpu = fit_pinhole(xyz64, pix, seed, device="cpu")
+    reproj = float((fit.point_to_pixel(xyz) - torch.as_tensor(pix, device=xyz.device))
+                   .abs().max())
+    same = bool(np.array_equal(fit.C, cpu.C) and np.array_equal(fit.R, cpu.R))
+    out.update(fit_pinhole_px=reproj, fit_pinhole_centre_m=float(np.linalg.norm(fit.C - cam.C)),
+               fit_pinhole_s=wall, fit_pinhole_device_ms=dev_ms, fit_pinhole_launches=launches)
+    print(f"[fit] fit_pinhole from {len(pix)} ground points, seed {FIT_PERTURB[0]} m / "
+          f"{FIT_PERTURB[1]} rad off: reprojection max {reproj:.4f} px (bound {FIT_PX}), "
+          f"centre {out['fit_pinhole_centre_m']:.4f} m from the truth (seed "
+          f"{np.linalg.norm(seed.C - cam.C):.4f}); wall {wall:.4f} s, device {dev_ms} ms in "
+          f"{launches} launches; card = CPU {same}")
+    if not (reproj <= FIT_PX and same):
+        raise SystemExit(f"fit: reprojection {reproj} px, card = CPU {same}")
+
+
+def _opticalbar(dev, n, out):
+    """opticalbar-dem-n (see the module docstring, phase 9). Returns its
+    steps' launches of csrc/."""
+    import torch
+    t0 = time.perf_counter()
+    scene = sds.scene(n)
+    cams = sds.optical_bar_pair(n)
+    hits = [sds._dem_hits(c, scene, n, dev) for c in cams]
+    st = {"left": sds.texture_at(scene, *hits[0]), "right": sds.texture_at(scene, *hits[1]),
+          "mask_l": hits[0][1], "mask_r": hits[1][1]}
+    _sync(dev)
+    out["opticalbar_dem_render_s"] = time.perf_counter() - t0
+    print(f"[opticalbar-dem] rendered the pair at {n}^2 in "
+          f"{out['opticalbar_dem_render_s']:.4f} s")
+    steps = opticalbar_dem_steps(scene, cams, n, dev)
+    counts = _step_counts(steps, st, dev)
+    print(f"[opticalbar-dem] launches of csrc/ by step: {counts}")
+    d_true, v_true = sds.ob_truth(*cams, scene, n, dev)
+    _corr_gate(st, d_true, v_true, "opticalbar-dem", "opticalbar_dem", out)
+    pix1, pix2, xyz, valid = _true_points(cams, d_true, v_true, dev)
+    _points_gate(xyz, valid, sds.ob_triangulate64(*cams, pix1, pix2), v_true, OB_POINT_M,
+                 "opticalbar-dem", "opticalbar_dem_point", out)
+    _dem_gate(st["dem"], st["dem_valid"], scene["dem"], _dem_bound(sds.OB_F_M / cams[0].pitch),
+              "opticalbar-dem", "opticalbar_dem", out)
+    _reset_counts()
+    _ob_round_trips(cams, *hits[0], n, dev, out)
+    _fit(scene, n, dev, out)
+    _ob_vs_cpu(st, steps, cams, n, dev, out)
+    _sync(dev)
+    counts["other"] = {k: v for k, v in _read_counts().items() if v}
+    if torch.device(dev).type == "cuda":
+        _dem_launch_check(counts, "opticalbar-dem")
+        _time_chain(steps, st, "opticalbar-dem", "opticalbar_dem", n, out)
+    return counts
+
+
+def _bathy(dev, n, out):
+    """bathy-dem-n (see the module docstring, phase 9). Returns its steps'
+    launches of csrc/."""
+    import torch
+    from visionworkbench_torch.cartography import BathyStereoModel, point_image_to_dem
+    t0 = time.perf_counter()
+    scene = sds.scene(n)
+    plane = sds.water_plane()
+    st = {k: sds.render_refracted(scene[k], scene, n, dev, plane)[0] for k in ("left", "right")}
+    _sync(dev)
+    out["bathy_dem_render_s"] = time.perf_counter() - t0
+    print(f"[bathy-dem] rendered the pair through the water at {n}^2 in "
+          f"{out['bathy_dem_render_s']:.4f} s")
+    steps = bathy_dem_steps(scene, plane, n, dev)
+    counts = _step_counts(steps, st, dev)
+    print(f"[bathy-dem] launches of csrc/ by step: {counts}")
+    rect = (st["rect_l"], st["rect_r"])
+    d_true, v_true, under = sds.bathy_truth(*rect, scene, n, dev, plane)
+    _corr_gate(st, d_true, v_true, "bathy-dem", "bathy_dem", out)
+    # the points of the true disparity: BathyStereoModel under the water,
+    # StereoModel elsewhere, against their float64 oracles
+    pix1, pix2, xyz, valid = _true_points(rect, d_true, v_true, dev)
+    wet = torch.as_tensor(under & v_true, device=xyz.device)
+    bxyz = BathyStereoModel(*rect, plane).triangulate(pix1, pix2, device=dev)[0]
+    _points_gate(torch.where(wet[..., None], bxyz, xyz), valid,
+                 np.where(under[..., None], sds.bathy_triangulate64(*rect, pix1, pix2, plane),
+                          sds.triangulate64(*rect, pix1, pix2)),
+                 under & v_true, BATHY_POINT_M, "bathy-dem", "bathy_dem_point_under", out,
+                 "under the water, BathyStereoModel")
+    _points_gate(xyz, valid, sds.triangulate64(*rect, pix1, pix2), ~under & v_true,
+                 sds.DEM_POINT_M, "bathy-dem", "bathy_dem_point_dry", out, "on land, StereoModel")
+    # the DEM, under the water and on land apart; the DEM of StereoModel
+    # alone, whose depths under the water are shallower by about the index
+    wet_cells = scene["dem"] < sds.DEM_WATER_M
+    bound = _dem_bound(rect[0].fu)
+    _dem_gate(st["dem"], st["dem_valid"], scene["dem"], bound, "bathy-dem", "bathy_dem_under",
+              out, wet_cells, "DEM under the water")
+    _dem_gate(st["dem"], st["dem_valid"], scene["dem"], bound, "bathy-dem", "bathy_dem_dry",
+              out, ~wet_cells, "DEM on land")
+    g = scene["dem"].shape[0]
+    plain = {"dm": st["dm"], "rect_l": rect[0], "rect_r": rect[1]}
+    dict(stereo_dem_steps(scene, n, dev))["triangulate"](plain)
+    naive, nv = (t.cpu().numpy() for t in point_image_to_dem(
+        plain["xyz"], plain["valid"], scene["dem_georef"], g, g))
+    both = nv & st["dem_valid"].cpu().numpy() & wet_cells
+    ratio = float(np.median((sds.DEM_WATER_M - naive[both])
+                            / (sds.DEM_WATER_M - st["dem"].cpu().numpy()[both])))
+    out["bathy_dem_naive_depth_ratio"] = ratio
+    print(f"[bathy-dem] the refraction-free DEM's depths over the refracted DEM's on "
+          f"{int(both.sum())} cells under the water: median {ratio:.4f} (1 / index "
+          f"{1 / sds.WATER_INDEX:.4f}; bound {BATHY_SHALLOW})")
+    if not ratio <= BATHY_SHALLOW:
+        raise SystemExit(f"bathy-dem: the refraction-free depths are not shallower ({ratio})")
+    _check_equal(_steps_vs_cpu(st, steps, ("triangulate", "dem", "hillshade"),
+                               {"triangulate": ("xyz", "err", "valid", "under"),
+                                "dem": ("dem", "dem_valid"), "hillshade": ("shade",)}),
+                 "bathy-dem", out, "bathy_dem", DEM_CELL_ULPS)
+    if torch.device(dev).type == "cuda":
+        _dem_launch_check(counts, "bathy-dem")
+        _time_chain(steps, st, "bathy-dem", "bathy_dem", n, out)
+    return counts
+
+
+def _bayer(dev, n, out):
+    """bayer-n: ``bayer_demosaic`` of an n^2 mosaic of three bench textures
+    in each of the four patterns, card = CPU; its error against the RGB
+    truth; the RGGB call timed (median of DEM_REPS after 2 warm-ups)."""
+    import torch
+    from visionworkbench_torch.camera import bayer_demosaic
+    from visionworkbench_torch.camera.bayer import PATTERNS
+    rgb = np.stack([sds.texture(n, n - 80, s) for s in BAYER_SEEDS], -1)
+    ys, xs = np.mgrid[0:n, 0:n] % 2
+    _reset_counts()
+    mosaics = {}
+    for pattern, sites in PATTERNS.items():
+        chan = np.full((n, n), 1)
+        chan[(ys == sites[0][0]) & (xs == sites[0][1])] = 0
+        chan[(ys == sites[3][0]) & (xs == sites[3][1])] = 2
+        mosaic = mosaics[pattern] = np.take_along_axis(rgb, chan[..., None], -1)[..., 0]
+        card = bayer_demosaic(torch.as_tensor(mosaic, device=dev), pattern)
+        eq, d = _same(bayer_demosaic(mosaic, pattern, device="cpu"), card)
+        mae = float(np.abs(card.cpu().numpy() - rgb).mean())
+        out[f"bayer_{pattern}_mae"] = mae
+        print(f"[bayer] {pattern} at {n}^2: card = CPU {eq} (max |d| {d:.3e}), mean |rgb - "
+              f"truth| {mae:.4f}")
+        if not eq:
+            raise SystemExit(f"bayer: {pattern} differs between the card and the CPU")
+    _sync(dev)
+    if any(_read_counts().values()):
+        raise SystemExit(f"bayer: launched {_read_counts()}")
+    if torch.device(dev).type == "cuda":
+        m = torch.as_tensor(mosaics["rggb"], device=dev)
+        ms = _time_ms(lambda: bayer_demosaic(m, "rggb"), DEM_REPS)
+        dev_ms, launches = _dem_profile(lambda st: bayer_demosaic(m, "rggb"), {})
+        out.update(bayer_ms=ms, bayer_mps=n * n / (ms * 1e3), bayer_device_ms=dev_ms,
+                   bayer_launches=launches)
+        print(f"[time] bayer rggb {n}^2: {ms:.4f} ms ({out['bayer_mps']:.3f} Mp/s), "
+              f"device {dev_ms} ms in {launches} launches")
+
+
+def phase_cameras_ii(dev, smi, n=sds.DEM_N):
+    """opticalbar-dem-n, bathy-dem-n and bayer-n (see the module docstring,
+    phase 9). Returns the ``opticalbar_dem_*``, ``bathy_dem_*``, ``fit_*``
+    and ``bayer_*`` numbers and each chain's correlator launches of csrc/."""
+    out = {}
+    t_phase = time.perf_counter()
+    ob = _opticalbar(dev, n, out)
+    bathy = _bathy(dev, n, out)
+    _bayer(dev, n, out)
+    out["cameras_ii_phase_s"] = time.perf_counter() - t_phase
+    print(f"[cameras-ii] phase wall {out['cameras_ii_phase_s']:.4f} s on {smi}")
+    return out, {"opticalbar_dem": ob["correlate"], "bathy_dem": bathy["correlate"]}
 
 
 def _kernel_name(name):
@@ -4175,6 +4607,7 @@ def main() -> int:
     par_counts, par_frame = phase_parallel(dev, smi)
     host_io = phase_host_io(dev)
     stereo_dem, dem_launches = phase_stereo_dem(dev, smi)
+    cameras_ii, cam_launches = phase_cameras_ii(dev, smi)
     # kernel: (heaviest main-path shape, main-path run, source, TPU kernel)
     sweep_cu = "visionworkbench_torch/csrc/sweep.cu"
     sweep_tpu = "visionworkbench_tpu/ops/sweep.py:603"
@@ -4239,7 +4672,8 @@ def main() -> int:
               "mgm_bidir": ("hier_mgm", "mgm_bidir/mgm_scan"),
               "mgm_fwd": ("hier_mgm", "mgm_fwd/mgm_scan"),
               "best_of_search": ("disp_search", "sweep")}.get(k)
-        # launches of stereo-dem-1024's correlator step
+        # launches of the correlator step of stereo-dem-1024 (phase 8) and of
+        # opticalbar-dem-1024 and bathy-dem-1024 (phase 9)
         sd = {"sweep": "sweep/band", "speckle": "speckle"}.get(k)
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
@@ -4248,7 +4682,9 @@ def main() -> int:
             **({"cli_match_launches": counts["cli_match"][cm]} if cm else {}),
             **({"parallel_run": pk[0], "parallel_launches": par_counts[pk[0]][pk[1]]}
                if pk else {}),
-            **({"stereo_dem_launches": dem_launches.get(sd, 0)} if sd else {}),
+            **({"stereo_dem_launches": dem_launches.get(sd, 0),
+                **{f"{c}_launches": cam_launches[c].get(sd, 0) for c in cam_launches}}
+               if sd else {}),
             "max_abs_err": err[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
@@ -4284,6 +4720,7 @@ def main() -> int:
                          for k, v in r.items()},
                       **host_io,
                       **stereo_dem,
+                      **cameras_ii,
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

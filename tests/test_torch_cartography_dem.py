@@ -46,7 +46,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import _torch_threads, port_camera  # noqa: F401
+from torch_parity import _torch_threads, jax_georef, port_camera  # noqa: F401
 import stereo_dem_scene as sds
 import visionworkbench_tpu.camera as jcam
 import visionworkbench_tpu.cartography as jcart
@@ -80,20 +80,13 @@ def _err(a, b, where=None):
     return float(d.max()) if d.size else 0.0
 
 
-def _jgeoref(g):
-    """The JAX package's georeference of the port's (same datum, transform)."""
-    d = g.datum
-    jd = jcart.Datum(d.name, d.spheroid_name, d.meridian_name, d.a, d.b, d.meridian_offset)
-    return jcart.GeoReference(jd, jcart.Projection(jd), g.transform, g.pixel_interpretation)
-
-
 @pytest.fixture(scope="module")
 def scene():
     sc = sds.scene(N)
     sc["jleft"] = jcam.PinholeModel(sc["left"].C, sc["left"].R, (sc["left"].fu, sc["left"].fv),
                                     (sc["left"].cu, sc["left"].cv),
                                     jcam.TsaiLensDistortion(*sds.DEM_TSAI))
-    sc["jdem_georef"] = _jgeoref(sc["dem_georef"])
+    sc["jdem_georef"] = jax_georef(sc["dem_georef"])
     rng = np.random.default_rng(12)
     sc["pix"] = rng.uniform(-2, N + 2, (256, 2)).astype(np.float32)
     return sc

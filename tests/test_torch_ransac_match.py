@@ -14,6 +14,8 @@ distances within 1e-6 of |a|^2 + |b|^2 (a matmul summed in another
 order), their matches equal.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,8 +31,10 @@ import visionworkbench_torch.interest.matcher as tmat
 import visionworkbench_torch.interest.types as ttypes
 import visionworkbench_torch.math.geometry_fit as tfit
 import visionworkbench_torch.math.nearest as tnear
-import visionworkbench_torch.math.ransac as tran
 from visionworkbench_torch.core.exceptions import ArgumentErr, MathErr
+
+# the package exports the function under the module's name, as the JAX package
+tran = importlib.import_module("visionworkbench_torch.math.ransac")
 
 TRUE = {
     "homography": np.array([[1.02, 0.01, 5.0], [-0.02, 0.98, -3.0], [1e-5, -2e-5, 1.0]]),

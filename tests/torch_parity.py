@@ -103,7 +103,9 @@ def port_camera(jax_model):
     """The port's camera built from a JAX package camera's float64
     attributes (``C``, ``R``, ``fu``..., ``A``, ``H``, ``V``, ``O``, ``Rd``,
     ``E``, the linearity, the distortion's ``params``, an adjusted model's
-    translation, rotation and centre)."""
+    translation, rotation and centre, an optical bar's image size, centre
+    offset, pitch, f, scan time and rate, direction, position, rotation,
+    velocity, motion-compensation flag and factor)."""
     import visionworkbench_torch.camera as tcam
     name = type(jax_model).__name__
     if name == "AdjustedCameraModel":
@@ -119,6 +121,10 @@ def port_camera(jax_model):
         return tcam.PinholeModel(jax_model.C, jax_model.R, (jax_model.fu, jax_model.fv),
                                  (jax_model.cu, jax_model.cv), dist, jax_model.pixel_pitch)
     m = jax_model
+    if name == "OpticalBarModel":
+        return tcam.OpticalBarModel(m.image_size, m.c0, m.pitch, m.f, m.scan_time, m.scan_rate,
+                                    m.left_to_right, m.position, m.rotation, m.velocity,
+                                    m.use_mc, m.mcf)
     if name == "CAHVModel":
         return tcam.CAHVModel(m.C, m.A, m.H, m.V)
     if name == "CAHVORModel":
@@ -126,3 +132,12 @@ def port_camera(jax_model):
     if name == "CAHVOREModel":
         return tcam.CAHVOREModel(m.C, m.A, m.H, m.V, m.O, m.Rd, m.E, m.linearity)
     raise TypeError(f"port_camera: no port of {name}")
+
+
+def jax_georef(g):
+    """The JAX package's georeference of a port's (same datum, transform
+    and pixel interpretation)."""
+    import visionworkbench_tpu.cartography as jcart
+    d = g.datum
+    jd = jcart.Datum(d.name, d.spheroid_name, d.meridian_name, d.a, d.b, d.meridian_offset)
+    return jcart.GeoReference(jd, jcart.Projection(jd), g.transform, g.pixel_interpretation)

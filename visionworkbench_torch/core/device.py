@@ -23,6 +23,17 @@ def on_device(x, device=None, dtype=None) -> torch.Tensor:
     return as_tensor(x, dtype, resolve_device(device))
 
 
+def common_dtype(args, device=None):
+    """``args`` as tensors of one dtype on one device: float64 if any tensor
+    among them is float64, else fp32; arrays go to the first tensor's
+    device, or to ``device`` (``None`` = the card) when there is none."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    dev = tensors[0].device if tensors else resolve_device(device)
+    dtype = (torch.float64 if any(t.dtype == torch.float64 for t in tensors)
+             else torch.float32)
+    return [on_device(a, dev, dtype).to(dev) for a in args]
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; raises when a CUDA device is asked for and no
     card is present. ``"cpu"`` runs the plain PyTorch versions."""

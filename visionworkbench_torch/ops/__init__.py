@@ -2,5 +2,9 @@
 version: ``sweep`` (block-matching sweep, every cost), ``speckle`` (speckle
 stencil) and ``sgm_scan`` (the SGM/MGM aggregation scans); ``cost_volume``
 puts the JAX package's first-generation searches onto the sweep, and
-``box_filter`` holds the plain window sums. ``_build`` compiles
-``csrc/*.cu`` with nvcc at first use."""
+``box_filter`` holds the plain window sums (exported, as the JAX package's
+``ops``). ``_build`` compiles ``csrc/*.cu`` with nvcc at first use."""
+
+from visionworkbench_torch.ops.box_filter import (  # noqa: F401
+    box_filter_same, box_sum_same, box_sum_valid, box_sum_valid_int,
+)

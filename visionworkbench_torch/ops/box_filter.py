@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from visionworkbench_torch.core.device import on_device
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.edge import edge_extend
 
@@ -40,6 +41,13 @@ def box_sum_same(image: torch.Tensor, kernel_w: int, kernel_h: int,
     padded = edge_extend(image, (kernel_w // 2, kernel_w - 1 - kernel_w // 2),
                          (kernel_h // 2, kernel_h - 1 - kernel_h // 2), mode=edge)
     return box_sum_valid(padded, kernel_w, kernel_h)
+
+
+def box_sum_valid_int(image, kernel_w: int, kernel_h: int, device=None) -> torch.Tensor:
+    """Integer-accumulator variant for census hamming costs: the int32
+    'valid' window sum (exact in any order). A tensor keeps its device; an
+    array goes to ``device`` (``None`` = the card)."""
+    return box_sum_valid(on_device(image, device, torch.int32), kernel_w, kernel_h)
 
 
 def box_filter_same(image: torch.Tensor, kernel_w: int, kernel_h: int,

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from visionworkbench_torch.camera.model import CameraModel
-from visionworkbench_torch.core.device import cross, dot, on_device, sqrt_rn
+from visionworkbench_torch.core.device import common_dtype, cross, dot, on_device, sqrt_rn
 from visionworkbench_torch.image.transform import _dest_grid
 from visionworkbench_torch.stereo.correlation import DisparityMap
 
@@ -29,10 +29,7 @@ DEFAULT_ANGLE_TOL = 1e-4  # ref StereoModel.cc:81 (~0.81 deg convergence)
 def triangulate_pair(dir0, ctr0, dir1, ctr1, device=None):
     """Midpoint of the two rays' closest approach + error vector
     (ref ``triangulate_pair``, StereoModel.cc:35-48). Batched (..., 3)."""
-    args = [on_device(a, device, None if isinstance(a, torch.Tensor) else torch.float32)
-            for a in (dir0, ctr0, dir1, ctr1)]
-    dtype = torch.float64 if any(a.dtype == torch.float64 for a in args) else torch.float32
-    dir0, ctr0, dir1, ctr1 = [a.to(args[0].device, dtype) for a in args]
+    dir0, ctr0, dir1, ctr1 = common_dtype((dir0, ctr0, dir1, ctr1), device)
     v12 = cross(dir0, dir1)
     v1 = cross(v12, dir0)
     v2 = cross(v12, dir1)
