@@ -303,6 +303,36 @@ Phases (each raises on a mismatch; none catches its own failure):
    each chain's Mp/s, peak memory), the solves' and the fit's walls, device
    ms and launches, Bayer's ms; the numbers go under ``opticalbar_dem_*``,
    ``bathy_dem_*``, ``fit_pinhole_*`` and ``bayer_*`` keys.
+10. The flood suite (``phase_flood``; no kernel of ``csrc/`` is on this
+   path, and none may launch), on scenes ``flood_scene.py`` makes on the card
+   from seeds and writes as the files a user hands the tools (nothing is
+   downloaded). flood-s1-8192: a Sentinel-1 IW GRD scene (8192^2 uint16 DN
+   at 10 m in UTM 15N, the affine turned 12 degrees as a descending pass;
+   land -8 dB, water -20 dB sigma0 with 4-look gamma speckle; a meandering
+   river 30-150 px wide plus lakes, 15 % of the frame; 0-DN wedges along two
+   edges) through ``sentinel1_flood_detect``'s steps (``clean_sentinel1_
+   borders``, the bicubic north-up warp onto 9717^2, ``detect_water --mode
+   sentinel1``, tile 512), then the tool with a 30 m DEM on another grid
+   (``reproject_image`` resamples it; clean and warp reused). landsat8-4096
+   (B2-B7, B10 and an MTL text; land, water and 5 % cloud), worldview-4096
+   (8 bands and an IMD text), spot-4096 (4 bands): ``detect_water``;
+   modis-4800 (bands 1-2 at 4800^2, 3-7 at 2400^2): ``extract_modis``
+   (upsampling on the card), then ``detect_water --mode modis`` (evi). Gates
+   (each raises): of the pixels farther than 3 px from a shore, >= 0.95 of
+   the water ones classed water and <= 0.02 of the land ones (clouds
+   anywhere) classed water. Card against CPU at 1024^2 (the scenes made on
+   the CPU, the same files to both): the S1 chain without and with the DEM
+   (class maps equal on >= 0.999: the warp's fp32 lon/lat differ by an ulp
+   or two, held apart at <= 4 ulps of longitude), Martinis on one warped
+   frame and the four optical chains (>= 0.9999), the Martinis thresholds
+   within a histogram bin (400/255); ``build_control_network`` on
+   stereo-dem's rectified pair and a third camera (4096 ground points): the
+   network card = CPU, >= 0.99 of the points kept, each within 0.6 m of
+   float64. Timing: each step once under the profiler for S1 (its wall,
+   device ms, launches, idle share, peak memory; the labelling passes), the
+   optical steps timed then profiled; each chain's Mp/s; the Martinis
+   threshold and tiles kept; the numbers go under ``flood_*`` and
+   ``cnet_*`` keys.
 
 Prints the times on earlier lines, then one JSON line of per-kernel
 numbers, and as its last line
@@ -325,6 +355,7 @@ import time
 
 import numpy as np
 
+import flood_scene as fs
 import stereo_dem_scene as sds
 from stereo_dem_scene import texture as _texture
 
@@ -4570,6 +4601,360 @@ def phase_cameras_ii(dev, smi, n=sds.DEM_N):
     return out, {"opticalbar_dem": ob["correlate"], "bathy_dem": bathy["correlate"]}
 
 
+# ---- phase 10: the flood suite --------------------------------------------------
+
+# flood-s1-8192 (a third of an IW swath's width at 10 m), landsat8-4096 (a
+# quarter of a scene), worldview-4096, spot-4096 and modis-4800 (one MOD09
+# tile); flood_scene.py holds the generators and the truths
+FLOOD_N = 8192
+FLOOD_TILE = 512
+FLOOD_OPT_N = 4096
+FLOOD_MODIS_N = 4800
+FLOOD_CPU_N = 1024           # card against CPU
+FLOOD_SEED = 41              # + 0..4: the S1, Landsat, WorldView, SPOT and MODIS scenes
+FLOOD_WATER_HIT = 0.95       # of the water pixels past fs.SHORE_PX from a shore: classed water
+FLOOD_LAND_FP = 0.02         # of the land (and cloud) pixels past it: classed water, at most
+FLOOD_CPU_SHARE = 0.9999     # class maps card = CPU from one input, at least
+FLOOD_CPU_CHAIN_SHARE = 0.999   # the S1 chains' class maps card = CPU (the warp's noise)
+FLOOD_WARP_ULPS = 4          # the warp's reverse map card vs CPU, in fp32 ulps of longitude
+FLOOD_THRESHOLD_BIN = 400.0 / 255   # the Martinis thresholds card vs CPU, at most
+CNET_POINTS = 4096           # build_control_network on stereo-dem's rectified pair
+
+
+def _flood_call(fn, dev, quiet=False):
+    """(result, wall ms) of ``fn()``, synchronised; its printed lines kept
+    from the log when ``quiet``."""
+    import contextlib
+    import io
+    _sync(dev)
+    t0 = time.perf_counter()
+    if quiet:
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = fn()
+    else:
+        res = fn()
+    _sync(dev)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def _flood_step(tag, name, fn, dev, out, key, once=False):
+    """One step of a scene's chain again, timed (wall, synchronised; peak
+    device memory), then once under the profiler (device ms, launches);
+    ``once``: a single run under the profiler gives the wall too."""
+    import torch
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    if not cuda or not once:
+        res, ms = _flood_call(fn, dev, quiet=True)
+    dev_ms = launches = None
+    if cuda:
+        st = {}
+        dev_ms, launches = _dem_profile(lambda st: st.update(r=_flood_call(fn, dev, True)), st)
+        if once:
+            res, ms = st["r"]
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else None
+    idle = None if dev_ms is None else 1 - dev_ms / ms
+    out.update({f"{key}_{name}_ms": ms, f"{key}_{name}_device_ms": dev_ms,
+                f"{key}_{name}_launches": launches, f"{key}_{name}_idle": idle,
+                f"{key}_{name}_peak_mib": peak})
+    print(f"[time] {tag} {name}: {ms:.4f} ms{' (under the profiler)' if once and cuda else ''}, "
+          f"device {dev_ms} ms in {launches} launches, idle share {idle}, peak device memory "
+          f"{peak} MiB")
+    return res
+
+
+def _flood_gate(tag, path, shore, out, key, truth=None):
+    """The class map at ``path`` against the truth: of the valid pixels
+    farther than fs.SHORE_PX from a shore, >= FLOOD_WATER_HIT of the water
+    ones classed water and <= FLOOD_LAND_FP of the land ones (cloud ones
+    anywhere) classed water."""
+    import torch
+    from visionworkbench_torch.fileio import read_tiff
+    cls = torch.as_tensor(read_tiff(path)[0]).to(shore.device)
+    valid = cls != 0
+    wet = shore < 0 if truth is None else truth == 1
+    water = valid & wet & (shore < -fs.SHORE_PX)
+    land = valid & ~wet & (shore > fs.SHORE_PX)
+    if truth is not None:
+        land |= valid & (truth == 2)
+    hit = float((cls[water] == 255).double().mean())
+    fp = float((cls[land] == 255).double().mean())
+    out.update({f"{key}_water_hit": hit, f"{key}_land_fp": fp})
+    print(f"[flood] {tag}: {hit:.6f} of {int(water.sum())} water pixels classed water (gate >= "
+          f"{FLOOD_WATER_HIT}), {fp:.6f} of {int(land.sum())} land pixels (gate <= "
+          f"{FLOOD_LAND_FP}); {float((cls == 255).double().mean()):.4f} of the map water, "
+          f"{float((~valid).double().mean()):.4f} no data")
+    if not water.any() or not land.any() or hit < FLOOD_WATER_HIT or fp > FLOOD_LAND_FP:
+        raise SystemExit(f"{tag}: the water map fails its gate")
+
+
+def _flood_s1(dev, n, folder, out):
+    """flood-s1-n: the sentinel1_flood_detect chain step by step, each step
+    once under the profiler, gated; the tool with the DEM, gated; the
+    labelling passes, the Martinis threshold and the tiles kept."""
+    import torch
+    from visionworkbench_torch.fileio import read_tiff
+    from visionworkbench_torch.image import morphology
+    from visionworkbench_torch.tools import clean_sentinel1_borders as csb
+    from visionworkbench_torch.tools import detect_water as dw
+    from visionworkbench_torch.tools import sentinel1_flood_detect as sfd
+    from visionworkbench_torch.tools.flood import radar
+    tag, key = f"flood-s1-{n}", "flood_s1"
+    t0 = time.perf_counter()
+    sc = fs.sentinel1(n, FLOOD_SEED, dev, folder)
+    dem = fs.s1_dem(sc, n, dev, folder)
+    up, shape = fs.north_up(sc["georef"], n)
+    shore = fs.s1_truth(sc, up, shape, dev).float()
+    _sync(dev)
+    out[f"{key}_make_s"] = time.perf_counter() - t0
+    print(f"[flood] {tag}: {n}^2 uint16 DN, {sc['nodata_share']:.4f} no data, the warped "
+          f"frame {shape[0]}x{shape[1]} ({float((shore < 0).double().mean()):.4f} of it water "
+          f"in the truth, with the outside), made and written in {out[f'{key}_make_s']:.2f} s")
+    res = os.path.join(folder, "s1_flood.tif")
+    clean, ortho = res + "_clean.tif", res + "_WARP.tif"
+    tile = ["--tile-size", str(FLOOD_TILE)]
+    # the chain, step by step as sentinel1_flood_detect runs it: clean ->
+    # north-up warp -> Martinis; then the tool itself with the DEM (clean
+    # and warp reused, as the tool does: the chain with the DEM)
+    runs = (("clean", lambda: csb.main([sc["path"], "-o", clean], device=dev)),
+            ("warp", lambda: sfd.warp_north_up(clean, ortho, dev)),
+            ("detect", lambda: dw.main([ortho, "-o", res, "--mode", "sentinel1"] + tile,
+                                       device=dev)),
+            ("dem_chain", lambda: sfd.main([sc["path"], res, "--dem-path", dem] + tile,
+                                           device=dev)))
+    for name, fn in runs:
+        morphology.label_passes = 0
+        _flood_step(tag, name, fn, dev, out, key, once=True)
+        if name == "detect":
+            ms = sum(out[f"{key}_{k}_ms"] for k in ("clean", "warp", "detect"))
+            out.update({f"{key}_chain_ms": ms, f"{key}_chain_mps": n * n / (ms * 1e3)})
+            print(f"[time] {tag} chain: {ms:.4f} ms, {n * n / (ms * 1e3):.3f} Mp/s of input")
+            _flood_gate(tag, res, shore, out, key)
+        if name in ("detect", "dem_chain"):
+            out[f"{key}_{name}_label_passes"] = morphology.label_passes
+            print(f"[flood] {tag} {name}: {morphology.label_passes} blob-labelling passes "
+                  "(raw water 4-connected, then the hysteresis fill 8-connected)")
+    _flood_gate(tag + " with the DEM", res, shore, out, key + "_dem")
+    # stages 1-4 once more for the tiles kept
+    img = torch.as_tensor(read_tiff(ortho)[0]).to(dev)
+    proc, pvalid = radar.preprocess_sentinel1(img, img > 0)
+    stats = [x.cpu().numpy() for x in radar.generate_tile_means(proc, pvalid, FLOOD_TILE)]
+    kept = radar.select_best_tiles(*stats)
+    thr = radar.compute_global_threshold(proc, pvalid, kept, FLOOD_TILE)
+    out.update({f"{key}_threshold": thr, f"{key}_kept_tiles": kept})
+    print(f"[flood] {tag} Martinis: threshold {thr} (preprocessed units) from the tiles "
+          f"{kept} of {FLOOD_TILE}")
+
+
+def _flood_optical(dev, n, modis_n, folder, out):
+    """landsat8-n, worldview-n, spot-n: detect_water on the scene's files;
+    modis-modis_n: extract_modis, then detect_water --mode modis (evi).
+    Each gated, each step timed, each chain's Mp/s."""
+    from visionworkbench_torch.tools import detect_water as dw
+    from visionworkbench_torch.tools import extract_modis as em
+    scenes = (("landsat8", fs.landsat8, n, ["--mode", "landsat"]),
+              ("worldview", fs.worldview3, n, ["--mode", "worldview"]),
+              ("spot", fs.spot6, n, ["--mode", "spot"]),
+              ("modis", fs.modis, modis_n, ["--mode", "modis"]))
+    for i, (name, make, size, mode) in enumerate(scenes, 1):
+        tag, key = f"{name}-{size}", f"flood_{name}"
+        t0 = time.perf_counter()
+        sc = make(size, FLOOD_SEED + i, dev, folder)
+        _sync(dev)
+        print(f"[flood] {tag}: made and written in {time.perf_counter() - t0:.2f} s "
+              f"({float((sc['classes'] == 1).double().mean()):.4f} water in the truth)")
+        res = os.path.join(folder, f"{name}_water.tif")
+        chain = 0.0
+        inputs = sc["paths"]
+        if name == "modis":
+            prefix = os.path.join(folder, "modis_")
+            _flood_step(tag, "extract", lambda: em.main(inputs + ["--prefix", prefix,
+                                                                  "--overwrite"], device=dev),
+                        dev, out, key)
+            chain += out[f"{key}_extract_ms"]
+            inputs = [prefix + "modis_stack.tif"]
+        _flood_step(tag, "detect", lambda: dw.main(inputs + mode + ["-o", res], device=dev),
+                    dev, out, key)
+        chain += out[f"{key}_detect_ms"]
+        out.update({f"{key}_chain_ms": chain, f"{key}_chain_mps": size * size / (chain * 1e3)})
+        print(f"[time] {tag} chain: {chain:.4f} ms, {size * size / (chain * 1e3):.3f} Mp/s")
+        _flood_gate(tag, res, sc["shore"], out, key, sc["classes"])
+
+
+def _flood_threshold(text):
+    m = re.search(r"sentinel1 global threshold: ([0-9.]+)", text)
+    return float(m.group(1))
+
+
+def _flood_vs_cpu(dev, n, folder, out):
+    """The card against the CPU at n^2 (each scene made on the CPU, the same
+    files given to both): every chain's class map (the rest of the pixels
+    counted) and the Martinis thresholds; the S1 chain's pieces apart:
+    Martinis on one warped frame (the CPU chain's; >= FLOOD_CPU_SHARE), and
+    the warp's reverse map, whose fp32 lon/lat differ card vs CPU by an ulp
+    or two (<= FLOOD_WARP_ULPS), so the S1 chains are held to
+    FLOOD_CPU_CHAIN_SHARE."""
+    import contextlib
+    import io
+    import torch
+    from visionworkbench_torch.cartography.geotransform import GeoTransform
+    from visionworkbench_torch.fileio import read_tiff
+    from visionworkbench_torch.image.transform import _dest_grid
+    from visionworkbench_torch.tools import detect_water as dw
+    from visionworkbench_torch.tools import extract_modis as em
+    from visionworkbench_torch.tools import sentinel1_flood_detect as sfd
+    src = os.path.join(folder, "cpu_inputs")
+    os.makedirs(src)
+    s1 = fs.sentinel1(n, FLOOD_SEED, "cpu", src)
+    dem = fs.s1_dem(s1, n, "cpu", src)
+    scenes = {name: make(n, FLOOD_SEED + i, "cpu", src) for i, (name, make) in enumerate(
+        (("landsat8", fs.landsat8), ("worldview", fs.worldview3), ("spot", fs.spot6),
+         ("modis", fs.modis)), 1)}
+    tile = ["--tile-size", str(FLOOD_TILE)]
+    same_input = os.path.join(folder, "vs_cpu_cpu", "s1.tif_WARP.tif")
+    maps, thresholds = {}, {}
+    devs = list(dict.fromkeys(("cpu", dev)))
+    for d in devs:
+        f = os.path.join(folder, f"vs_cpu_{torch.device(d).type}")
+        os.makedirs(f)
+        res = os.path.join(f, "s1.tif")
+        runs = (("s1", lambda: sfd.main([s1["path"], res] + tile, device=d)),
+                ("s1_dem", lambda: sfd.main([s1["path"], res, "--dem-path", dem] + tile,
+                                            device=d)),
+                ("s1_same_input", lambda: dw.main([same_input, "-o", res, "--mode",
+                                                   "sentinel1"] + tile, device=d)))
+        for name, run in runs:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                if run():
+                    raise SystemExit(f"flood vs CPU: {name} failed on {d}")
+            thresholds[d, name] = _flood_threshold(buf.getvalue())
+            maps[d, name] = read_tiff(res)[0]
+        maps[d, "warp"] = read_tiff(res + "_WARP.tif")[0]
+        with contextlib.redirect_stdout(io.StringIO()):
+            for name, sc in scenes.items():
+                inputs = sc["paths"]
+                if name == "modis":
+                    em.main(inputs + ["--prefix", os.path.join(f, "modis_")], device=d)
+                    inputs = [os.path.join(f, "modis_modis_stack.tif")]
+                res = os.path.join(f, f"{name}.tif")
+                if dw.main(inputs + ["--mode", name.rstrip("8"), "-o", res], device=d):
+                    raise SystemExit(f"flood vs CPU: detect_water {name} failed on {d}")
+                maps[d, name] = read_tiff(res)[0]
+    failed = []
+    for name in ("s1", "s1_dem", "s1_same_input", "landsat8", "worldview", "spot", "modis"):
+        card, cpu = maps[dev, name], maps["cpu", name]
+        share = float((card == cpu).mean()) if card.shape == cpu.shape else 0.0
+        bound = FLOOD_CPU_CHAIN_SHARE if name in ("s1", "s1_dem") else FLOOD_CPU_SHARE
+        out[f"flood_cpu_{name}_share"] = share
+        msg = (f"[flood] card vs CPU {name}-{n}: class maps equal on {share:.6f} of the pixels "
+               f"({int((card != cpu).sum())} differ; gate >= {bound})")
+        if name.startswith("s1"):
+            dt = abs(thresholds[dev, name] - thresholds["cpu", name])
+            out[f"flood_cpu_{name}_threshold_diff"] = dt
+            msg += (f", thresholds {thresholds[dev, name]:.4f} / {thresholds['cpu', name]:.4f} "
+                    f"(bound {FLOOD_THRESHOLD_BIN:.4f})")
+            if dt > FLOOD_THRESHOLD_BIN:
+                failed.append(f"{name} thresholds")
+        print(msg)
+        if share < bound:
+            failed.append(f"{name} class maps")
+    # the warp: its reverse map (fp32 through lon/lat, as the JAX package's;
+    # bounded in fp32 ulps of the scene's longitude) and the warped planes
+    up, shape = fs.north_up(s1["georef"], n)
+    tx = GeoTransform(s1["georef"], up)
+    grids = {d: [g.cpu().double() for g in tx.reverse(*_dest_grid(shape[0], shape[1], d))]
+             for d in devs}
+    coord = max(float((a - b).abs().max()) for a, b in zip(grids[dev], grids["cpu"]))
+    lon, lat = (float(v) for v in s1["georef"].pixel_to_lonlat(n / 2, n / 2))
+    ulp_px = (float(np.spacing(np.float32(abs(lon)))) * np.pi / 180 * 6378137.0
+              * np.cos(np.radians(lat)) / fs.S1_PIXEL_M)
+    warp = np.abs(maps[dev, "warp"].astype(np.float64) - maps["cpu", "warp"])
+    out.update(flood_cpu_warp_coord_px=coord, flood_cpu_warp_coord_ulps=coord / ulp_px,
+               flood_cpu_warp_equal=float((warp == 0).mean()),
+               flood_cpu_warp_max_dn=float(warp.max()))
+    ulps = coord / ulp_px
+    print(f"[flood] card vs CPU s1 warp: reverse map {coord:.4e} px apart at most ({ulps:.2f} "
+          f"fp32 ulps of longitude at ({lon:.3f}, {lat:.3f}): {ulp_px:.4f} px; "
+          f"bound {FLOOD_WARP_ULPS}); warped planes equal on {float((warp == 0).mean()):.6f} "
+          f"of the pixels, {warp.max():.4f} DN apart at most")
+    if coord > FLOOD_WARP_ULPS * ulp_px:
+        failed.append("the warp's reverse map")
+    if failed:
+        raise SystemExit(f"flood vs CPU: {', '.join(failed)} differ beyond their bounds")
+
+
+def _cnet_vs_cpu(dev, out, m=CNET_POINTS):
+    """``build_control_network`` on stereo-dem's rectified pair (a third
+    camera 30 m on, so a third of the points chain across three images):
+    the card's network equal to the CPU's, >= 0.99 of the points kept, each
+    within DEM_POINT_M of the float64 oracle; timed on the card."""
+    import torch
+    from visionworkbench_torch.ba import build_control_network
+    from visionworkbench_torch.camera import PinholeModel
+    left, right = sds.rectify(sds.scene(sds.DEM_N))
+    third = PinholeModel(np.float32(2 * right.C - left.C).astype(np.float64), right.R,
+                         (right.fu, right.fv), (right.cu, right.cv))
+    cams = [left, right, third]
+    centre = 0.5 * (left.C + right.C)
+    rng = np.random.default_rng(FLOOD_SEED)
+    ground = (centre - centre / np.linalg.norm(centre) * rng.uniform(900, 1100, (m, 1))
+              + rng.normal(0, 150, (m, 3)))
+    pix = [sds.project64(c, ground) for c in cams]
+    k = 2 * m // 3
+    matches = {(0, 1): (pix[0][:k], pix[1][:k]), (1, 2): (pix[1][m // 3:], pix[2][m // 3:])}
+    nets = {}
+    for d in dict.fromkeys(("cpu", dev)):
+        nets[d], ms = _flood_call(lambda: build_control_network(["l", "r", "t"], cams, matches,
+                                                                device=d), d)
+    card, cpu = nets[dev], nets["cpu"]
+    pos = np.stack([p.position for p in card.points])
+    same = (len(card) == len(cpu) and np.array_equal(pos, np.stack([p.position for p in cpu.points]))
+            and [[(q.image_id, q.col, q.row) for q in p.measures] for p in card.points]
+            == [[(q.image_id, q.col, q.row) for q in p.measures] for p in cpu.points])
+    oracle = np.stack([sds.triangulate64(cams[p.measures[0].image_id],
+                                         cams[p.measures[1].image_id],
+                                         np.array(p.measures[0].position()),
+                                         np.array(p.measures[1].position()))
+                       for p in card.points])
+    err = float(np.linalg.norm(pos - oracle, axis=-1).max())
+    out.update(cnet_points=len(card), cnet_measures=card.num_measures(), cnet_ms=ms,
+               cnet_err_m=err)
+    print(f"[flood] build_control_network on stereo-dem's pair and a third camera: {len(card)} "
+          f"points, {card.num_measures()} measures, card = CPU {same}, {ms:.4f} ms on {dev}, "
+          f"{err:.4f} m from float64 at most (bound {sds.DEM_POINT_M})")
+    # (union-find on 1/8-px keys may merge two points whose pixels round alike)
+    if not same or len(card) < 0.99 * m or err > sds.DEM_POINT_M:
+        raise SystemExit("build_control_network: the card and the CPU disagree, or points "
+                         "are missing or off")
+
+
+def phase_flood(dev, smi, n=FLOOD_N, opt_n=FLOOD_OPT_N, modis_n=FLOOD_MODIS_N,
+                cpu_n=FLOOD_CPU_N):
+    """flood-s1-n, landsat8-, worldview-, spot-opt_n and modis-modis_n, the
+    card against the CPU at cpu_n^2 and build_control_network (see the
+    module docstring, phase 10). Returns the ``flood_*`` and ``cnet_*``
+    numbers."""
+    out = {}
+    t_phase = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="chip_smoke_flood_")
+    try:
+        _reset_counts()
+        _flood_s1(dev, n, folder, out)
+        _flood_optical(dev, opt_n, modis_n, folder, out)
+        _flood_vs_cpu(dev, cpu_n, folder, out)
+        _cnet_vs_cpu(dev, out)
+        _sync(dev)
+        if any(_read_counts().values()):
+            raise SystemExit(f"flood: launched kernels of csrc/ {_read_counts()}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    out["flood_phase_s"] = time.perf_counter() - t_phase
+    print(f"[flood] phase wall {out['flood_phase_s']:.4f} s on {smi}")
+    return out
+
+
 def _kernel_name(name):
     """``band_sweep_kernel<0, 24>`` of a profiler's kernel signature."""
     m = re.search(r"\w+_kernel<[^>]*>", name)
@@ -4608,6 +4993,7 @@ def main() -> int:
     host_io = phase_host_io(dev)
     stereo_dem, dem_launches = phase_stereo_dem(dev, smi)
     cameras_ii, cam_launches = phase_cameras_ii(dev, smi)
+    flood = phase_flood(dev, smi)
     # kernel: (heaviest main-path shape, main-path run, source, TPU kernel)
     sweep_cu = "visionworkbench_torch/csrc/sweep.cu"
     sweep_tpu = "visionworkbench_tpu/ops/sweep.py:603"
@@ -4721,6 +5107,7 @@ def main() -> int:
                       **host_io,
                       **stereo_dem,
                       **cameras_ii,
+                      **flood,
                       "card": smi}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,11 @@
 """The port's package exports against the JAX package's.
 
 Every public name that a JAX-package ``__init__`` imports from one of its
-modules resolves in the port's ``__init__`` of the same package whenever
-the port has that module (``visionworkbench_torch/<package>/<module>.py``).
-The modules the port has no counterpart of yet are written out in
-``NOT_PORTED``; each later slice shrinks the list. Importing the port's
+modules (``from visionworkbench_tpu.<module> import ...``, or relative:
+``from .common import ...``, ``from . import landsat``) resolves in the
+port's ``__init__`` of the same package whenever the port has that module
+(``visionworkbench_torch/<package>/<module>.py``). ``NOT_PORTED`` names the
+modules the port has no counterpart of: none is left. Importing the port's
 packages loads neither ``jax`` nor ``visionworkbench_tpu``. Plus
 ``ops.box_sum_valid_int`` against the JAX package's (int32: equal).
 """
@@ -27,19 +28,26 @@ JAX_PKG = ROOT / "visionworkbench_tpu"
 PORT_PKG = ROOT / "visionworkbench_torch"
 
 # JAX-package modules whose names its __init__s export and the port lacks
-NOT_PORTED = {"version", "ba.control_network", "cartography.shapefile",
-              "geometry.frame_tree", "geometry.polygon", "geometry.spatial_tree"}
+NOT_PORTED = set()
 
 
 def _exports():
     """{package: [(module, name), ...]} of the JAX package's ``__init__``s
-    (``from visionworkbench_tpu.<module> import <name>`` lines)."""
+    (``from visionworkbench_tpu.<module> import <name>`` and relative
+    ``from .<module> import <name>`` lines); ``from . import <module>``
+    gives (``<package>.<module>``, None): the name is the module itself."""
     out = {}
     for init in sorted(JAX_PKG.rglob("__init__.py")):
         pkg = ".".join(init.parent.relative_to(JAX_PKG).parts)
         for node in ast.parse(init.read_text()).body:
-            if (isinstance(node, ast.ImportFrom) and node.module
-                    and node.module.startswith("visionworkbench_tpu.")):
+            if not isinstance(node, ast.ImportFrom):
+                continue
+            if node.level == 1:
+                base = f"{pkg}.{node.module}" if node.module else None
+                out.setdefault(pkg, []).extend(
+                    (base, a.asname or a.name) if base else (f"{pkg}.{a.name}", None)
+                    for a in node.names)
+            elif node.module and node.module.startswith("visionworkbench_tpu."):
                 mod = node.module[len("visionworkbench_tpu."):]
                 out.setdefault(pkg, []).extend((mod, a.asname or a.name) for a in node.names)
     return out
@@ -65,16 +73,19 @@ def test_exports_resolve_in_the_port(pkg):
         assert all(mod in NOT_PORTED for mod, _ in EXPORTS[pkg])
         return
     port = importlib.import_module("visionworkbench_torch" + (f".{pkg}" if pkg else ""))
-    missing = [name for _, name in names if not hasattr(port, name)]
+    attrs = [name or mod.rsplit(".", 1)[1] for mod, name in names]
+    missing = [a for a in attrs if not hasattr(port, a)]
     assert not missing, f"visionworkbench_torch.{pkg} lacks {missing}"
-    # each name is the object of its module in the port
-    for mod, name in names:
+    # each name is the object of its module in the port (or the module)
+    for (mod, name), attr in zip(names, attrs):
         src = importlib.import_module(f"visionworkbench_torch.{mod}")
-        assert getattr(port, name) is getattr(src, name), (pkg, mod, name)
+        assert getattr(port, attr) is (src if name is None else getattr(src, name)), (pkg, mod,
+                                                                                      name)
 
 
 def test_ported_packages_import_without_jax():
-    pkgs = sorted(p for p in EXPORTS if p and (PORT_PKG / p).is_dir())
+    pkgs = sorted(p for p in EXPORTS if p and PORT_PKG.joinpath(*p.split(".")).is_dir())
+    assert {"geometry", "ba", "tools.flood"} <= set(pkgs)
     code = ("import sys\n"
             + "".join(f"import visionworkbench_torch.{p}\n" for p in pkgs)
             + "from visionworkbench_torch.math import ransac, levenberg_marquardt\n"

@@ -22,4 +22,4 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.1.0"
+from visionworkbench_torch.version import __version__  # noqa: E402,F401

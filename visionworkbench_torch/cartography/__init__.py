@@ -3,9 +3,8 @@ in-tree torch projections and the GeoTIFF codec): datums, projections,
 georeferences and reprojection; hillshade and colormap; camera footprints,
 ray/DEM intersection, map <-> camera transforms and orthoprojection; point
 images and DEMs; bathymetric (refracted) triangulation and camera fits to
-ground points. The names of ``visionworkbench_tpu/cartography/__init__.py``
-but ``read_shapefile`` / ``write_shapefile`` (``chipper`` and ``shapefile``
-are not ported yet, ``ROADMAP.md`` queue 1)."""
+ground points; shapefile IO and point chipping (host). The names of
+``visionworkbench_tpu/cartography/__init__.py``."""
 
 from visionworkbench_torch.cartography.datum import Datum, well_known_datum  # noqa: F401
 from visionworkbench_torch.cartography.projection import (  # noqa: F401
@@ -36,6 +35,9 @@ from visionworkbench_torch.cartography.map2cam import (  # noqa: F401
 )
 from visionworkbench_torch.cartography.bathymetry import (  # noqa: F401
     BathyStereoModel, snell_refraction,
+)
+from visionworkbench_torch.cartography.shapefile import (  # noqa: F401
+    read_shapefile, write_shapefile,
 )
 from visionworkbench_torch.cartography.camera_fit import (  # noqa: F401
     fit_camera_to_datum, fit_optical_bar, fit_pinhole,

@@ -34,6 +34,11 @@ _INF = 1e9            # exact in fp32
 # Passes between two tests for the fixpoint (one host sync each).
 _CHECK_EVERY = 4
 
+# Propagation passes run by :func:`_blob_labels`, summed over its calls
+# (a measurement counter, as the kernels' launch counters; set it to 0
+# before the work to count).
+label_passes = 0
+
 
 def _neighbours_min(lbl: torch.Tensor, mask: torch.Tensor, big: int,
                     connectivity: int) -> torch.Tensor:
@@ -69,6 +74,8 @@ def _blob_labels(mask: torch.Tensor, connectivity: int = 4):
             passes += 1
         if torch.equal(lbl, before):
             break
+    global label_passes
+    label_passes += passes
     return torch.where(mask, lbl, -1), passes
 
 
