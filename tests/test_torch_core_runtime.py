@@ -35,14 +35,20 @@ import visionworkbench_torch.core.threadpool as ttp
 PAIRS = {"settings": (jset, tset), "log": (jlog, tlog), "progress": (jprog, tprog),
          "cache": (jcache, tcache), "threadpool": (jtp, ttp), "cmdutils": (jcmd, tcmd),
          "profiling": (jprof, tprof)}
+# the JAX package's names the port left out on purpose: the per-stage
+# megapixel counter and the stage timer that syncs the device at every
+# stage (the port names its steps with ``profiling.span`` instead)
+NOT_PORTED = {"profiling": {"RateCounter", "timed_stage"}}
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_public_names(name):
-    """Each module has the JAX module's public names."""
+    """Each module has the JAX module's public names, but those it left
+    out on purpose."""
     j, t = PAIRS[name]
     public = {n for n in vars(j) if not n.startswith("_") and n not in ("annotations",)
               and getattr(getattr(j, n), "__module__", j.__name__) == j.__name__}
+    public -= NOT_PORTED.get(name, set())
     assert public <= set(vars(t)), public - set(vars(t))
 
 
@@ -327,23 +333,7 @@ def test_cmdutils(tmp_path):
         tcmd.program_path("no-such-program-xyz", exe)
 
 
-def test_rate_counter_report(monkeypatch):
-    """The same report text for the same stage times (the clock is
-    replaced by one that steps the same in both packages)."""
-    def report(mod):
-        ticks = iter(np.arange(0.0, 100.0, 0.125))
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: float(next(ticks)))
-        rc = mod.RateCounter()
-        for name, px in (("warp", 1_000_000), ("blend", 2_500_000), ("warp", 500_000)):
-            with rc.stage(name, px):
-                pass
-        return rc.report(), rc.rate("warp"), rc.rate("absent")
-    t = report(tprof)
-    monkeypatch.undo()
-    assert t == report(jprof)
-
-
-def test_materialize_and_timed_stage():
+def test_materialize():
     tree = {"a": [torch.arange(4, dtype=torch.float32), (torch.ones(2, 3), 2.5)],
             "b": {"c": torch.tensor(7, dtype=torch.int32), "d": None}}
     jtree = {"a": [np.arange(4, dtype=np.float32), (np.ones((2, 3), np.float32), 2.5)],
@@ -355,10 +345,6 @@ def test_materialize_and_timed_stage():
                  (got["a"][1][1], want["a"][1][1]), (got["b"]["c"], want["b"]["c"])):
         assert isinstance(g, np.ndarray) and g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
-    rc, held = tprof.RateCounter(), []
-    with tprof.timed_stage(rc, "stage", 100, held):
-        held.append(torch.ones(3))
-    assert isinstance(held[0], np.ndarray) and rc.rate("stage") > 0
 
 
 def test_trace_writes_chrome_trace(tmp_path):

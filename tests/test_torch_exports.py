@@ -5,7 +5,8 @@ modules (``from visionworkbench_tpu.<module> import ...``, or relative:
 ``from .common import ...``, ``from . import landsat``) resolves in the
 port's ``__init__`` of the same package whenever the port has that module
 (``visionworkbench_torch/<package>/<module>.py``). ``NOT_PORTED`` names the
-modules the port has no counterpart of: none is left. Importing the port's
+modules the port has no counterpart of: none is left; ``LEFT_OUT`` the
+names the port dropped on purpose. Importing the port's
 packages loads neither ``jax`` nor ``visionworkbench_tpu``. Plus
 ``ops.box_sum_valid_int`` against the JAX package's (int32: equal).
 """
@@ -29,6 +30,9 @@ PORT_PKG = ROOT / "visionworkbench_torch"
 
 # JAX-package modules whose names its __init__s export and the port lacks
 NOT_PORTED = set()
+# names of ported modules the port left out on purpose: the per-stage
+# megapixel counter (its steps are named by ``core/profiling.span``)
+LEFT_OUT = {("core.profiling", "RateCounter")}
 
 
 def _exports():
@@ -68,7 +72,8 @@ def test_not_ported_lists_exactly_the_missing_modules():
 
 @pytest.mark.parametrize("pkg", sorted(EXPORTS))
 def test_exports_resolve_in_the_port(pkg):
-    names = [(mod, name) for mod, name in EXPORTS[pkg] if _ported(mod)]
+    names = [(mod, name) for mod, name in EXPORTS[pkg]
+             if _ported(mod) and (mod, name) not in LEFT_OUT]
     if not names:
         assert all(mod in NOT_PORTED for mod, _ in EXPORTS[pkg])
         return

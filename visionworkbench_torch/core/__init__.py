@@ -15,7 +15,7 @@ from visionworkbench_torch.core.progress import (
     ProgressCallback, SubProgressCallback, TerminalProgressCallback, dummy_progress,
 )
 from visionworkbench_torch.core.cache import Cache, CacheHandle, vw_system_cache
-from visionworkbench_torch.core.profiling import RateCounter, materialize, trace  # noqa: F401
+from visionworkbench_torch.core.profiling import materialize, span, trace  # noqa: F401
 from visionworkbench_torch.core.cmdutils import (  # noqa: F401
     exec_cmd, find_executable_in_path, program_path,
 )

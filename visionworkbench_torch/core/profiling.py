@@ -4,23 +4,35 @@ ref ``Stopwatch``/``Timer`` and per-tile timing under ``VW_DEBUG_LEVEL``,
 
 ``trace()`` records with ``torch.profiler`` (CPU activity, and CUDA when a
 card is present) and writes a Chrome trace into ``logdir`` (viewable in
-Perfetto or ``chrome://tracing``); :class:`RateCounter` tracks megapixels/s
-per pipeline stage; ``timed_stage`` combines a stopwatch with a device
-barrier so device work is actually measured (CUDA launches return before
-the card finishes).
+Perfetto or ``chrome://tracing``); ``materialize`` is the device barrier of
+a timed region (CUDA launches return before the card finishes).
+
+``span(name)`` names a step of the program. Off (no ``recording()`` open
+and no profiler running) it returns one shared no-op context: a flag check,
+one C call and one store, no allocation, no launch. Inside ``recording()``
+each span appends ``(item_id, parent_index, name, t0_ns, t1_ns)`` on
+``time.perf_counter_ns``'s clock to the recording's list: ``item_id``
+counts the outermost spans of the recording, ``parent_index`` is the
+enclosing span's index in the list (-1 for an outermost span). While a
+profiler runs, a span also enters ``torch.profiler.record_function`` (so it
+shows in a trace that records CPU activity) and is kept in the same form in
+``profiled_spans()``, the spans of the latest stretch of calls made under a
+profiler: a trace of CUDA activity alone holds no ``record_function``, and
+these let a reader map its runtime calls and kernels onto the program's
+steps. Recordings and profiled spans are per thread, as the profiler is;
+a span opened without a profiler, in any thread, ends the stretch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Dict
+from typing import List, Tuple
 
 import numpy as np
 import torch
-
-from visionworkbench_torch.core.stopwatch import stopwatch_set
 
 
 @contextlib.contextmanager
@@ -76,47 +88,129 @@ def materialize(tree):
     return _to_numpy(tree)
 
 
-class RateCounter:
-    """Megapixels/s per named stage (the analogue of the reference's
-    per-stage stopwatches + the Mp/s figures BASELINE.json asks for)."""
+Span = Tuple[int, int, str, int, int]     # (item_id, parent_index, name, t0_ns, t1_ns)
+
+
+class _NoSpan:
+    """The span when nothing records: enters and leaves doing nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_profiler_enabled = torch.autograd._profiler_enabled
+_open_recordings = 0                      # open recording() contexts, every thread
+_unprofiled = True                        # a span opened without a profiler since
+                                          # the profiled stretch began
+
+
+class _Local(threading.local):
+    """A thread's recordings and profiled spans."""
+    recordings: Tuple = ()
+    profiled = None
+
+
+_local = _Local()
+
+
+class _Sink:
+    """One list of spans: the spans, the indices of the open ones, and the
+    count of outermost spans so far."""
+    __slots__ = ("spans", "open", "items")
 
     def __init__(self):
-        self._pixels: Dict[str, float] = {}
-        self._seconds: Dict[str, float] = {}
+        self.spans: List = []
+        self.open: List[int] = []
+        self.items = 0
 
-    @contextlib.contextmanager
-    def stage(self, name: str, pixels: int):
-        sw = stopwatch_set().get(name)
-        sw.start()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            sw.stop()
-            self._pixels[name] = self._pixels.get(name, 0.0) + pixels
-            self._seconds[name] = self._seconds.get(name, 0.0) + dt
+    def enter(self, name: str, t0: int) -> int:
+        if not self.open:
+            self.items += 1
+        index = len(self.spans)
+        self.spans.append((self.items - 1, self.open[-1] if self.open else -1,
+                           name, t0, t0))
+        self.open.append(index)
+        return index
 
-    def rate(self, name: str) -> float:
-        """Mp/s for a stage."""
-        s = self._seconds.get(name, 0.0)
-        return (self._pixels.get(name, 0.0) / 1e6 / s) if s > 0 else 0.0
+    def exit(self, index: int, t1: int) -> None:
+        self.open.pop()
+        item, parent, name, t0, _ = self.spans[index]
+        self.spans[index] = (item, parent, name, t0, t1)
 
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self._pixels):
-            lines.append(f"{name}: {self.rate(name):.2f} Mp/s "
-                         f"({self._pixels[name] / 1e6:.2f} Mp in "
-                         f"{self._seconds[name]:.3f} s)")
-        return "\n".join(lines)
+
+def _sinks(profiling: bool) -> List[_Sink]:
+    """This thread's sinks: its open recordings, and while a profiler runs
+    its profiled spans (started anew when a span opens under a profiler
+    after one opened without it)."""
+    global _unprofiled
+    sinks = list(_local.recordings)
+    if profiling:
+        if _unprofiled or _local.profiled is None:
+            _local.profiled, _unprofiled = _Sink(), False
+        sinks.append(_local.profiled)
+    else:
+        _unprofiled = True
+    return sinks
+
+
+class _Span:
+    __slots__ = ("name", "rf", "marks")
+
+    def __init__(self, name: str):
+        self.name, self.rf, self.marks = name, None, ()
+
+    def __enter__(self):
+        profiling = _profiler_enabled()
+        if profiling:
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        sinks = _sinks(profiling)
+        t0 = time.perf_counter_ns()
+        self.marks = [(s, s.enter(self.name, t0)) for s in sinks]
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        for sink, index in self.marks:
+            sink.exit(index, t1)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context naming a step of the program (see the module's doc): the
+    shared no-op when nothing records."""
+    global _unprofiled
+    if not _open_recordings and not _profiler_enabled():
+        _unprofiled = True              # a later profiler starts a new stretch
+        return _NO_SPAN
+    return _Span(name)
 
 
 @contextlib.contextmanager
-def timed_stage(counter: RateCounter, name: str, pixels: int, result_holder: list):
-    """Time a stage that produces device tensors: append the output to
-    ``result_holder`` inside the block; it is materialized before the clock
-    stops."""
-    with counter.stage(name, pixels):
-        yield
-        if result_holder:
-            result_holder[-1] = materialize(result_holder[-1])
+def recording():
+    """Record this thread's spans for the block; yields the list they go
+    into (a span's entry is appended as it opens, its end set as it
+    closes)."""
+    global _open_recordings
+    sink, before = _Sink(), _local.recordings
+    _local.recordings = before + (sink,)
+    _open_recordings += 1
+    try:
+        yield sink.spans
+    finally:
+        _local.recordings = before
+        _open_recordings -= 1
+
+
+def profiled_spans() -> List[Span]:
+    """This thread's spans of the latest stretch of calls made while a
+    profiler ran (empty if none): a span still open reads t1 == t0."""
+    sink = _local.profiled
+    return list(sink.spans) if sink is not None else []

@@ -33,6 +33,14 @@ On the card every BM sweep runs the CUDA kernel of ``ops/sweep.py``, every
 SGM/MGM aggregation scan a CUDA kernel of ``ops/sgm_scan.py`` and every
 speckle pass the CUDA kernel of ``ops/speckle.py``; the rest is plain tensor
 work. With ``device="cpu"`` the same code runs the kernels' plain versions.
+
+Each call's steps are named by ``core/profiling.span`` (free when nothing
+records): ``pyramid_correlate`` around the call, ``crop`` (base crops, mean
+fill, masks), ``pyramid``, ``prefilter``, per level ``L<n>`` holding
+``L<n>.offsets``, ``L<n>.sweep`` or ``L<n>.sgm`` (``sgm_relative_search``'s
+own ``sgm.*`` steps inside), at level 0 with the L<->R check ``L0.rl`` and
+``L0.lr_check``, and ``L<n>.speckle`` (speckle pass, mask, blob filter); then
+``subpixel`` (the absolute offset and the subpixel step).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from visionworkbench_torch.core.device import as_tensor, resolve_device
+from visionworkbench_torch.core.profiling import span
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.edge import crop_extended
 from visionworkbench_torch.image.filters import generate_pyramid_smoothing_kernel
@@ -69,6 +78,31 @@ from visionworkbench_torch.stereo.subpixel_refine import bayes_em_subpixel
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+class _LevelSpans(NamedTuple):
+    """The span names of one pyramid level and its steps."""
+    level: str
+    offsets: str
+    sweep: str
+    sgm: str
+    rl: str
+    lr_check: str
+    speckle: str
+
+
+_LEVEL_SPANS = {}
+
+
+def _level_names(level: int) -> _LevelSpans:
+    """``L<level>`` and its steps' span names, made once a level, so that a
+    call with spans off allocates none."""
+    names = _LEVEL_SPANS.get(level)
+    if names is None:
+        names = _LEVEL_SPANS[level] = _LevelSpans(*(
+            f"L{level}{step}" for step in
+            ("", ".offsets", ".sweep", ".sgm", ".rl", ".lr_check", ".speckle")))
+    return names
 
 
 def max_pyramid_levels_for(width: int, height: int, kernel_size,
@@ -331,275 +365,288 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     (``stereo/cost_model.py``). ``blob_filter_area`` > 0 drops valid blobs
     smaller than it (scaled per level).
     """
-    _check_options(cost_type, census_window, prefilter_mode,
-                   stereo_algorithm, subpixel, engine)
-    dev = resolve_device(device)
-    left = as_tensor(left, torch.float32, dev)
-    right = as_tensor(right, torch.float32, dev)
-    h, w = left.shape
-    kw, kh = int(kernel_size[0]), int(kernel_size[1])
-    sgm_mode = stereo_algorithm != "bm"
-    if sgm_mode:
-        # the census support drives the pyramid padding in SGM mode
-        kw = kh = int(census_window)
-        sgm_cost = "ternary_census" if cost_type == "ternary_census" else "census"
-        sgm_p1, sgm_p2 = default_penalties(sgm_cost, census_window)
+    with span("pyramid_correlate"):
+        _check_options(cost_type, census_window, prefilter_mode,
+                       stereo_algorithm, subpixel, engine)
+        dev = resolve_device(device)
+        left = as_tensor(left, torch.float32, dev)
+        right = as_tensor(right, torch.float32, dev)
+        h, w = left.shape
+        kw, kh = int(kernel_size[0]), int(kernel_size[1])
+        sgm_mode = stereo_algorithm != "bm"
+        if sgm_mode:
+            # the census support drives the pyramid padding in SGM mode
+            kw = kh = int(census_window)
+            sgm_cost = "ternary_census" if cost_type == "ternary_census" else "census"
+            sgm_p1, sgm_p2 = default_penalties(sgm_cost, census_window)
 
-        def sgm_search(lbase_, mbase_, offsets_, sx_, sy_, last_, seeds=None,
-                       lmask_=None, ranges=(0, 0)):
-            sd, sv = (None, None) if seeds is None else seeds
-            return sgm_relative_search(
-                lbase_, mbase_, offsets_, int(tile_size), sx_, sy_,
-                int(census_window),
-                sgm_cost == "ternary_census", 2, sgm_p1, sgm_p2,
-                stereo_algorithm == "mgm", subpixel if last_ else "none",
-                seed_disp=sd, seed_valid=sv,
-                search_buffer=int(sgm_search_buffer), range_x=int(ranges[0]),
-                range_y=int(ranges[1]), lmask=lmask_)
-    if kw % 2 != 1 or kh % 2 != 1:
-        raise ArgumentErr("pyramid_correlate: kernel dimensions must be odd")
-    if search_region.width <= 0 or search_region.height <= 0:
-        raise ArgumentErr("pyramid_correlate: search region must be non-empty")
-    half_kw, half_kh = kw // 2, kh // 2
-    # NCC has no patch mode: its parabola re-evaluates absolute costs
-    use_patches = (subpixel == "parabola" and not sgm_mode
-                   and cost_type != CROSS_CORRELATION)
+            def sgm_search(lbase_, mbase_, offsets_, sx_, sy_, last_, seeds=None,
+                           lmask_=None, ranges=(0, 0)):
+                sd, sv = (None, None) if seeds is None else seeds
+                return sgm_relative_search(
+                    lbase_, mbase_, offsets_, int(tile_size), sx_, sy_,
+                    int(census_window),
+                    sgm_cost == "ternary_census", 2, sgm_p1, sgm_p2,
+                    stereo_algorithm == "mgm", subpixel if last_ else "none",
+                    seed_disp=sd, seed_valid=sv,
+                    search_buffer=int(sgm_search_buffer), range_x=int(ranges[0]),
+                    range_y=int(ranges[1]), lmask=lmask_)
+        if kw % 2 != 1 or kh % 2 != 1:
+            raise ArgumentErr("pyramid_correlate: kernel dimensions must be odd")
+        if search_region.width <= 0 or search_region.height <= 0:
+            raise ArgumentErr("pyramid_correlate: search region must be non-empty")
+        half_kw, half_kh = kw // 2, kh // 2
+        # NCC has no patch mode: its parabola re-evaluates absolute costs
+        use_patches = (subpixel == "parabola" and not sgm_mode
+                       and cost_type != CROSS_CORRELATION)
 
-    s_w, s_h = int(search_region.width), int(search_region.height)
-    smin_x, smin_y = int(search_region.min_x), int(search_region.min_y)
+        s_w, s_h = int(search_region.width), int(search_region.height)
+        smin_x, smin_y = int(search_region.min_x), int(search_region.min_y)
 
-    levels = max_pyramid_levels_for(w, h, (kw, kh), search_region,
-                                    max_pyramid_levels)
-    up = 1 << levels
-    off_x, off_y = half_kw * up, half_kh * up   # region_offset (CorrelationView.cc:89)
+        levels = max_pyramid_levels_for(w, h, (kw, kh), search_region,
+                                        max_pyramid_levels)
+        up = 1 << levels
+        off_x, off_y = half_kw * up, half_kh * up   # region_offset (CorrelationView.cc:89)
 
-    user_masks = left_mask is not None or right_mask is not None
-    left_mask = (torch.ones((h, w), dtype=torch.bool, device=dev)
-                 if left_mask is None else as_tensor(left_mask, torch.bool, dev))
-    right_mask = (torch.ones(right.shape, dtype=torch.bool, device=dev)
-                  if right_mask is None else as_tensor(right_mask, torch.bool, dev))
+        with span("crop"):
+            user_masks = left_mask is not None or right_mask is not None
+            left_mask = (torch.ones((h, w), dtype=torch.bool, device=dev)
+                         if left_mask is None else as_tensor(left_mask, torch.bool, dev))
+            right_mask = (torch.ones(right.shape, dtype=torch.bool, device=dev)
+                          if right_mask is None else as_tensor(right_mask, torch.bool, dev))
 
-    # ---- base-level regions (CorrelationView.cc:84-120) --------------------
-    # Padded so every pyramid level halves exactly; extra `up` margin keeps
-    # coarsest-level slices in bounds.
-    base_w = w + 2 * off_x
-    base_h = h + 2 * off_y
-    base_w += (-base_w) % up + up
-    base_h += (-base_h) % up + up
-    left_base = crop_extended(left, -off_x, -off_y, base_w, base_h)
-    rbase_w = base_w + s_w
-    rbase_h = base_h + s_h
-    right_base = crop_extended(right, -off_x + smin_x, -off_y + smin_y,
-                               rbase_w, rbase_h)
-    # Round the right base up to a multiple of `up` too, replicating the
-    # crop's own edge (not the image beyond it), as the JAX package does.
-    rbase_w += (-rbase_w) % up
-    rbase_h += (-rbase_h) % up
-    right_base = crop_extended(right_base, 0, 0, rbase_w, rbase_h)
+            # ---- base-level regions (CorrelationView.cc:84-120) ----------------
+            # Padded so every pyramid level halves exactly; extra `up` margin keeps
+            # coarsest-level slices in bounds.
+            base_w = w + 2 * off_x
+            base_h = h + 2 * off_y
+            base_w += (-base_w) % up + up
+            base_h += (-base_h) % up + up
+            left_base = crop_extended(left, -off_x, -off_y, base_w, base_h)
+            rbase_w = base_w + s_w
+            rbase_h = base_h + s_h
+            right_base = crop_extended(right, -off_x + smin_x, -off_y + smin_y,
+                                       rbase_w, rbase_h)
+            # Round the right base up to a multiple of `up` too, replicating the
+            # crop's own edge (not the image beyond it), as the JAX package does.
+            rbase_w += (-rbase_w) % up
+            rbase_h += (-rbase_h) % up
+            right_base = crop_extended(right_base, 0, 0, rbase_w, rbase_h)
 
-    if user_masks:
-        # Masks over the padded frames, replicate-extended like the
-        # reference (CorrelationView.cc:110-117), then the mean fill. The
-        # right frame is one short of rbase (max-exclusive search sizing).
-        left_base_mask = crop_extended(left_mask, -off_x, -off_y, base_w, base_h)
-        right_base_mask = crop_extended(right_mask, -off_x + smin_x,
-                                        -off_y + smin_y, rbase_w, rbase_h)
-        left_base = _mean_fill(left_base, left_base_mask,
-                               h + 2 * off_y, w + 2 * off_x)
-        right_base = _mean_fill(right_base, right_base_mask,
-                                h + 2 * off_y + s_h - 1, w + 2 * off_x + s_w - 1)
+            if user_masks:
+                # Masks over the padded frames, replicate-extended like the
+                # reference (CorrelationView.cc:110-117), then the mean fill. The
+                # right frame is one short of rbase (max-exclusive search sizing).
+                left_base_mask = crop_extended(left_mask, -off_x, -off_y, base_w, base_h)
+                right_base_mask = crop_extended(right_mask, -off_x + smin_x,
+                                                -off_y + smin_y, rbase_w, rbase_h)
+                left_base = _mean_fill(left_base, left_base_mask,
+                                       h + 2 * off_y, w + 2 * off_x)
+                right_base = _mean_fill(right_base, right_base_mask,
+                                        h + 2 * off_y + s_h - 1, w + 2 * off_x + s_w - 1)
 
-    # Output-frame masks (zero-extended, unpadded; CorrelationView.cc:195-199).
-    lmask0 = left_mask
-    rmask0 = crop_extended(right_mask, smin_x, smin_y, w + s_w, h + s_h,
-                           mode="zero")
+            # Output-frame masks (zero-extended, unpadded; CorrelationView.cc:195-199).
+            lmask0 = left_mask
+            rmask0 = crop_extended(right_mask, smin_x, smin_y, w + s_w, h + s_h,
+                                   mode="zero")
 
-    # ---- build pyramids ----------------------------------------------------
-    left_pyr, right_pyr = [left_base], [right_base]
-    lmask_pyr, rmask_pyr = [lmask0], [rmask0]
-    for _ in range(levels):
-        left_pyr.append(_blur_downsample(left_pyr[-1]))
-        right_pyr.append(_blur_downsample(right_pyr[-1]))
-        lmask_pyr.append(_mask_downsample(lmask_pyr[-1]))
-        rmask_pyr.append(_mask_downsample(rmask_pyr[-1]))
-    # every level of both pyramids, after the blur-downsample and the mean
-    # fill (JAX pyramid_correlation.py:530-531)
-    left_pyr = [prefilter_image(im, prefilter_mode, prefilter_width)
-                for im in left_pyr]
-    right_pyr = [prefilter_image(im, prefilter_mode, prefilter_width)
-                 for im in right_pyr]
+        with span("pyramid"):
+            # ---- build pyramids ------------------------------------------------
+            left_pyr, right_pyr = [left_base], [right_base]
+            lmask_pyr, rmask_pyr = [lmask0], [rmask0]
+            for _ in range(levels):
+                left_pyr.append(_blur_downsample(left_pyr[-1]))
+                right_pyr.append(_blur_downsample(right_pyr[-1]))
+                lmask_pyr.append(_mask_downsample(lmask_pyr[-1]))
+                rmask_pyr.append(_mask_downsample(rmask_pyr[-1]))
 
-    # Each level's search (max-exclusive: d_abs in [min, min+size)), capped
-    # up front by the time budget.
-    plan = level_searches(h, w, levels, (s_w, s_h), refine_window,
-                          int(sgm_search_buffer) if sgm_mode else None,
-                          corr_timeout, seconds_per_op,
-                          consistency_threshold >= 0, dev)
-    level_results = [] if keep_levels else None
-    dm: Optional[DisparityMap] = None
-    patches = None
-    t = int(tile_size)
-    for level, s_w_l, s_h_l, s_x_eff, s_y_eff in plan:
-        scaling = 1 << level
-        on_last = level == 0
-        out_h = -(-h // scaling)
-        out_w = -(-w // scaling)
-        region_off_x = off_x // scaling
-        region_off_y = off_y // scaling
-        nty, ntx = _cdiv(out_h, t), _cdiv(out_w, t)
+        with span("prefilter"):
+            # every level of both pyramids, after the blur-downsample and the mean
+            # fill (JAX pyramid_correlation.py:530-531)
+            left_pyr = [prefilter_image(im, prefilter_mode, prefilter_width)
+                        for im in left_pyr]
+            right_pyr = [prefilter_image(im, prefilter_mode, prefilter_width)
+                         for im in right_pyr]
 
-        if level == levels:
-            offsets = torch.zeros((nty, ntx, 2), dtype=torch.int32, device=dev)
-        else:
-            prior = disparity_upsample(dm)
-            pr_d = _pad_to(prior.disparity[:out_h, :out_w], nty * t, ntx * t)
-            pr_v = _pad_to(prior.valid[:out_h, :out_w], nty * t, ntx * t)
-            if sgm_mode:
-                # SGM refines +-sgm_search_buffer around the seed (ref
-                # SGM.h:113); BM uses the wider refine window
-                offsets = _tile_offsets_centered(
-                    pr_d, pr_v, t, int(sgm_search_buffer), s_w_l - s_x_eff,
-                    s_h_l - s_y_eff, value_bounds=(s_w_l, s_h_l))
-            else:
-                offsets = _tile_offsets(pr_d, pr_v, t, 2,
-                                        s_w_l - s_x_eff, s_h_l - s_y_eff)
+        # Each level's search (max-exclusive: d_abs in [min, min+size)), capped
+        # up front by the time budget.
+        plan = level_searches(h, w, levels, (s_w, s_h), refine_window,
+                              int(sgm_search_buffer) if sgm_mode else None,
+                              corr_timeout, seconds_per_op,
+                              consistency_threshold >= 0, dev)
+        level_results = [] if keep_levels else None
+        dm: Optional[DisparityMap] = None
+        patches = None
+        t = int(tile_size)
+        for level, s_w_l, s_h_l, s_x_eff, s_y_eff in plan:
+            names = _level_names(level)
+            with span(names.level):
+                scaling = 1 << level
+                on_last = level == 0
+                out_h = -(-h // scaling)
+                out_w = -(-w // scaling)
+                region_off_x = off_x // scaling
+                region_off_y = off_y // scaling
+                nty, ntx = _cdiv(out_h, t), _cdiv(out_w, t)
 
-        # Base (left) frame for tile extraction, origin at the unpadded
-        # region minus half the kernel; match frame: right pyramid, same origin.
-        ly0 = region_off_y - half_kh
-        lx0 = region_off_x - half_kw
-        lbh = nty * t + kh - 1
-        lbw = ntx * t + kw - 1
-        lbase = crop_extended(left_pyr[level], lx0, ly0, lbw, lbh)
-        mh = lbh + s_h_l - 1
-        mw = lbw + s_w_l - 1
+                with span(names.offsets):
+                    if level == levels:
+                        offsets = torch.zeros((nty, ntx, 2), dtype=torch.int32, device=dev)
+                    else:
+                        prior = disparity_upsample(dm)
+                        pr_d = _pad_to(prior.disparity[:out_h, :out_w], nty * t, ntx * t)
+                        pr_v = _pad_to(prior.valid[:out_h, :out_w], nty * t, ntx * t)
+                        if sgm_mode:
+                            # SGM refines +-sgm_search_buffer around the seed (ref
+                            # SGM.h:113); BM uses the wider refine window
+                            offsets = _tile_offsets_centered(
+                                pr_d, pr_v, t, int(sgm_search_buffer), s_w_l - s_x_eff,
+                                s_h_l - s_y_eff, value_bounds=(s_w_l, s_h_l))
+                        else:
+                            offsets = _tile_offsets(pr_d, pr_v, t, 2,
+                                                    s_w_l - s_x_eff, s_h_l - s_y_eff)
 
-        if on_last and use_patches:
-            # Match origin shifted (-1, -1), +2 per axis: every tile window
-            # also covers the ±1 disparity ring for the 3x3 patches.
-            mbase_p = crop_extended(right_pyr[level], lx0 - 1, ly0 - 1,
-                                    mw + 2, mh + 2)
-            disp, valid, patches = sweep(lbase, mbase_p, offsets, t, s_x_eff,
-                                         s_y_eff, kw, kh, cost_type,
-                                         want_patches=True,
-                                         census_window=census_window)
-            patches = tuple(patches[:, :out_h, :out_w].unbind(0))
-        else:
-            mbase = crop_extended(right_pyr[level], lx0, ly0, mw, mh)
-            if sgm_mode:
-                # per-pixel seeds from the (filtered, upsampled) previous
-                # level and the level's left mask: SGM invalidates internally
-                # (ref m_disp_bound_image / ZERO_SEARCH_AREA, SGM.h:180-198)
-                lm_lvl = _pad_to(lmask_pyr[level][:out_h, :out_w], nty * t, ntx * t)
-                seeds = None if level == levels else (pr_d.to(torch.float32), pr_v)
-                disp, valid = sgm_search(lbase, mbase, offsets, s_x_eff, s_y_eff,
-                                         on_last, seeds, lm_lvl, (s_w_l, s_h_l))
-            else:
-                disp, valid, _ = sweep(lbase, mbase, offsets, t, s_x_eff,
-                                       s_y_eff, kw, kh, cost_type,
-                                       want_patches=False,
-                                       census_window=census_window)
-        dm = DisparityMap(disp[:out_h, :out_w], valid[:out_h, :out_w])
+                with span(names.sgm if sgm_mode else names.sweep):
+                    # Base (left) frame for tile extraction, origin at the unpadded
+                    # region minus half the kernel; match frame: right pyramid, same origin.
+                    ly0 = region_off_y - half_kh
+                    lx0 = region_off_x - half_kw
+                    lbh = nty * t + kh - 1
+                    lbw = ntx * t + kw - 1
+                    lbase = crop_extended(left_pyr[level], lx0, ly0, lbw, lbh)
+                    mh = lbh + s_h_l - 1
+                    mw = lbw + s_w_l - 1
 
-        # L<->R consistency check at level 0 (CorrelationView.cc:653-695).
-        if on_last and consistency_threshold >= 0:
-            # RL search: base = right frame, match = left; RL offsets cover
-            # the negation of each tile's LR window.
-            rl_out_h = min(out_h + s_h, rmask_pyr[level].shape[0])
-            rl_out_w = min(out_w + s_w, rmask_pyr[level].shape[1])
-            rnty, rntx = _cdiv(rl_out_h, t), _cdiv(rl_out_w, t)
-            # Reuse LR tile offsets where available; edge tiles take 0.
-            off_rl_src = _pad_to(offsets, rnty, rntx)
-            eff = torch.tensor([s_x_eff - 1, s_y_eff - 1], dtype=torch.int32,
-                               device=dev)
-            rbh = rnty * t + kh - 1
-            rbw = rntx * t + kw - 1
-            rl_base = crop_extended(right_pyr[level], lx0, ly0, rbw, rbh)
-            # Match = left frame; a (S-1 + max_off) margin on top/left keeps
-            # every shifted offset non-negative.
-            margin_x = s_x_eff - 1 + (s_w_l - s_x_eff)
-            margin_y = s_y_eff - 1 + (s_h_l - s_y_eff)
-            lm_h = rbh + s_y_eff - 1 + margin_y
-            lm_w = rbw + s_x_eff - 1 + margin_x
-            rl_match = crop_extended(left_pyr[level], lx0 - margin_x,
-                                     ly0 - margin_y, lm_w, lm_h)
-            rl_origin = torch.tensor([margin_x, margin_y], dtype=torch.int32,
-                                     device=dev)
-            rl_offsets = (rl_origin - (off_rl_src + eff)).contiguous()
-            if sgm_mode:
-                rl_disp, rl_valid = sgm_search(rl_base, rl_match, rl_offsets,
-                                               s_x_eff, s_y_eff, on_last)
-            else:
-                rl_disp, rl_valid, _ = sweep(rl_base, rl_match, rl_offsets, t,
-                                             s_x_eff, s_y_eff, kw, kh,
-                                             cost_type, want_patches=False,
-                                             census_window=census_window)
-            rl_dm = DisparityMap((rl_disp - rl_origin)[:rl_out_h, :rl_out_w],
-                                 rl_valid[:rl_out_h, :rl_out_w])
-            dm = cross_corr_consistency_check(dm, rl_dm, consistency_threshold)
+                    if on_last and use_patches:
+                        # Match origin shifted (-1, -1), +2 per axis: every tile window
+                        # also covers the ±1 disparity ring for the 3x3 patches.
+                        mbase_p = crop_extended(right_pyr[level], lx0 - 1, ly0 - 1,
+                                                mw + 2, mh + 2)
+                        disp, valid, patches = sweep(lbase, mbase_p, offsets, t, s_x_eff,
+                                                     s_y_eff, kw, kh, cost_type,
+                                                     want_patches=True,
+                                                     census_window=census_window)
+                        patches = tuple(patches[:, :out_h, :out_w].unbind(0))
+                    else:
+                        mbase = crop_extended(right_pyr[level], lx0, ly0, mw, mh)
+                        if sgm_mode:
+                            # per-pixel seeds from the (filtered, upsampled) previous
+                            # level and the level's left mask: SGM invalidates internally
+                            # (ref m_disp_bound_image / ZERO_SEARCH_AREA, SGM.h:180-198)
+                            lm_lvl = _pad_to(lmask_pyr[level][:out_h, :out_w], nty * t, ntx * t)
+                            seeds = None if level == levels else (pr_d.to(torch.float32), pr_v)
+                            disp, valid = sgm_search(lbase, mbase, offsets, s_x_eff, s_y_eff,
+                                                     on_last, seeds, lm_lvl, (s_w_l, s_h_l))
+                        else:
+                            disp, valid, _ = sweep(lbase, mbase, offsets, t, s_x_eff,
+                                                   s_y_eff, kw, kh, cost_type,
+                                                   want_patches=False,
+                                                   census_window=census_window)
+                    dm = DisparityMap(disp[:out_h, :out_w], valid[:out_h, :out_w])
 
-        # Per-level speckle filtering (CorrelationView.cc:707-745), on the
-        # integer disparities of this level.
-        if filter_half_kernel > 0:
-            if not on_last:
-                dm = disparity_cleanup_using_thresh(dm, filter_half_kernel,
-                                                    filter_half_kernel, 3.0, 0.5,
-                                                    integer_disparities=True)
-            else:
-                dm = rm_outliers_using_thresh(dm, filter_half_kernel,
-                                              filter_half_kernel, 3.0, 0.5,
-                                              integer_disparities=True)
-            if on_last and not user_masks:
-                # No user masks at level 0: rmask0 is exactly the rectangle
-                # where the (smin-shifted, zero-extended) right crop covers
-                # real pixels, so the mask lookup is bounds arithmetic.
-                rh_o, rw_o = right.shape
-                ra, rb = max(0, -smin_y), min(h + s_h, rh_o - smin_y)
-                ca, cb = max(0, -smin_x), min(w + s_w, rw_o - smin_x)
-                iy = torch.arange(out_h, dtype=torch.int32, device=dev)[:, None]
-                ix = torch.arange(out_w, dtype=torch.int32, device=dev)[None, :]
-                ty = iy + dm.disparity[..., 1].to(torch.int32)
-                tx = ix + dm.disparity[..., 0].to(torch.int32)
-                ok = (ty >= ra) & (ty < rb) & (tx >= ca) & (tx < cb)
-                valid = dm.valid & ok
-                dm = DisparityMap(torch.where(valid[..., None], dm.disparity,
-                                              torch.zeros_like(dm.disparity)),
-                                  valid)
-            else:
-                dm = disparity_mask(dm, lmask_pyr[level][:out_h, :out_w],
-                                    rmask_pyr[level])
+                # L<->R consistency check at level 0 (CorrelationView.cc:653-695).
+                if on_last and consistency_threshold >= 0:
+                    with span(names.rl):
+                        # RL search: base = right frame, match = left; RL offsets cover
+                        # the negation of each tile's LR window.
+                        rl_out_h = min(out_h + s_h, rmask_pyr[level].shape[0])
+                        rl_out_w = min(out_w + s_w, rmask_pyr[level].shape[1])
+                        rnty, rntx = _cdiv(rl_out_h, t), _cdiv(rl_out_w, t)
+                        # Reuse LR tile offsets where available; edge tiles take 0.
+                        off_rl_src = _pad_to(offsets, rnty, rntx)
+                        eff = torch.tensor([s_x_eff - 1, s_y_eff - 1], dtype=torch.int32,
+                                           device=dev)
+                        rbh = rnty * t + kh - 1
+                        rbw = rntx * t + kw - 1
+                        rl_base = crop_extended(right_pyr[level], lx0, ly0, rbw, rbh)
+                        # Match = left frame; a (S-1 + max_off) margin on top/left keeps
+                        # every shifted offset non-negative.
+                        margin_x = s_x_eff - 1 + (s_w_l - s_x_eff)
+                        margin_y = s_y_eff - 1 + (s_h_l - s_y_eff)
+                        lm_h = rbh + s_y_eff - 1 + margin_y
+                        lm_w = rbw + s_x_eff - 1 + margin_x
+                        rl_match = crop_extended(left_pyr[level], lx0 - margin_x,
+                                                 ly0 - margin_y, lm_w, lm_h)
+                        rl_origin = torch.tensor([margin_x, margin_y], dtype=torch.int32,
+                                                 device=dev)
+                        rl_offsets = (rl_origin - (off_rl_src + eff)).contiguous()
+                        if sgm_mode:
+                            rl_disp, rl_valid = sgm_search(rl_base, rl_match, rl_offsets,
+                                                           s_x_eff, s_y_eff, on_last)
+                        else:
+                            rl_disp, rl_valid, _ = sweep(rl_base, rl_match, rl_offsets, t,
+                                                         s_x_eff, s_y_eff, kw, kh,
+                                                         cost_type, want_patches=False,
+                                                         census_window=census_window)
+                        rl_dm = DisparityMap((rl_disp - rl_origin)[:rl_out_h, :rl_out_w],
+                                             rl_valid[:rl_out_h, :rl_out_w])
+                    with span(names.lr_check):
+                        dm = cross_corr_consistency_check(dm, rl_dm, consistency_threshold)
 
-        # Isolated-blob removal, the area scaled by the level (ref
-        # disparity_blob_filter, CorrelationView.cc:241-280).
-        if blob_filter_area > 0 and blob_filter_area // scaling >= 1:
-            keep = remove_small_blobs(dm.valid, blob_filter_area // scaling)
-            dm = DisparityMap(torch.where(keep[..., None], dm.disparity,
-                                          torch.zeros_like(dm.disparity)), keep)
+                with span(names.speckle):
+                    # Per-level speckle filtering (CorrelationView.cc:707-745), on the
+                    # integer disparities of this level.
+                    if filter_half_kernel > 0:
+                        if not on_last:
+                            dm = disparity_cleanup_using_thresh(dm, filter_half_kernel,
+                                                                filter_half_kernel, 3.0, 0.5,
+                                                                integer_disparities=True)
+                        else:
+                            dm = rm_outliers_using_thresh(dm, filter_half_kernel,
+                                                          filter_half_kernel, 3.0, 0.5,
+                                                          integer_disparities=True)
+                        if on_last and not user_masks:
+                            # No user masks at level 0: rmask0 is exactly the rectangle
+                            # where the (smin-shifted, zero-extended) right crop covers
+                            # real pixels, so the mask lookup is bounds arithmetic.
+                            rh_o, rw_o = right.shape
+                            ra, rb = max(0, -smin_y), min(h + s_h, rh_o - smin_y)
+                            ca, cb = max(0, -smin_x), min(w + s_w, rw_o - smin_x)
+                            iy = torch.arange(out_h, dtype=torch.int32, device=dev)[:, None]
+                            ix = torch.arange(out_w, dtype=torch.int32, device=dev)[None, :]
+                            ty = iy + dm.disparity[..., 1].to(torch.int32)
+                            tx = ix + dm.disparity[..., 0].to(torch.int32)
+                            ok = (ty >= ra) & (ty < rb) & (tx >= ca) & (tx < cb)
+                            valid = dm.valid & ok
+                            dm = DisparityMap(torch.where(valid[..., None], dm.disparity,
+                                                          torch.zeros_like(dm.disparity)),
+                                              valid)
+                        else:
+                            dm = disparity_mask(dm, lmask_pyr[level][:out_h, :out_w],
+                                                rmask_pyr[level])
+
+                    # Isolated-blob removal, the area scaled by the level (ref
+                    # disparity_blob_filter, CorrelationView.cc:241-280).
+                    if blob_filter_area > 0 and blob_filter_area // scaling >= 1:
+                        keep = remove_small_blobs(dm.valid, blob_filter_area // scaling)
+                        dm = DisparityMap(torch.where(keep[..., None], dm.disparity,
+                                                      torch.zeros_like(dm.disparity)), keep)
+                if keep_levels:
+                    level_results.append(dm)
+
+        with span("subpixel"):
+            # Absolute disparities (CorrelationView.cc: final offset add).
+            smin = torch.tensor([smin_x, smin_y], dtype=dm.disparity.dtype, device=dev)
+            final = DisparityMap(torch.where(dm.valid[..., None], dm.disparity + smin,
+                                             torch.zeros_like(dm.disparity)),
+                                 dm.valid)
+            # (SGM applied its subpixel mode inside the last level)
+            if use_patches:
+                final = DisparityMap(_fit_parabola(patches, final.disparity, final.valid),
+                                     final.valid)
+            elif subpixel == "parabola" and not sgm_mode:
+                final = parabola_subpixel(final, left, right, (kw, kh), prefilter_mode,
+                                          prefilter_width)
+            elif subpixel in ("affine", "em"):   # BM only (not an SGM mode)
+                # The JAX package's production setting (its
+                # pyramid_correlation.py:771-790): the integer correlator seeds every
+                # pixel within ~0.5 px, so 3 outer iterations at full resolution,
+                # no refiner pyramid.
+                final = bayes_em_subpixel(final, left, right, (kw, kh),
+                                          em_iters=2 if subpixel == "em" else 0,
+                                          prefilter_mode=prefilter_mode,
+                                          prefilter_width=prefilter_width,
+                                          max_pyramid_levels=0, outer_iters=3)
         if keep_levels:
-            level_results.append(dm)
-
-    # Absolute disparities (CorrelationView.cc: final offset add).
-    smin = torch.tensor([smin_x, smin_y], dtype=dm.disparity.dtype, device=dev)
-    final = DisparityMap(torch.where(dm.valid[..., None], dm.disparity + smin,
-                                     torch.zeros_like(dm.disparity)),
-                         dm.valid)
-    # (SGM applied its subpixel mode inside the last level)
-    if use_patches:
-        final = DisparityMap(_fit_parabola(patches, final.disparity, final.valid),
-                             final.valid)
-    elif subpixel == "parabola" and not sgm_mode:
-        final = parabola_subpixel(final, left, right, (kw, kh), prefilter_mode,
-                                  prefilter_width)
-    elif subpixel in ("affine", "em"):   # BM only (not an SGM mode)
-        # The JAX package's production setting (its
-        # pyramid_correlation.py:771-790): the integer correlator seeds every
-        # pixel within ~0.5 px, so 3 outer iterations at full resolution,
-        # no refiner pyramid.
-        final = bayes_em_subpixel(final, left, right, (kw, kh),
-                                  em_iters=2 if subpixel == "em" else 0,
-                                  prefilter_mode=prefilter_mode,
-                                  prefilter_width=prefilter_width,
-                                  max_pyramid_levels=0, outer_iters=3)
-    if keep_levels:
-        return PyramidCorrResult(final, level_results)
-    return final
+            return PyramidCorrResult(final, level_results)
+        return final

@@ -42,6 +42,7 @@ import torch
 
 from visionworkbench_torch.core.device import as_tensor, resolve_device
 from visionworkbench_torch.core.exceptions import ArgumentErr
+from visionworkbench_torch.core.profiling import span
 from visionworkbench_torch.image.census import (
     census_transform, hamming_distance, ternary_census_transform,
 )
@@ -506,51 +507,58 @@ def sgm_relative_search(lbase, mbase, offsets, tile: int, rx: int, ry: int,
     ``seed_valid`` ((H, W, 2) / (H, W)): per-pixel previous-level seeds that
     bound each pixel's candidates to ``seed +- search_buffer``; pixels
     masked by ``lmask`` come back invalid (ZERO_SEARCH_AREA). Returns (disp
-    (H, W, 2) float32, absolute in the level frame; valid (H, W) bool)."""
+    (H, W, 2) float32, absolute in the level frame; valid (H, W) bool).
+    Its steps are the spans ``sgm.census`` (quantization and codes),
+    ``sgm.volume`` (cost volume, seed bounds, mask), ``sgm.scans`` and
+    ``sgm.wta`` (winner and subpixel)."""
     nty, ntx = int(offsets.shape[0]), int(offsets.shape[1])
     out_h, out_w = nty * tile, ntx * tile
     cw2 = window // 2
     bad = _bad_val(p2)
     dev = lbase.device
-    # one shared monotone quantization, in the JAX package's op order
-    lo = torch.minimum(lbase.min(), mbase.min())
-    hi = torch.maximum(lbase.max(), mbase.max())
-    span = torch.clamp(hi - lo, min=1e-9)
-    scale = torch.full_like(span, 255.0) / span      # the IEEE quotient
-    lq = torch.clamp((lbase - lo) * scale, 0, 255).to(torch.int32)
-    mq = torch.clamp((mbase - lo) * scale, 0, 255).to(torch.int32)
-    lc = _census(lq, window, ternary, thresh)[cw2:cw2 + out_h, cw2:cw2 + out_w]
-    rc = _census(mq, window, ternary, thresh)
-    img = lq[cw2:cw2 + out_h, cw2:cw2 + out_w].to(torch.float32)
+    with span("sgm.census"):
+        # one shared monotone quantization, in the JAX package's op order
+        lo = torch.minimum(lbase.min(), mbase.min())
+        hi = torch.maximum(lbase.max(), mbase.max())
+        extent = torch.clamp(hi - lo, min=1e-9)
+        scale = torch.full_like(extent, 255.0) / extent      # the IEEE quotient
+        lq = torch.clamp((lbase - lo) * scale, 0, 255).to(torch.int32)
+        mq = torch.clamp((mbase - lo) * scale, 0, 255).to(torch.int32)
+        lc = _census(lq, window, ternary, thresh)[cw2:cw2 + out_h, cw2:cw2 + out_w]
+        rc = _census(mq, window, ternary, thresh)
+        img = lq[cw2:cw2 + out_h, cw2:cw2 + out_w].to(torch.float32)
 
-    # Per-tile match windows, starts clamped into the code frame.
-    wh, ww = tile + ry - 1, tile + rx - 1
-    off = offsets.long()
-    ty0 = torch.arange(nty, device=dev) * tile
-    tx0 = torch.arange(ntx, device=dev) * tile
-    y0 = (ty0[:, None] + cw2 + off[..., 1]).clamp(0, rc.shape[0] - wh)
-    x0 = (tx0[None, :] + cw2 + off[..., 0]).clamp(0, rc.shape[1] - ww)
-    win = rc[y0[..., None, None] + torch.arange(wh, device=dev)[:, None],
-             x0[..., None, None] + torch.arange(ww, device=dev)[None, :]]
-    lt = lc.reshape(nty, tile, ntx, tile, -1).transpose(1, 2)   # (nty, ntx, t, t, nw)
-    cost = torch.stack([
-        torch.stack([hamming_distance(lt, win[:, :, j:j + tile, i:i + tile])
-                     .to(torch.float32) for i in range(rx)], -1)
-        for j in range(ry)], -2)                                # (nty, ntx, t, t, ry, rx)
-    cost = cost.transpose(1, 2).reshape(out_h, out_w, ry, rx)
-    base = (offsets.to(torch.int32).repeat_interleave(tile, 0)
-            .repeat_interleave(tile, 1))                        # (H, W, 2)
+    with span("sgm.volume"):
+        # Per-tile match windows, starts clamped into the code frame.
+        wh, ww = tile + ry - 1, tile + rx - 1
+        off = offsets.long()
+        ty0 = torch.arange(nty, device=dev) * tile
+        tx0 = torch.arange(ntx, device=dev) * tile
+        y0 = (ty0[:, None] + cw2 + off[..., 1]).clamp(0, rc.shape[0] - wh)
+        x0 = (tx0[None, :] + cw2 + off[..., 0]).clamp(0, rc.shape[1] - ww)
+        win = rc[y0[..., None, None] + torch.arange(wh, device=dev)[:, None],
+                 x0[..., None, None] + torch.arange(ww, device=dev)[None, :]]
+        lt = lc.reshape(nty, tile, ntx, tile, -1).transpose(1, 2)   # (nty, ntx, t, t, nw)
+        cost = torch.stack([
+            torch.stack([hamming_distance(lt, win[:, :, j:j + tile, i:i + tile])
+                         .to(torch.float32) for i in range(rx)], -1)
+            for j in range(ry)], -2)                                # (nty, ntx, t, t, ry, rx)
+        cost = cost.transpose(1, 2).reshape(out_h, out_w, ry, rx)
+        base = (offsets.to(torch.int32).repeat_interleave(tile, 0)
+                .repeat_interleave(tile, 1))                        # (H, W, 2)
 
-    if seed_disp is not None:
-        cost = _apply_pixel_bounds(cost, base, seed_disp, seed_valid,
-                                   search_buffer, range_x, range_y, bad)
-    cost = _mask_cost_volume(cost, lmask, bad)
-    acc = _aggregate(cost, img, p1, p2, bad, use_mgm)
-    rel, _ = _volume_argmin_subpixel(acc, subpixel, bad)
-    valid = (torch.ones((out_h, out_w), dtype=torch.bool, device=dev)
-             if lmask is None else lmask.bool())
-    disp = rel + base.to(torch.float32)
-    return torch.where(valid[..., None], disp, torch.zeros_like(disp)), valid
+        if seed_disp is not None:
+            cost = _apply_pixel_bounds(cost, base, seed_disp, seed_valid,
+                                       search_buffer, range_x, range_y, bad)
+        cost = _mask_cost_volume(cost, lmask, bad)
+    with span("sgm.scans"):
+        acc = _aggregate(cost, img, p1, p2, bad, use_mgm)
+    with span("sgm.wta"):
+        rel, _ = _volume_argmin_subpixel(acc, subpixel, bad)
+        valid = (torch.ones((out_h, out_w), dtype=torch.bool, device=dev)
+                 if lmask is None else lmask.bool())
+        disp = rel + base.to(torch.float32)
+        return torch.where(valid[..., None], disp, torch.zeros_like(disp)), valid
 
 
 def default_penalties(cost_type: str, window: int, p1=None, p2=None):
