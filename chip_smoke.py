@@ -10,7 +10,9 @@ Phases (each raises on a mismatch; none catches its own failure):
    wrappers can select, of the path-line SGM kernel, of the MGM cluster
    kernel -- every cell count and mode -- or of the
    sweep's band kernels -- abs/sq/NCC and census, 1 and 2 words, every K --
-   or of the speckle stencil -- every rows-a-pass instance -- spills), and
+   or of the speckle stencil -- every rows-a-pass instance -- or of the
+   winner-take-all step -- its register instances for 4-32 cells and its
+   wide variant -- spills), and
    print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it: the sweep and speckle on inputs quantized
@@ -47,9 +49,16 @@ Phases (each raises on a mismatch; none catches its own failure):
    the one-level 64x2 search on 64x512 on ``csrc/mgm_cluster_scan.cu``,
    both at config 6's level 0 on 1024^2 (1024 lanes) on the register-carry
    kernel over a cluster of blocks (the launch counts show which kernel
-   ran).
+   ran). The winner-take-all step (``csrc/sgm_wta.cu``, one launch a call)
+   equals its plain version word for word in every subpixel mode, on
+   tie-rich and on distinct integer costs with absent candidates, at
+   asp-mgm's level 0 (1536^2, 3 x 5), config 6's levels and
+   ``calc_disparity_sgm``'s 64x8 search (the wide variant), and on every
+   volume that config 6's MGM frame and ``calc_disparity_sgm(use_mgm=True)``
+   hand it.
 3. Run the main paths, each with the launch counts set to 0 just before it
-   and read just after: ``pyramid_correlate`` at the configuration of
+   and read just after (the winner-take-all step once a level of an SGM or
+   MGM pyramid, once a ``calc_disparity_sgm``): ``pyramid_correlate`` at the configuration of
    ``bench.py`` (1024^2 pair, 64x8 search, 15x15 kernel, 4 levels, tile 64,
    parabola), again with the L<->R check, then the repo's SGM configuration
    (``tools_bench_configs.py`` config 6: 512^2 pair, 64x2 search, census
@@ -160,7 +169,8 @@ Phases (each raises on a mismatch; none catches its own failure):
    each abs, NCC and
    census sweep shape on its band kernel in turns with ``sweep_kernel<cost,
    words>``, between events and as device time; each speckle case, also as
-   device time), and profile one frame of each path, ``calc_disparity_sgm``'s
+   device time; the winner-take-all step at each of ``WTA_CASES``, against
+   its plain version and its byte bound), and profile one frame of each path, ``calc_disparity_sgm``'s
    too, for the device's idle share and its device time by kernel name (the
    three sweep kernels apart), ``calc_disparity_sgm(use_mgm=True)``'s and
    the 1024^2 MGM frame's too; the CLI frame and its parabola variant
@@ -388,6 +398,13 @@ SGM_BAD = 255.0 + SGM_P2
 # calc_disparity_sgm as docs/stereo.md calls it: a 64x8 search volume.
 CALC_HW = 256
 CALC_SEARCH = (64, 8)
+# The winner-take-all step's main-path volumes (H, W, sy, sx): asp-mgm's
+# level 0 (a 1536^2 tile, 3 x 5 cells: the register variant's 16-cell
+# instance), config 6's level 0 (2 x 5) and a coarse level (1 x 5), and
+# calc_disparity_sgm's 64x8 search (512 cells: the wide variant).
+WTA_CASES = (("mgm_level0_1536", (1536, 1536, 3, 5)), ("level0", (SGM_HW, SGM_HW, 2, 5)),
+             ("level1", (SGM_HW // 2, SGM_HW // 2, 1, 5)),
+             ("calc_64x8", (CALC_HW, CALC_HW, CALC_SEARCH[1], CALC_SEARCH[0])))
 
 # Config 4 (tools_bench_configs.py:166-182): the bench frame with census
 # 5x5 costs. Config 3 and its census/NCC variants (tools_bench_configs.py:
@@ -652,6 +669,14 @@ def phase_build():
                 if set(band) != want or bad:
                     raise SystemExit(f"sweep: band kernel instances {sorted(band)} "
                                      f"(want {sorted(want)}), spilling: {bad}")
+            if name == "sgm_wta":
+                inst = {("wide" if "sgm_wta_wide_kernel" in fn else int(m[1])): v
+                        for fn, v in table.items()
+                        if "sgm_wta_wide_kernel" in fn
+                        or (m := re.search(r"sgm_wta_kernelILi(\d+)E", fn))}
+                bad = [k for k, v in inst.items() if v["spill"]]
+                if set(inst) != {4, 8, 16, 32, "wide"} or bad:
+                    raise SystemExit(f"sgm_wta: instances {list(inst)}, spilling: {bad}")
             if name == "speckle":
                 rows = {int(m[1]): v for fn, v in table.items()
                         if (m := re.search(r"speckle_kernelILi(\d+)E", fn))}
@@ -893,6 +918,48 @@ def _speckle_input(case, dev, seed):
     return _pack_code(disp, valid)
 
 
+def _wta_volume(shape, dev, seed, ties):
+    """An (H, W, sy, sx) accumulated volume on ``dev`` of integer costs:
+    three levels 40 apart where ``ties`` (most pixels' minima repeat, some
+    through all six cascade iterations), else 100-8999 (mostly unique);
+    absent candidates (8 * SGM_BAD) at 8 % of the cells and along the
+    first column and the last row of a tenth of the pixels' grids, one
+    pixel all absent."""
+    import torch
+    from visionworkbench_torch.ops import sgm_wta
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = shape[:2]
+    lo, hi, step = (0, 3, 40.0) if ties else (100, 9000, 1.0)
+    vol = 300.0 * ties + step * torch.randint(lo, hi, shape, generator=g, device=dev,
+                                              dtype=torch.float32)
+    absent = sgm_wta.N_PATHS * SGM_BAD
+    vol[torch.rand(shape, generator=g, device=dev) < 0.08] = absent
+    edge = torch.rand((h, w), generator=g, device=dev) < 0.1
+    vol[edge, :, 0] = absent
+    vol[edge, -1, :] = absent
+    vol[0, 0] = absent
+    return vol
+
+
+def _wta_check(acc, mode, bad, what, err):
+    """The wrapper (one launch) against the plain version on the card: the
+    float32 words of winners and both offsets equal."""
+    import torch
+    from visionworkbench_torch.ops import sgm_wta
+    before = sgm_wta.launches
+    got = sgm_wta.volume_argmin_subpixel(acc, mode, bad)
+    ran = sgm_wta.launches - before
+    ref = sgm_wta.volume_argmin_subpixel_plain(acc, mode, bad)
+    torch.cuda.synchronize()
+    words = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    e = float((got.double() - ref.double()).abs().max())
+    err["sgm_wta"] = max(err["sgm_wta"], e)
+    if ran != 1 or words:
+        raise SystemExit(f"sgm_wta {what}: {ran} launches, {words} float32 words differ "
+                         f"from the plain version (max_abs_err {e})")
+    return got
+
+
 def scan_cases():
     """The SGM/MGM scans' shapes on config 6's main path: the level-0
     (512^2, window 5x2) x-scan (3 directions), y-scan and MGM scans, the
@@ -1068,7 +1135,7 @@ def phase_kernels(dev):
                             "tiled_search", "speckle", "scan_bidir",
                             "scan_bidir_path_scan", "mgm_bidir", "mgm_fwd",
                             "mgm_bidir_cluster", "mgm_fwd_cluster",
-                            "mgm_bidir_lane_cluster", "mgm_fwd_lane_cluster")}
+                            "mgm_bidir_lane_cluster", "mgm_fwd_lane_cluster", "sgm_wta")}
 
     def check(key, what, got, ref):
         torch.cuda.synchronize()
@@ -1186,7 +1253,44 @@ def phase_kernels(dev):
             if e != 0.0:
                 raise SystemExit(f"{c['kernel']} {c['name']}: {which} disagrees with "
                                  f"{_old_kernel(c)}")
+    _wta_kernels(dev, err)
     return err
+
+
+def _wta_kernels(dev, err):
+    """sgm_wta's kernel against its plain version, bit for bit: every mode
+    at each of ``WTA_CASES`` on tie-rich and on distinct costs; then every
+    volume that config 6's MGM frame and ``calc_disparity_sgm(use_mgm=True)``
+    hand the step (the wrapper called through a spy)."""
+    import torch
+    from visionworkbench_torch.ops import sgm_wta
+    from visionworkbench_torch.stereo import sgm
+    for i, (name, shape) in enumerate(WTA_CASES):
+        for ties in (True, False):
+            acc = _wta_volume(shape, dev, 600 + 2 * i + ties, ties)
+            for mode in sgm_wta._MODES:
+                got = _wta_check(acc, mode, SGM_BAD, f"{name} {shape} {mode}", err)
+            print(f"[kernels] sgm_wta {name} {shape} ({'tie-rich' if ties else 'distinct'} "
+                  f"costs): every mode equal to the plain version; lc_blend dx mean "
+                  f"{float(got[..., 0].mean()):.4f}")
+            del acc
+    seen = []
+
+    def spy(acc, subpixel, bad):
+        out = _wta_check(acc, subpixel, bad, f"main path {tuple(acc.shape)}", err)
+        seen.append(tuple(acc.shape))
+        return out
+    real = sgm.volume_argmin_subpixel
+    sgm.volume_argmin_subpixel = spy
+    try:
+        _sgm_run(*_make_pair(SGM_HW, SGM_HW), dev, "mgm")
+        _calc_run(*_make_calc_pair(CALC_HW, CALC_HW), dev, use_mgm=True)
+    finally:
+        sgm.volume_argmin_subpixel = real
+    print(f"[kernels] sgm_wta main-path volumes (MGM frame, calc_disparity_sgm MGM), "
+          f"each equal to the plain version: {seen}")
+    if len(seen) != LEVELS + 2 or seen[-1][2:] != (CALC_SEARCH[1], CALC_SEARCH[0]):
+        raise SystemExit(f"sgm_wta: the spy saw {seen}")
 
 
 # ---- phase 3 ----------------------------------------------------------------
@@ -1347,8 +1451,9 @@ def _cli_em_run(paths, dev, folder):
 
 
 def _reset_counts():
-    from visionworkbench_torch.ops import sgm_scan, speckle, sweep
+    from visionworkbench_torch.ops import sgm_scan, sgm_wta, speckle, sweep
     sweep.launches = 0
+    sgm_wta.launches = 0
     sweep.band_launches = 0
     sweep.census_band_launches = 0
     speckle.launches = 0
@@ -1364,11 +1469,11 @@ def _read_counts():
     launches of the register-carry kernel, of the path-line kernel and of
     the cluster kernel; ``sweep/band`` and
     ``sweep/census_band``: the sweep's launches of band_sweep_kernel and of
-    band_census_kernel."""
-    from visionworkbench_torch.ops import sgm_scan, speckle, sweep
+    band_census_kernel; ``sgm_wta``: the winner-take-all step's."""
+    from visionworkbench_torch.ops import sgm_scan, sgm_wta, speckle, sweep
     return {"sweep": sweep.launches, "sweep/band": sweep.band_launches,
             "sweep/census_band": sweep.census_band_launches,
-            "speckle": speckle.launches, **sgm_scan.launches,
+            "speckle": speckle.launches, "sgm_wta": sgm_wta.launches, **sgm_scan.launches,
             **{f"{k}/mgm_scan": v for k, v in sgm_scan.mgm_scan_launches.items()},
             **{f"{k}/path_scan": v for k, v in sgm_scan.path_scan_launches.items()},
             **{f"{k}/cluster_scan": v for k, v in sgm_scan.cluster_scan_launches.items()}}
@@ -1440,7 +1545,7 @@ def phase_main(dev):
     none = {"sweep": 0, "sweep/band": 0, "sweep/census_band": 0, "scan_bidir": 0,
             "mgm_bidir": 0, "mgm_fwd": 0, "scan_bidir/mgm_scan": 0, "mgm_bidir/mgm_scan": 0,
             "mgm_fwd/mgm_scan": 0, "scan_bidir/path_scan": 0, "mgm_bidir/cluster_scan": 0,
-            "mgm_fwd/cluster_scan": 0}
+            "mgm_fwd/cluster_scan": 0, "sgm_wta": 0}
     # abs and NCC sweeps all on band_sweep_kernel, census on
     # band_census_kernel
     c3 = {"sweep": 1, "speckle": 0}
@@ -1460,23 +1565,24 @@ def phase_main(dev):
             ("consistency", lambda: _bench_run(left, right, dev, consistency_threshold=2.0),
              {"sweep": 6, "sweep/band": 6}, H),
             ("sgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "sgm"),
-             {"scan_bidir": 10, "scan_bidir/mgm_scan": 10}, SGM_HW),
+             {"scan_bidir": 10, "scan_bidir/mgm_scan": 10, "sgm_wta": 5}, SGM_HW),
             ("mgm", lambda: _sgm_run(sgm_left, sgm_right, dev, "mgm"),
              {"mgm_fwd": 5, "mgm_bidir": 10, "mgm_fwd/mgm_scan": 5,
-              "mgm_bidir/mgm_scan": 10}, SGM_HW),
+              "mgm_bidir/mgm_scan": 10, "sgm_wta": 5}, SGM_HW),
             # 512 cells a lane: both scans on the path-line kernel, none on
             # line_scan_kernel<0>
             ("calc_sgm", lambda: _calc_run(calc_left, calc_right, dev),
-             {"scan_bidir": 2, "scan_bidir/path_scan": 2, "speckle": 0}, CALC_HW),
+             {"scan_bidir": 2, "scan_bidir/path_scan": 2, "speckle": 0, "sgm_wta": 1},
+             CALC_HW),
             # 512 cells a lane: the three MGM scans on the cluster kernel
             ("calc_mgm", lambda: _calc_run(calc_left, calc_right, dev, use_mgm=True),
              {"mgm_bidir": 2, "mgm_fwd": 1, "mgm_bidir/cluster_scan": 2,
-              "mgm_fwd/cluster_scan": 1, "speckle": 0}, CALC_HW),
+              "mgm_fwd/cluster_scan": 1, "speckle": 0, "sgm_wta": 1}, CALC_HW),
             # config 6's MGM pyramid at 1024^2: level 0 (1024 lanes) on the
             # cluster kernel, levels 1-4 on the register-carry kernel
             ("mgm_1024", lambda: _sgm_run(left, right, dev, "mgm"),
              {"mgm_fwd": 5, "mgm_bidir": 10, "mgm_fwd/mgm_scan": 4, "mgm_bidir/mgm_scan": 8,
-              "mgm_fwd/cluster_scan": 1, "mgm_bidir/cluster_scan": 2}, H),
+              "mgm_fwd/cluster_scan": 1, "mgm_bidir/cluster_scan": 2, "sgm_wta": 5}, H),
             ("config4", lambda: _bench_run(left, right, dev, cost_type="census",
                                            census_window=CENSUS_WINDOW),
              {"sweep": 5, "sweep/census_band": 5}, H),
@@ -2706,6 +2812,7 @@ def phase_timings(dev):
                   f"wrapper's: {variant[2]} x {variant[3]} blocks): " + ", ".join(
                       f"{g}: {t[0]:.4f} / {t[1]:.4f}" for g, t in ts.items()) + " ms")
         rows[(c["kernel"], c["name"])] = r
+    _time_wta(dev, rows)
     for (k, name), r in rows.items():
         extra = ""
         if "us_per_step" in r:
@@ -2724,10 +2831,35 @@ def phase_timings(dev):
         elif "device_ms" in r:
             extra += (", device " + ("not measured" if r["device_ms"] is None
                                      else f"{r['device_ms']:.4f} ms"))
+        if k == "sgm_wta":
+            extra += (f" (tie-rich costs, parabola); distinct costs {r['distinct_ms']:.4f} ms, "
+                      f"mode none {r['none_ms']:.4f} ms")
         print(f"[time] {k} {name}: {r['ms']:.4f} ms per launch, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}){extra}")
     return frame, rows
+
+
+def _time_wta(dev, rows):
+    """sgm_wta at each of ``WTA_CASES``: the parabola on tie-rich costs
+    (between events and as device time) against the plain version, the
+    parabola on distinct costs and mode none; the bound is the bytes (the
+    volume read once, 8 bytes a pixel written) over the card's bandwidth."""
+    from visionworkbench_torch.ops import sgm_wta
+    for i, (name, shape) in enumerate(WTA_CASES):
+        vols = {ties: _wta_volume(shape, dev, 700 + 2 * i + ties, ties) for ties in (True, False)}
+
+        def run(ties=True, mode="parabola"):
+            return sgm_wta.volume_argmin_subpixel(vols[ties], mode, SGM_BAD)
+        ms = _time_ms(run, reps=20)
+        plain_ms = _time_ms(lambda: sgm_wta.volume_argmin_subpixel_plain(
+            vols[True], "parabola", SGM_BAD), reps=3, warmup=1)
+        r = _row(ms, plain_ms, 4 * vols[True].numel() + 8 * shape[0] * shape[1], 0)
+        r["device_ms"] = _device_ms(run, match=lambda key: "sgm_wta" in key)
+        r["distinct_ms"] = _time_ms(lambda: run(False), reps=20)
+        r["none_ms"] = _time_ms(lambda: run(True, "none"), reps=20)
+        rows[("sgm_wta", name)] = r
+        del vols
 
 
 def _time_cli(lt, rt, dev, frame):
@@ -3320,7 +3452,8 @@ def phase_parallel(dev, smi):
     _maps_equal(card, _hier_run(ml, mr, cpu_mesh, **masked), f"hier_masked {n}^2, card vs CPU")
     # 3. SGM and MGM at config 6: card = CPU
     sl, sr = _make_pair(SGM_HW, SGM_HW)
-    for algo, keys in (("sgm", ("scan_bidir",)), ("mgm", ("mgm_bidir", "mgm_fwd"))):
+    for algo, keys in (("sgm", ("scan_bidir", "sgm_wta")),
+                       ("mgm", ("mgm_bidir", "mgm_fwd", "sgm_wta"))):
         card = counted(f"hier_{algo}", lambda: _hier_sgm_run(sl, sr, mesh, algo))
         _launched(counts[f"hier_{algo}"], f"parallel hier_{algo}", "speckle", *keys)
         _maps_equal(card, _hier_sgm_run(sl, sr, cpu_mesh, algo),
@@ -5031,6 +5164,8 @@ def main() -> int:
         "mgm_fwd_lane_cluster": ("level0_sheared_1024", "mgm_1024",
                                  "visionworkbench_torch/csrc/mgm_scan.cu",
                                  "visionworkbench_tpu/ops/sgm_scan.py:272"),
+        # the JAX package runs this step as tensor work: no TPU kernel
+        "sgm_wta": ("mgm_level0_1536", "mgm", "visionworkbench_torch/csrc/sgm_wta.cu", None),
     }
     kernels = []
     for k, (shape, run, source, replaces) in table.items():
@@ -5057,7 +5192,8 @@ def main() -> int:
               "scan_bidir": ("hier_sgm", "scan_bidir/mgm_scan"),
               "mgm_bidir": ("hier_mgm", "mgm_bidir/mgm_scan"),
               "mgm_fwd": ("hier_mgm", "mgm_fwd/mgm_scan"),
-              "best_of_search": ("disp_search", "sweep")}.get(k)
+              "best_of_search": ("disp_search", "sweep"),
+              "sgm_wta": ("hier_mgm", "sgm_wta")}.get(k)
         # launches of the correlator step of stereo-dem-1024 (phase 8) and of
         # opticalbar-dem-1024 and bathy-dem-1024 (phase 9)
         sd = {"sweep": "sweep/band", "speckle": "speckle"}.get(k)
@@ -5066,6 +5202,7 @@ def main() -> int:
             "launches": launches,
             **({"config7_launches": counts["config7_em"][c7]} if c7 else {}),
             **({"cli_match_launches": counts["cli_match"][cm]} if cm else {}),
+            **({"calc_launches": counts["calc_mgm"]["sgm_wta"]} if k == "sgm_wta" else {}),
             **({"parallel_run": pk[0], "parallel_launches": par_counts[pk[0]][pk[1]]}
                if pk else {}),
             **({"stereo_dem_launches": dem_launches.get(sd, 0),
@@ -5076,7 +5213,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
             **{x: r[x] for x in ("us_per_step", "line_scan_ms", "device_ms",
                                  "sweep_kernel_ms", "sweep_kernel_device_ms", "lines_ms",
-                                 "lanes_ms")
+                                 "lanes_ms", "distinct_ms", "none_ms")
                if x in r}})
     print(json.dumps({"frame_ms": frame["plain"]["ms"],
                       "frame_mps": frame["plain"]["mps"],

@@ -183,10 +183,10 @@ def test_kernel_build_runs_once_or_raises(monkeypatch, tmp_path, fail):
     libs = _build.build()
     assert set(libs) == set(_build.SOURCES) == {"sweep", "speckle", "sgm_scan",
                                                   "mgm_scan", "sgm_path_scan",
-                                                  "mgm_cluster_scan"}
+                                                  "mgm_cluster_scan", "sgm_wta"}
     assert all(p.exists() for p in libs.values())
     assert _build.build() == libs
-    assert len(calls.read_text().splitlines()) == 6     # one nvcc per source
+    assert len(calls.read_text().splitlines()) == 7     # one nvcc per source
 
 
 def test_launch_error_code_raises():

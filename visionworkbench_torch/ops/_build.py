@@ -5,7 +5,8 @@ with ctypes. The build runs at first use into ``visionworkbench_torch/_build``
 an edited source is rebuilt. A missing nvcc or a failed build raises; there
 is no fallback.
 
-``build()`` starts one nvcc per source, all together, and waits for all.
+``build()`` starts one nvcc per source, all together, and waits for all;
+``load()`` builds a source together with its ``COMPANIONS``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sweep", "speckle", "sgm_scan", "mgm_scan", "sgm_path_scan",
-           "mgm_cluster_scan")
+           "mgm_cluster_scan", "sgm_wta")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 # The limits of csrc/mgm_scan.cu's register-carry instances (SGM and MGM),
@@ -68,6 +69,11 @@ DEFINES = {"mgm_scan": (f"-DVW_MGM_MAX_CELLS={MGM_MAX_CELLS}",
                      f"-DVW_SWEEP_BAND_K0={SWEEP_BAND_K[0]}",
                      f"-DVW_SWEEP_BAND_K1={SWEEP_BAND_K[1]}",
                      f"-DVW_SWEEP_BAND_MAX_THREADS={SWEEP_BAND_MAX_THREADS}")}
+# The sources built beside a source at its first load, in parallel with it:
+# every SGM/MGM scan is followed by the winner-take-all step, so the first
+# scan's build also builds csrc/sgm_wta.cu and its first call finds it built.
+COMPANIONS = {n: ("sgm_wta",) for n in ("sgm_scan", "mgm_scan", "sgm_path_scan",
+                                         "mgm_cluster_scan")}
 
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -129,10 +135,11 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed (with
+    its ``COMPANIONS``)."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        lib = ctypes.CDLL(str(build([name, *COMPANIONS.get(name, ())])[name]))
         _loaded[name] = lib
     return lib
 

@@ -17,12 +17,13 @@ The reference semantics of the JAX package, kept here:
 * WTA with the reference's multiple-minimum smoothing cascade and the
   subpixel modes none/parabola/linear/poly4/cosine/lc_blend.
 
-The scans run in ``ops/sgm_scan.py``: the CUDA kernels for tensors on the
-card, their plain versions on the CPU. Everything else is plain tensor
-work. All arithmetic is integer-valued fp32 below 2^24, so the port's
-integer winners equal the JAX package's exactly; the subpixel fits agree to
-fp32 rounding. The parabola fit runs in float64, as the C++ reference's
-does, where the JAX package fits in fp32 (see ``_parabola_2d``).
+The scans run in ``ops/sgm_scan.py`` and the WTA with the subpixel step in
+``ops/sgm_wta.py``: the CUDA kernels for tensors on the card, their plain
+versions on the CPU. Everything else is plain tensor work. All arithmetic
+is integer-valued fp32 below 2^24, so the port's integer winners equal the
+JAX package's exactly; the subpixel fits agree to fp32 rounding. The
+parabola fit runs in float64, as the C++ reference's does, where the JAX
+package fits in fp32 (see ``ops/sgm_wta.py:_parabola_2d``).
 
 Only the reference-semantics branch is ported: the JAX package's A/B knobs
 (``VWTPU_SGM_EXACT_TIES``, ``VWTPU_SGM_ITER_COND``, ``VWTPU_SGM_TIE_STATS``,
@@ -34,10 +35,8 @@ no device-to-host sync is needed.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
-import numpy as np
 import torch
 
 from visionworkbench_torch.core.device import as_tensor, resolve_device
@@ -48,9 +47,8 @@ from visionworkbench_torch.image.census import (
 )
 from visionworkbench_torch.image.edge import crop_extended
 from visionworkbench_torch.ops.sgm_scan import mgm_bidir, mgm_fwd, scan_bidir
+from visionworkbench_torch.ops.sgm_wta import volume_argmin_subpixel
 from visionworkbench_torch.stereo.correlation import DisparityMap
-
-_INF = 3e38
 
 # Default penalties by (cost, census kernel size) (ref SGM.cc:104-160).
 _P1_TABLE = {("census", 3): 3, ("census", 5): 15, ("census", 7): 30,
@@ -64,24 +62,10 @@ _P2_TABLE = {("census", 3): 70, ("census", 5): 750, ("census", 7): 1500,
 
 SUBPIXEL_MODES = ("none", "parabola", "linear", "poly4", "cosine", "lc_blend")
 
-N_PATHS = 8  # both SGM and MGM accumulate 8 directional results
-
 
 def _bad_val(p2: float) -> float:
     """``get_bad_accum_val`` = CostType max + P2 (ref SGM.h:240)."""
     return 255.0 + float(p2)
-
-
-# Pseudoinverse of the 9-point quadratic design matrix (rows [x^2 y^2 xy x y 1]
-# at (x, y) in [-1,1]^2, x fastest) — ref ParabolaFit2d, SGMAssist.h:86-94.
-_PINV_A_SGM = np.array([
-    [1/6, -1/3, 1/6, 1/6, -1/3, 1/6, 1/6, -1/3, 1/6],    # a
-    [1/6, 1/6, 1/6, -1/3, -1/3, -1/3, 1/6, 1/6, 1/6],    # b
-    [1/4, 0.0, -1/4, 0.0, 0.0, 0.0, -1/4, 0.0, 1/4],     # c
-    [-1/6, 0.0, 1/6, -1/6, 0.0, 1/6, -1/6, 0.0, 1/6],    # d
-    [-1/6, -1/6, -1/6, 0.0, 0.0, 0.0, 1/6, 1/6, 1/6],    # e
-    [-1/9, 2/9, -1/9, 2/9, 5/9, 2/9, -1/9, 2/9, -1/9],   # f
-], dtype=np.float32)
 
 
 def _census(img, window: int, ternary: bool, thresh: int):
@@ -255,175 +239,6 @@ def _mgm_aggregate(cost, img, p1: float, p2: float, bad: float):
     return total + out.permute(3, 0, 1, 2)
 
 
-# ---------------------------------------------------------------------------
-# WTA + subpixel (ref create_disparity_view / _subpixel, SGM.cc:1159-1614)
-# ---------------------------------------------------------------------------
-
-
-def _subpixel_1d(sm1, s0, sp1, mode: str, left_bound, right_bound):
-    """1D subpixel offset from three accumulated costs, in the reference's
-    order (``compute_subpixel_offset``, SGM.cc:1445-1479): inputs already
-    bound-collapsed; the all-equal zero case takes precedence over the
-    two-value bound interpolation (SGM.cc:1440-1443)."""
-    one = torch.ones_like(s0)
-    ld = sm1 - s0
-    rd = sp1 - s0
-    both_zero = (ld == 0) & (rd == 0)
-    use_pos = ld < rd
-    x = torch.where(use_pos, ld / torch.where(rd == 0, one, rd),
-                    rd / torch.where(ld == 0, one, ld))
-    mult = torch.where(use_pos, one, -one)
-    linear = 0.5 * x
-    if mode == "linear":
-        value = linear
-    elif mode == "poly4":
-        value = (x * x * x * x + x) * 0.25
-    elif mode == "cosine":
-        value = 1.0 - torch.cos(x * (math.pi / 3.0))
-    elif mode == "lc_blend":
-        factor = 1.195 - torch.cos(x * (math.pi / 2.3))
-        cosv = 1.0 - torch.cos(x * (math.pi / 3.0))
-        value = cosv * factor + linear * (1.0 - factor)
-    else:
-        raise ArgumentErr(f"_subpixel_1d: unknown 1D mode {mode!r}")
-    ratio_off = (value - 0.5) * mult
-    two_left = 0.5 * s0 / torch.where(sp1 == 0, one, sp1)
-    two_right = -0.5 * s0 / torch.where(sm1 == 0, one, sm1)
-    off = torch.where(left_bound, two_left,
-                      torch.where(right_bound, two_right, ratio_off))
-    return torch.where(both_zero, torch.zeros_like(off), off)
-
-
-def _parabola_2d(z):
-    """The reference SGM parabola: 9-point quadratic fit, erf squashing and
-    norm clamp at 0.5; |denom| < 0.01 keeps the integer disparity
-    (``ParabolaFit2d::find_peak``, SGMAssist.h:97-135). ``z`` (H, W, 9), dx
-    fastest. A deliberate departure from the JAX package, which fits in
-    fp32 (an einsum): the port fits in float64, as the C++ reference's
-    ``ParabolaFit2d`` does (its offsets pass through float32 before the
-    erf). The fit cancels large terms, so fp32 sums carry noise of ~1e-5 px
-    whose sign depends on the summation order, while float64 gives the same
-    offsets on the CPU and on the card; the two packages agree within the
-    2e-5 px subpixel tolerance."""
-    pinv = torch.as_tensor(_PINV_A_SGM, device=z.device).to(torch.float64)
-    v = z.to(torch.float64) @ pinv.T
-    a, b, c, d, e = v.unbind(-1)[:5]
-    denom = 4.0 * a * b - c * c
-    ok = denom.abs() >= 0.01
-    safe = torch.where(ok, denom, torch.ones_like(denom))
-    ox = ((c * e - 2.0 * b * d) / safe).to(torch.float32).to(torch.float64)
-    oy = ((c * d - 2.0 * a * e) / safe).to(torch.float32).to(torch.float64)
-    ox = torch.erf(ox / (0.34574 * math.sqrt(2.0))) / 2.0
-    oy = torch.erf(oy / (0.38944 * math.sqrt(2.0))) / 2.0
-    norm = torch.hypot(ox, oy)
-    scale = torch.where(norm >= 0.5, norm / 0.5, torch.ones_like(norm))
-    zero = torch.zeros_like(ox)
-    return (torch.where(ok, ox / scale, zero).to(torch.float32),
-            torch.where(ok, oy / scale, zero).to(torch.float32))
-
-
-def _sh3(x, d: int, axis: int):
-    """Shift by ``d`` (+-1) along ``axis`` with zero fill."""
-    z = torch.zeros_like(x.narrow(axis, 0, 1))
-    n = x.shape[axis]
-    if d > 0:
-        return torch.cat([z, x.narrow(axis, 0, n - d)], axis)
-    return torch.cat([x.narrow(axis, -d, n + d), z], axis)
-
-
-def _masked_mean3(v, allowed_f, inv_cnt, axis: int):
-    """One ``select_best_disparity`` smoothing iteration (SGM.cc:1223-1268):
-    3-tap box mean along ``axis`` with out-of-rectangle taps dropped,
-    rounded half away from zero (``floor(x + 0.5)``, exact here), through
-    the precomputed reciprocal tap count as the JAX package does."""
-    va = v * allowed_f
-    s = va + _sh3(va, 1, axis) + _sh3(va, -1, axis)
-    out = torch.floor(s * inv_cnt + 0.5)
-    return torch.where(allowed_f > 0, out, v)
-
-
-def _wta_stats(v, allowed):
-    """(min, multiplicity, first argmin) over the flattened (sy*sx) axis."""
-    h, w = v.shape[:2]
-    vm = torch.where(allowed, v, torch.full_like(v, _INF)).reshape(h, w, -1)
-    mn = vm.amin(-1)
-    eq = vm == mn[..., None]
-    cnt = eq.sum(-1, dtype=torch.int32)
-    ids = torch.arange(vm.shape[-1], dtype=torch.int32, device=v.device)
-    arg = torch.where(eq, ids, torch.full_like(ids, 2 ** 30)).amin(-1)
-    return mn, cnt, arg
-
-
-def _tie_smooth_select(acc, allowed):
-    """``select_best_disparity`` (SGM.cc:1159-1284): where a pixel's minimum
-    accumulated cost is not unique, smooth its bounds rectangle with 3-tap
-    box filters (5 horizontal iterations, then 1 vertical) until the minimum
-    is unique or 6 iterations pass; the smoothed values replace the volume
-    that the subpixel step reads. ``acc`` (H, W, sy, sx). Returns (selected
-    volume, first-argmin flat index (H, W) int32).
-
-    The cascade always runs: pixels whose minimum is unique are frozen at
-    iteration 0, which gives the result of the JAX package's ``lax.cond``
-    without a device-to-host sync."""
-    af = allowed.to(acc.dtype)
-    _, cnt0, arg0 = _wta_stats(acc, allowed)
-    inv = {ax: 1.0 / torch.clamp(af + _sh3(af, 1, ax) + _sh3(af, -1, ax),
-                                 min=1.0)
-           for ax in (2, 3)}
-    v, sel, argsel, done = acc, acc, arg0, cnt0 <= 1
-    for k in range(1, 7):
-        ax = 3 if k <= 5 else 2
-        v = _masked_mean3(v, af, inv[ax], ax)
-        _, cnt_k, arg_k = _wta_stats(v, allowed)
-        upd = ~done
-        sel = torch.where(upd[..., None, None], v, sel)
-        argsel = torch.where(upd, arg_k, argsel)
-        done = done | (cnt_k <= 1)
-    return sel, argsel
-
-
-def _volume_argmin_subpixel(acc, subpixel: str, bad: float):
-    """WTA argmin over the aggregated volume (H, W, sy, sx) + subpixel (ref
-    ``create_disparity_view`` + ``create_disparity_view_subpixel``,
-    SGM.cc:1286-1614). Bound flags come from the volume edge or an absent
-    (== N_PATHS * bad) neighbour; at bounds the neighbour collapses onto the
-    center. Returns ((H, W, 2) float32 (dx, dy), flat (H, W, sy*sx))."""
-    h, w, sy, sx = acc.shape
-    bad_total = N_PATHS * bad
-    allowed = acc < bad_total - 0.5
-    acc, best = _tie_smooth_select(acc, allowed)
-    flat = acc.reshape(h, w, sy * sx)
-    dx = best % sx
-    dy = best // sx
-    disp = torch.stack([dx, dy], -1)
-    if subpixel == "none":
-        return disp.to(torch.float32), flat
-    # the 3x3 neighbourhood of each winner in the edge-extended volume,
-    # z[0..8] with dx fastest (z[4] = center)
-    idx = [(dy + jy).clamp(0, sy - 1) * sx + (dx + jx).clamp(0, sx - 1)
-           for jy in (-1, 0, 1) for jx in (-1, 0, 1)]
-    z = list(flat.gather(-1, torch.stack(idx, -1).long()).unbind(-1))
-    absent = [t >= bad_total - 0.5 for t in z]
-    left_b = (dx == 0) | absent[3]
-    right_b = (dx == sx - 1) | absent[5]
-    top_b = (dy == 0) | absent[1]
-    bot_b = (dy == sy - 1) | absent[7]
-    for k in (0, 3, 6):
-        z[k] = torch.where(left_b, z[k + 1], z[k])
-    for k in (2, 5, 8):
-        z[k] = torch.where(right_b, z[k - 1], z[k])
-    for k in (0, 1, 2):
-        z[k] = torch.where(top_b, z[k + 3], z[k])
-    for k in (6, 7, 8):
-        z[k] = torch.where(bot_b, z[k - 3], z[k])
-    if subpixel == "parabola":
-        off_x, off_y = _parabola_2d(torch.stack(z, -1))
-    else:
-        off_x = _subpixel_1d(z[3], z[4], z[5], subpixel, left_b, right_b)
-        off_y = _subpixel_1d(z[1], z[4], z[7], subpixel, top_b, bot_b)
-    return disp.to(torch.float32) + torch.stack([off_x, off_y], -1), flat
-
-
 def _apply_pixel_bounds(cost, base, seed_disp, seed_valid, buffer: int,
                         range_x: int, range_y: int, bad: float):
     """Per-pixel disparity bounds (ref ``m_disp_bound_image``, SGM.h:180-198,
@@ -482,10 +297,10 @@ def _sgm_core(left_u8, right_u8, sx: int, sy: int, window: int, ternary: bool,
                                    search_buffer, sx, sy, bad)
     cost = _mask_cost_volume(cost, lmask, bad)
     acc = _aggregate(cost, left_u8.to(torch.float32), p1, p2, bad, use_mgm)
-    fdisp, flat = _volume_argmin_subpixel(acc, subpixel, bad)
+    fdisp = volume_argmin_subpixel(acc, subpixel, bad)
     valid = (torch.ones((h, w), dtype=torch.bool, device=cost.device)
              if lmask is None else lmask.bool())
-    return torch.where(valid[..., None], fdisp, torch.zeros_like(fdisp)), valid, flat
+    return torch.where(valid[..., None], fdisp, torch.zeros_like(fdisp)), valid
 
 
 def sgm_relative_search(lbase, mbase, offsets, tile: int, rx: int, ry: int,
@@ -554,7 +369,7 @@ def sgm_relative_search(lbase, mbase, offsets, tile: int, rx: int, ry: int,
     with span("sgm.scans"):
         acc = _aggregate(cost, img, p1, p2, bad, use_mgm)
     with span("sgm.wta"):
-        rel, _ = _volume_argmin_subpixel(acc, subpixel, bad)
+        rel = volume_argmin_subpixel(acc, subpixel, bad)
         valid = (torch.ones((out_h, out_w), dtype=torch.bool, device=dev)
                  if lmask is None else lmask.bool())
         disp = rel + base.to(torch.float32)
@@ -630,7 +445,7 @@ def calc_disparity_sgm(left, right, search_volume, kernel_size: int = 5,
     core = (sx, sy, int(kernel_size), ternary, int(ternary_census_threshold),
             p1v, p2v, bool(use_mgm), subpixel)
     if n_bands == 1:
-        disp, valid, _ = _sgm_core(lq, rq, *core, seed_disp, seed_valid,
+        disp, valid = _sgm_core(lq, rq, *core, seed_disp, seed_valid,
                                    int(search_buffer), lmask)
     else:
         ov = int(band_overlap)
@@ -658,7 +473,7 @@ def calc_disparity_sgm(left, right, search_volume, kernel_size: int = 5,
             def bslice(a):
                 return None if a is None else a[rows]
 
-            d, v, _ = _sgm_core(lq_e[rows], rq_e[b * bh:b * bh + bh + 2 * ov + sy - 1],
+            d, v = _sgm_core(lq_e[rows], rq_e[b * bh:b * bh + bh + 2 * ov + sy - 1],
                                 *core, bslice(sd_e), bslice(sv_e),
                                 int(search_buffer), bslice(lm_e))
             parts.append(d[ov:ov + bh])
@@ -704,7 +519,7 @@ def sgm_reference_region(left_u8, right_u8, search_volume, kernel_size: int = 5,
         vol = torch.where(allowed, vol, torch.full_like(vol, bad))
     img = lq[min_row:max_row + 1, min_col:max_col + 1].to(torch.float32)
     acc = _aggregate(vol, img, p1v, p2v, bad, use_mgm)
-    fdisp, _ = _volume_argmin_subpixel(acc, subpixel, bad)
+    fdisp = volume_argmin_subpixel(acc, subpixel, bad)
     if allowed is not None:
         valid = allowed.reshape(fdisp.shape[0], fdisp.shape[1], -1).any(-1)
     else:

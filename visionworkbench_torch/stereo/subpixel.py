@@ -17,26 +17,16 @@ locally constant over the window (one gather of the right image), with
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from visionworkbench_torch.core.device import as_tensor
 from visionworkbench_torch.core.exceptions import ArgumentErr
 from visionworkbench_torch.image.edge import edge_extend
 from visionworkbench_torch.ops.box_filter import box_sum_same
+from visionworkbench_torch.ops.sgm_wta import PINV_A as _PINV_A
 from visionworkbench_torch.stereo.correlation import DisparityMap
 from visionworkbench_torch.stereo.prefilter import PREFILTER_NONE, prefilter_image
 
-# Pseudoinverse of A where rows of A are [x^2 y^2 xy x y 1] at the nine
-# (x, y) in [-1,1]^2, x fastest (ref ParabolaSubpixelView.h:83-88).
-_PINV_A = np.array([
-    [1/6, -1/3, 1/6, 1/6, -1/3, 1/6, 1/6, -1/3, 1/6],    # a
-    [1/6, 1/6, 1/6, -1/3, -1/3, -1/3, 1/6, 1/6, 1/6],    # b
-    [1/4, 0.0, -1/4, 0.0, 0.0, 0.0, -1/4, 0.0, 1/4],     # c
-    [-1/6, 0.0, 1/6, -1/6, 0.0, 1/6, -1/6, 0.0, 1/6],    # d
-    [-1/6, -1/6, -1/6, 0.0, 0.0, 0.0, 1/6, 1/6, 1/6],    # e
-    [-1/9, 2/9, -1/9, 2/9, 5/9, 2/9, -1/9, 2/9, -1/9],   # f
-], dtype=np.float32)
 
 MAX_SUBPIXEL_SHIFT = 5.0
 
