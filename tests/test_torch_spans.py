@@ -1,8 +1,9 @@
 """The port's step spans (``visionworkbench_torch/core/profiling.span``) on
 the CPU: the shared no-op when nothing records, the nesting of a
-recording, the span tree ``pyramid_correlate`` records in BM and MGM mode
-(outputs bit-identical with recording on and off), the spans a profiler
-keeps, and the span in the Chrome trace of ``profiling.trace``."""
+recording, the span tree ``pyramid_correlate`` records in BM, MGM and
+Bayes-EM mode (outputs bit-identical with recording on and off), the spans
+a profiler keeps, and the span in the Chrome trace of
+``profiling.trace``."""
 
 import json
 import os
@@ -26,7 +27,14 @@ SETTINGS = {
                      subpixel="parabola", tile_size=16),
     "mgm": dict(stereo_algorithm="mgm", cost_type="ternary_census", census_window=5,
                 consistency_threshold=2, subpixel="parabola", tile_size=16),
+    # ASP's subpixel-mode 2: the Bayes-EM refiner over its own window
+    "em": dict(cost_type="ncc", prefilter_mode="log", kernel_size=(7, 7),
+               consistency_threshold=2, subpixel="em", subpixel_kernel=(9, 9),
+               tile_size=16),
 }
+# the refiner's steps inside ``subpixel``: the prefiltered frames, then its
+# one full-resolution level's derivatives, weights, warp, 3 outer iterations
+EM_STEPS = ["em.inputs", "em.inputs", "em.weights", "em.warp"] + ["em.iter"] * 3 + ["em.finish"]
 
 
 def _pair(seed=0, h=96, w=128):
@@ -60,7 +68,7 @@ def _expected(mode, levels):
             tree += [(3, s) for s in sgm] if mode == "mgm" else []
             tree.append((2, "L0.lr_check"))
         tree.append((2, f"L{n}.speckle"))
-    return tree + [(1, "subpixel")]
+    return tree + [(1, "subpixel")] + ([(2, e) for e in EM_STEPS] if mode == "em" else [])
 
 
 def test_span_is_the_shared_noop_when_nothing_records():

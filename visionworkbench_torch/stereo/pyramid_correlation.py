@@ -40,12 +40,14 @@ fill, masks), ``pyramid``, ``prefilter``, per level ``L<n>`` holding
 ``L<n>.offsets``, ``L<n>.sweep`` or ``L<n>.sgm`` (``sgm_relative_search``'s
 own ``sgm.*`` steps inside), at level 0 with the L<->R check ``L0.rl`` and
 ``L0.lr_check``, and ``L<n>.speckle`` (speckle pass, mask, blob filter); then
-``subpixel`` (the absolute offset and the subpixel step).
+``subpixel`` (the absolute offset and the subpixel step; the affine and
+Bayes-EM refiner's ``em.*`` steps inside).
 """
 
 from __future__ import annotations
 
 import math
+import numbers
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -261,6 +263,19 @@ def _check_options(cost_type, census_window, prefilter_mode,
                           "on the CPU); pass engine='auto'")
 
 
+def _check_subpixel_kernel(subpixel_kernel) -> Optional[Tuple[int, int]]:
+    """``subpixel_kernel`` as a (width, height) pair of ints; raise unless
+    it is None or two odd positive sizes."""
+    if subpixel_kernel is None:
+        return None
+    sizes = tuple(subpixel_kernel) if isinstance(subpixel_kernel, (tuple, list)) else ()
+    if len(sizes) != 2 or not all(isinstance(k, numbers.Integral) and k > 0 and k % 2
+                                  for k in sizes):
+        raise ArgumentErr(f"pyramid_correlate: subpixel_kernel {subpixel_kernel!r} "
+                          "must be two odd positive sizes (width, height)")
+    return int(sizes[0]), int(sizes[1])
+
+
 class PyramidCorrResult(NamedTuple):
     """``pyramid_correlate(..., keep_levels=True)``: the final map and each
     level's map (coarsest first; relative disparities, before the search
@@ -335,7 +350,8 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                       corr_timeout: float = 0.0,
                       seconds_per_op: Optional[float] = None,
                       keep_levels: bool = False,
-                      device=None):
+                      device=None,
+                      subpixel_kernel: Optional[Tuple[int, int]] = None):
     """Full coarse-to-fine correlator (ref ``PyramidCorrelationView``,
     CorrelationView.cc:273-886), with the JAX package's signature plus
     ``device`` (``None`` = the card; raises when there is none).
@@ -354,7 +370,9 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     and subpixel ``none``, ``parabola``, ``affine`` (the weighted affine
     Gauss-Newton refiner) or ``em`` (the Bayes-EM refiner, the reference's
     quality mode; both ``stereo/subpixel_refine.py`` at full resolution, 3
-    outer iterations), or ``'sgm'``/``'mgm'`` (ref
+    outer iterations, over a ``subpixel_kernel`` window, ASP's
+    ``subpixel-kernel``: ``None`` for ``kernel_size``; odd and positive;
+    the other modes ignore it), or ``'sgm'``/``'mgm'`` (ref
     ``CorrelationAlgorithm``, CorrelationView.h:45) with census costs of
     ``census_window`` (``cost_type='ternary_census'`` for ternary), any SGM
     subpixel mode applied inside the last level, and
@@ -368,6 +386,7 @@ def pyramid_correlate(left, right, search_region: BBox2i,
     with span("pyramid_correlate"):
         _check_options(cost_type, census_window, prefilter_mode,
                        stereo_algorithm, subpixel, engine)
+        subpixel_kernel = _check_subpixel_kernel(subpixel_kernel)
         dev = resolve_device(device)
         left = as_tensor(left, torch.float32, dev)
         right = as_tensor(right, torch.float32, dev)
@@ -642,7 +661,7 @@ def pyramid_correlate(left, right, search_region: BBox2i,
                 # pyramid_correlation.py:771-790): the integer correlator seeds every
                 # pixel within ~0.5 px, so 3 outer iterations at full resolution,
                 # no refiner pyramid.
-                final = bayes_em_subpixel(final, left, right, (kw, kh),
+                final = bayes_em_subpixel(final, left, right, subpixel_kernel or (kw, kh),
                                           em_iters=2 if subpixel == "em" else 0,
                                           prefilter_mode=prefilter_mode,
                                           prefilter_width=prefilter_width,

@@ -17,10 +17,20 @@ tensors on the device, and square roots and reciprocals are the correctly
 rounded ones (``stereo/correlation.py``), so the CPU path follows the JAX
 package's IEEE arithmetic; ``exp`` and the order of the tap sums are the
 backend's own.
+
+Each call of the affine / Bayes-EM refiner names its steps with
+``core/profiling.span`` (free when nothing records): ``em.inputs`` (the
+prefiltered frames, the refiner pyramid, the derivatives and padded
+stacks), ``em.weights`` (the window-weight normalisation), ``em.warp`` (the
+integer warp of the right frame and the start state), one ``em.iter`` an
+outer iteration, and ``em.finish`` (the final invalidation; between refiner
+levels, the feed-forward). ``em_calls`` and ``em_outer_iterations`` count
+the refiner's calls and outer iterations.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -28,6 +38,7 @@ import numpy as np
 import torch
 
 from visionworkbench_torch.core.device import as_tensor, scalar, sqrt_rn
+from visionworkbench_torch.core.profiling import span
 from visionworkbench_torch.image.edge import crop_extended, edge_extend
 from visionworkbench_torch.image.filters import derivative_filter
 from visionworkbench_torch.image.interpolation import interpolate
@@ -36,6 +47,12 @@ from visionworkbench_torch.image.transform import _dest_grid
 from visionworkbench_torch.stereo.correlation import DisparityMap, _reciprocal
 from visionworkbench_torch.stereo.disparity import disparity_subsample
 from visionworkbench_torch.stereo.prefilter import PREFILTER_NONE, prefilter_image
+
+# Calls of the dense affine / Bayes-EM refiner (:func:`_em_affine_dense`, one
+# a refiner level) and the outer iterations they ran, since the counts were
+# last set to 0.
+em_calls = 0
+em_outer_iterations = 0
 
 
 def _sample(img, x, y):
@@ -242,6 +259,14 @@ def _weight_template(kw: int, kh: int) -> np.ndarray:
     return (w / w.sum()).astype("float32")
 
 
+@functools.lru_cache(maxsize=None)
+def _weight_template_on(kw: int, kh: int, device: torch.device) -> torch.Tensor:
+    """:func:`_weight_template` on ``device``, copied there once for each
+    (kw, kh, device): a pageable copy to the card waits for all the work
+    queued before it, so a copy a call would hold the host at every call."""
+    return torch.as_tensor(_weight_template(kw, kh), device=device)
+
+
 def _solve6(A, b):
     """Unrolled 6x6 Cholesky solve, elementwise over (H, W) maps.
 
@@ -312,6 +337,8 @@ def _em_affine_dense(disp, valid, left, right, kw: int, kh: int,
     mixture denominator computes with gamma 0 and poisons the pixel, which
     ends invalid (the reference's NaN path).
     """
+    global em_calls, em_outer_iterations
+    em_calls += 1
     h, w = left.shape
     dev = left.device
     k2w, k2h = kw // 2, kh // 2
@@ -320,67 +347,76 @@ def _em_affine_dense(disp, valid, left, right, kw: int, kh: int,
     m = k2w + 2  # stencil margin: tap + cell shift + bilinear
     mh = k2h + 2
 
-    x_deriv = derivative_filter(left, 1, 0)
-    y_deriv = derivative_filter(left, 0, 1)
+    with span("em.inputs"):
+        x_deriv = derivative_filter(left, 1, 0)
+        y_deriv = derivative_filter(left, 0, 1)
+        lpad = edge_extend(left, k2w, k2h)
+        xpad = edge_extend(x_deriv, k2w, k2h)
+        ypad = edge_extend(y_deriv, k2w, k2h)
 
-    wt = _weight_template(kw, kh)
-    zero = scalar(0.0, left)
+    with span("em.weights"):
+        # Per-pixel window weight normalization (adjust_weight_image).
+        wt = _weight_template(kw, kh)
+        validf = valid.to(torch.float32)
+        vpad = edge_extend(validf, k2w, k2h, mode="zero")
+        wsum = torch.zeros_like(left)
+        good = torch.zeros_like(left)
+        for jj in range(kh):
+            for ii in range(kw):
+                vtap = vpad[jj:jj + h, ii:ii + w]
+                wsum = wsum + float(wt[jj, ii]) * vtap
+                good = good + vtap
+        ok_weights = good >= (kern_pixels // 2)
+        wsum = torch.clamp(wsum, min=1e-20)
 
-    # Per-pixel window weight normalization (adjust_weight_image).
-    validf = valid.to(torch.float32)
-    vpad = edge_extend(validf, k2w, k2h, mode="zero")
-    wsum = torch.zeros_like(left)
-    good = torch.zeros_like(left)
-    for jj in range(kh):
-        for ii in range(kw):
-            vtap = vpad[jj:jj + h, ii:ii + w]
-            wsum = wsum + float(wt[jj, ii]) * vtap
-            good = good + vtap
-    ok_weights = good >= (kern_pixels // 2)
-    wsum = torch.clamp(wsum, min=1e-20)
+    with span("em.warp"):
+        zero = scalar(0.0, left)
+        dispf = disp.to(torch.float32)
+        dint = torch.round(dispf).to(torch.int32)
+        frac0 = dispf - dint.to(torch.float32)
 
-    lpad = edge_extend(left, k2w, k2h)
-    xpad = edge_extend(x_deriv, k2w, k2h)
-    ypad = edge_extend(y_deriv, k2w, k2h)
+        rh, rw = right.shape
+        qy = torch.arange(-mh, h + mh, dtype=torch.int32, device=dev)[:, None]
+        qx = torch.arange(-m, w + m, dtype=torch.int32, device=dev)[None, :]
+        rflat = right.reshape(-1)
 
-    dispf = disp.to(torch.float32)
-    dint = torch.round(dispf).to(torch.int32)
-    frac0 = dispf - dint.to(torch.float32)
+        def warp(fold):
+            """G(q) = right(q + dint(q) + fold(q)) on the margin-extended grid
+            (edge-replicated warp field; clipped reads)."""
+            wf = dint + fold
+            wx = crop_extended(wf[..., 0], -m, -mh, w + 2 * m, h + 2 * mh)
+            wy = crop_extended(wf[..., 1], -m, -mh, w + 2 * m, h + 2 * mh)
+            ty = (qy + wy).clamp(0, rh - 1).long()
+            tx = (qx + wx).clamp(0, rw - 1).long()
+            return rflat[ty * rw + tx]
 
-    rh, rw = right.shape
-    qy = torch.arange(-mh, h + mh, dtype=torch.int32, device=dev)[:, None]
-    qx = torch.arange(-m, w + m, dtype=torch.int32, device=dev)[None, :]
-    rflat = right.reshape(-1)
+        n_em = max(em_iters, 1)
+        use_em = em_iters > 0
+        # The JAX package's re-warp switch (read here on every call; there, once
+        # per trace): warp-once reuses iteration 1's G, later offsets riding the
+        # stencil clip; re-warp folds the integer translation into the warp
+        # field every iteration (the reference-faithful mode).
+        rewarp = os.environ.get("VWTPU_EM_REWARP", "0") == "1"
+        fold0 = torch.round(frac0).to(torch.int32)
+        G0 = None if rewarp else warp(fold0)
 
-    def warp(fold):
-        """G(q) = right(q + dint(q) + fold(q)) on the margin-extended grid
-        (edge-replicated warp field; clipped reads)."""
-        wf = dint + fold
-        wx = crop_extended(wf[..., 0], -m, -mh, w + 2 * m, h + 2 * mh)
-        wy = crop_extended(wf[..., 1], -m, -mh, w + 2 * m, h + 2 * mh)
-        ty = (qy + wy).clamp(0, rh - 1).long()
-        tx = (qx + wx).clamp(0, rw - 1).long()
-        return rflat[ty * rw + tx]
+        var2_plane, var2_noise = 1e-3, 1e-2
+        two_var_plane = scalar(2 * var2_plane, left)
+        two_var_noise = scalar(2 * var2_noise, left)
+        pnf = 1.0 / math.sqrt(2 * math.pi * var2_plane)
+        nnf = 1.0 / math.sqrt(2 * math.pi * var2_noise)
+        kern_px = scalar(kern_pixels, left)
+        wt_dev = _weight_template_on(kw, kh, dev)
+        iiv = torch.arange(-k2w, k2w + 1, dtype=torch.float32, device=dev)[:, None, None]
+        ii2 = iiv * iiv
 
-    n_em = max(em_iters, 1)
-    use_em = em_iters > 0
-    # The JAX package's re-warp switch (read here on every call; there, once
-    # per trace): warp-once reuses iteration 1's G, later offsets riding the
-    # stencil clip; re-warp folds the integer translation into the warp
-    # field every iteration (the reference-faithful mode).
-    rewarp = os.environ.get("VWTPU_EM_REWARP", "0") == "1"
-    fold0 = torch.round(frac0).to(torch.int32)
-    G0 = None if rewarp else warp(fold0)
-
-    var2_plane, var2_noise = 1e-3, 1e-2
-    two_var_plane = scalar(2 * var2_plane, left)
-    two_var_noise = scalar(2 * var2_noise, left)
-    pnf = 1.0 / math.sqrt(2 * math.pi * var2_plane)
-    nnf = 1.0 / math.sqrt(2 * math.pi * var2_noise)
-    kern_px = scalar(kern_pixels, left)
-    wt_dev = torch.as_tensor(wt, device=dev)   # one copy to the card a call
-    iiv = torch.arange(-k2w, k2w + 1, dtype=torch.float32, device=dev)[:, None, None]
-    ii2 = iiv * iiv
+        # the start state: identity affine windows, nothing frozen
+        one, nil = torch.ones_like(left), torch.zeros_like(left)
+        d = [one, nil, nil, nil, one, nil]
+        fold = fold0
+        prev = torch.zeros_like(left)
+        frozen = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        poisoned = torch.zeros((h, w), dtype=torch.bool, device=dev)
 
     def outer_body(it, d, fold, prev_sum, frozen, poisoned):
         # abort check at iteration top (Correlate.cc:212-217)
@@ -539,22 +575,19 @@ def _em_affine_dense(disp, valid, left, right, kw: int, kh: int,
             fold = torch.where(upd[..., None], torch.stack([nfx, nfy], -1), fold)
         return d_out, fold, new_prev, new_frozen, poisoned
 
-    one, nil = torch.ones_like(left), torch.zeros_like(left)
-    d = [one, nil, nil, nil, one, nil]
-    fold = fold0
-    prev = torch.zeros_like(left)
-    frozen = torch.zeros((h, w), dtype=torch.bool, device=dev)
-    poisoned = torch.zeros((h, w), dtype=torch.bool, device=dev)
     for it in range(outer_iters):
-        d, fold, prev, frozen, poisoned = outer_body(it, d, fold, prev, frozen, poisoned)
+        with span("em.iter"):
+            d, fold, prev, frozen, poisoned = outer_body(it, d, fold, prev, frozen, poisoned)
+        em_outer_iterations += 1
 
-    trans = sqrt_rn(d[2] * d[2] + d[5] * d[5])
-    bad = (trans > max_trans) | ~torch.isfinite(d[2]) | ~torch.isfinite(d[5])
-    bad = bad | poisoned   # mixture-denominator poisoning (see above)
-    out_valid = valid & ok_weights & ~bad
-    out = dispf + torch.stack([torch.where(bad, zero, d[2]),
-                               torch.where(bad, zero, d[5])], -1)
-    return torch.where(out_valid[..., None], out, zero), out_valid
+    with span("em.finish"):
+        trans = sqrt_rn(d[2] * d[2] + d[5] * d[5])
+        bad = (trans > max_trans) | ~torch.isfinite(d[2]) | ~torch.isfinite(d[5])
+        bad = bad | poisoned   # mixture-denominator poisoning (see above)
+        out_valid = valid & ok_weights & ~bad
+        out = dispf + torch.stack([torch.where(bad, zero, d[2]),
+                                   torch.where(bad, zero, d[5])], -1)
+        return torch.where(out_valid[..., None], out, zero), out_valid
 
 
 def _boxmean(a, wf, rad: int):
@@ -593,40 +626,42 @@ def bayes_em_subpixel(disparity: DisparityMap, left, right, kernel_size,
     max(64, 8 * kernel) px. ``max_pyramid_levels=0`` is a single
     full-resolution solve. ``fine_outer_iters`` (0 = ``outer_iters``) sets
     the finest level's outer iterations when a coarser level seeds it."""
-    left, right = _inputs(disparity, left, right, prefilter_mode, prefilter_width)
     kw, kh = int(kernel_size[0]), int(kernel_size[1])
-    levels = max(int(max_pyramid_levels), 0)
-    h0, w0 = left.shape[0], left.shape[1]
-    min_dim = max(64, 8 * max(kw, kh))
-    while levels > 0 and min(h0 >> levels, w0 >> levels) < min_dim:
-        levels -= 1
-    fine_iters = int(fine_outer_iters) if fine_outer_iters else int(outer_iters)
-    if levels == 0:
-        fine_iters = int(outer_iters)   # no seed to lean on
+    with span("em.inputs"):
+        left, right = _inputs(disparity, left, right, prefilter_mode, prefilter_width)
+        levels = max(int(max_pyramid_levels), 0)
+        h0, w0 = left.shape[0], left.shape[1]
+        min_dim = max(64, 8 * max(kw, kh))
+        while levels > 0 and min(h0 >> levels, w0 >> levels) < min_dim:
+            levels -= 1
+        fine_iters = int(fine_outer_iters) if fine_outer_iters else int(outer_iters)
+        if levels == 0:
+            fine_iters = int(outer_iters)   # no seed to lean on
 
-    lp, rp = [left], [right]
-    dms = [disparity]
-    for _ in range(levels):
-        lp.append(subsample2(lp[-1]))
-        rp.append(subsample2(rp[-1]))
-        dms.append(disparity_subsample(dms[-1]))
+        lp, rp = [left], [right]
+        dms = [disparity]
+        for _ in range(levels):
+            lp.append(subsample2(lp[-1]))
+            rp.append(subsample2(rp[-1]))
+            dms.append(disparity_subsample(dms[-1]))
 
     dm = dms[-1]
     for i in range(levels, 0, -1):
         d, v = _em_affine_dense(dm.disparity, dm.valid, lp[i], rp[i],
                                 kw, kh, int(em_iters), int(outer_iters))
-        # Feed forward the smooth part of (refined - seed): the integer warp
-        # of the finer level must not flip across windows on per-pixel
-        # coarse noise.
-        delta = d - dm.disparity
-        ok = v & (delta.abs().amax(-1) <= 1.25)
-        sm = _boxmean(torch.where(ok[..., None], delta, scalar(0.0, delta)),
-                      ok.to(torch.float32), 4)
-        up = (sm * 2.0).repeat_interleave(2, 0).repeat_interleave(2, 1)
-        th, tw = lp[i - 1].shape
-        corr = crop_extended(up[:th, :tw], 0, 0, tw, th)
-        seed = dms[i - 1]
-        dm = DisparityMap(seed.disparity + corr, seed.valid)
+        with span("em.finish"):
+            # Feed forward the smooth part of (refined - seed): the integer
+            # warp of the finer level must not flip across windows on
+            # per-pixel coarse noise.
+            delta = d - dm.disparity
+            ok = v & (delta.abs().amax(-1) <= 1.25)
+            sm = _boxmean(torch.where(ok[..., None], delta, scalar(0.0, delta)),
+                          ok.to(torch.float32), 4)
+            up = (sm * 2.0).repeat_interleave(2, 0).repeat_interleave(2, 1)
+            th, tw = lp[i - 1].shape
+            corr = crop_extended(up[:th, :tw], 0, 0, tw, th)
+            seed = dms[i - 1]
+            dm = DisparityMap(seed.disparity + corr, seed.valid)
 
     d, valid = _em_affine_dense(dm.disparity, dm.valid, left, right,
                                 kw, kh, int(em_iters), fine_iters)
